@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dana_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--requests 3] [--batch 8]
+    python3 chip_smoke.py [--seed 0]
 
 Run from the repository root.  Phases, each of which fails the run:
   1. device: a CUDA card must be present; prints its name and power
@@ -14,13 +14,14 @@ Run from the repository root.  Phases, each of which fails the run:
      path gives it plus edge shapes, and timed with CUDA events beside
      its plain version, a library yardstick and its bound;
   4. main path: the DAnA ResNet-50 2-way 3-shot detector with random
-     weights from --seed serves --requests requests of --batch uint8
+     weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
      encoded once.  The launch counters are zeroed just before and read
      just after; every kernel must have launched.  The outputs must be
-     finite and of the right shapes, and the first request, run stage by
-     stage through the kernels and through the plain versions, must
-     agree (tie-aware matching for the detections).
+     finite and of the right shapes, and the first request, served again
+     with the plain versions in place of the kernels (and the kernel
+     path's proposals), must agree: the RPN's scores and deltas, the
+     R-CNN head's outputs and the detections (tie-aware matching).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -40,8 +41,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TOL = 1e-4
+ROI_ATOL = 2e-3               # px: a proposal counted as moved (ROADMAP Queue C)
+BOX_ATOL = 1e-3               # px, detections of a unique score
 QUERY_HW = (608, 1024)        # first query canvas bucket
 SUPPORT_HW = 320
+BATCH = 8                     # queries per request
+REQUESTS = 3
 
 
 def fail(msg):
@@ -88,6 +93,7 @@ def check_cisa(dev, gen):
     from dana_tpu_torch.ops.cisa_attention import (
         cisa_attention_shots, cisa_attention_shots_plain)
     import torch.nn.functional as F
+    from dana_tpu_torch.utils import config as cfg
 
     def library(q, k, v, u, scale, gamma):
         # SDPA over the shots as heads, plus the query-independent unary
@@ -96,10 +102,14 @@ def check_cisa(dev, gen):
             q[:, None].expand(-1, k.shape[1], -1, -1), k, v, scale=scale)
         return (o + gamma * (u[:, :, None, :] @ v)).mean(1)
 
-    # (G, S, Nq, Ns, D, C): the two serving-path sites at B=8, 608x1024
-    # queries and 320px supports, then edge shapes
-    cases = {'rpn': (8, 3, 38 * 64, 400, 256, 1024),
-             'roi': (8, 3, 300 * 49, 49, 256, 1024),
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
+    bins = cfg.POOLING_SIZE ** 2
+    # (G, S, Nq, Ns, D, C): the two serving-path sites of a request, then
+    # edge shapes
+    cases = {'rpn': (BATCH, 3, fh * fw, ns_rpn, 256, 1024),
+             'roi': (BATCH, 3, cfg.TEST_RPN_POST_NMS_TOP_N * bins, bins, 256,
+                     1024),
              'ns1': (2, 3, 1000, 1, 256, 1024),
              'ragged': (3, 2, 77, 57, 256, 1100)}
     err, sites = 0.0, {}
@@ -134,13 +144,13 @@ def check_cisa(dev, gen):
     return err, sites
 
 
-def _sample_counts(rois, p, max_samples=16):
+def _sample_counts(rois, p):
     """Samples per bin axis that these rois need (the kernel's rule)."""
     r = rois[..., -4:] / 16.0
     ext = torch.stack([r[..., 3] - r[..., 1], r[..., 2] - r[..., 0]],
                       -1).clamp(min=1.0)
     q = torch.floor(ext / p)
-    return (q + (q * p < ext).float()).clamp(1, max_samples)
+    return (q + (q * p < ext).float()).clamp(1, 16)       # max_samples
 
 
 def serving_rois(b, r, gen, dev):
@@ -163,8 +173,10 @@ def serving_rois(b, r, gen, dev):
 
 def check_roi_align(dev, gen):
     from dana_tpu_torch.ops.roi_align import roi_align, roi_align_plain
-    b, r, c, p = 8, 300, 1024, 7
-    fh, fw = QUERY_HW[0] // 16, QUERY_HW[1] // 16
+    from dana_tpu_torch.utils import config as cfg
+    b, r, c = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, 1024
+    p = cfg.POOLING_SIZE
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
     rois = serving_rois(b, r, gen, dev)
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
@@ -219,72 +231,96 @@ def match_detections(da, db, coord_atol):
             fail(f'detection boxes differ at score {s}')
 
 
-def compare_paths(pred, config, query, info, classes, dev):
-    """Request 0 through the kernels and through the plain versions, stage
-    by stage on the same inputs: the RPN-site attention, then RoIAlign and
-    the RoI head on the kernel path's proposals, then the detections.
-    (Whole forwards are not compared: a random-init RPN has near-equal
-    proposal scores whose order float32 sum order can flip.)"""
-    from dana_tpu_torch.engine.postprocess import postprocess_batch
-    from dana_tpu_torch.models import dana, resnet
-    from dana_tpu_torch.utils import config as cfg
+@contextlib.contextmanager
+def pinned_proposals(record, pinned=None):
+    """Append every proposal-layer call's (inputs, outputs) to `record`;
+    with `pinned`, hand the detector those proposals instead of its own."""
+    from dana_tpu_torch.models import rpn
+    real = rpn.proposal_layer
 
-    model, n = pred.model, config.n_shot
-    with torch.inference_mode():
-        im_info = torch.as_tensor(info, device=dev)
-        sup_feat, sup_pooled = pred.batch_support_feats(classes)
-        im = dana.prep_query_images(
-            config, torch.as_tensor(query, device=dev)).float()
-        base = resnet.base_forward(im, model.backbone)
-        rois = dana.forward(model, config, im, im_info,
-                            support_feats=(sup_feat, sup_pooled))['rois']
-        out = {}
-        for path in ('kernel', 'plain'):
-            with plain_ops() if path == 'plain' else contextlib.nullcontext():
-                corr = dana.rpn_attention(model, config, base,
-                                          sup_feat[:, :n])
-                pooled = dana._pool_rois(config, base, rois)
-                bbox, prob, _ = dana.rcnn_head(model, config, pooled,
-                                               sup_pooled[:, :n])
-            dets = postprocess_batch(
-                rois, prob, bbox, im_info,
-                bbox_stds=config.bbox_normalize_stds,
-                bbox_means=config.bbox_normalize_means,
-                score_thresh=cfg.TEST_SCORE_THRESH, nms_thresh=cfg.TEST_NMS,
-                max_per_image=cfg.TEST_MAX_PER_IMAGE)
-            out[path] = dict(corr=corr, pooled=pooled, bbox_pred=bbox,
-                             cls_prob=prob, dets=dets)
-    k, p = out['kernel'], out['plain']
-    diffs = {name: check_close(f'main path {name}', k[name], p[name])
-             for name in ('corr', 'pooled', 'bbox_pred', 'cls_prob')}
-    print(f'kernel vs plain path on request 0: max |diff| {diffs}',
-          flush=True)
-    (dk, vk), (dp, vp) = ([x.cpu().numpy() for x in o['dets']]
-                          for o in (k, p))
+    def layer(probs_fg, deltas, *args, **kwargs):
+        out = real(probs_fg, deltas, *args, **kwargs)
+        record.append(((probs_fg, deltas), out))
+        return out if pinned is None else pinned
+    rpn.proposal_layer = layer
+    try:
+        yield
+    finally:
+        rpn.proposal_layer = real
+
+
+def compare_paths(pred, query, info, classes):
+    """Request 0 through the kernels and through the plain versions.  The
+    RPN's scores and deltas, the R-CNN head's outputs and the served
+    detections must agree.  The plain path is given the kernel path's
+    proposals: the proposal layer ranks 21888 anchors whose float32
+    scores differ in the last bits between the paths, so near-equal
+    neighbours swap places and NMS then keeps a few other boxes (the
+    count is printed)."""
+    from dana_tpu_torch.models import dana
+    runs = {}
+    for path in ('kernel', 'plain'):
+        record = []
+        pinned = runs['kernel'][0][0][1] if path == 'plain' else None
+        with plain_ops() if path == 'plain' else contextlib.nullcontext(), \
+                pinned_proposals(record, pinned), torch.inference_mode():
+            fwd = dana.forward(
+                pred.model, pred.config,
+                torch.as_tensor(query, device=pred.device),
+                torch.as_tensor(info, device=pred.device),
+                support_feats=pred.batch_support_feats(classes))
+            runs[path] = record, fwd, pred.predict(query, info, classes)
+    (rec_k, fk, kdets), (rec_p, fp, pdets) = runs['kernel'], runs['plain']
+    (scores_k, deltas_k), (rois_k, _, mask_k) = rec_k[0]
+    (scores_p, deltas_p), (rois_p, _, mask_p) = rec_p[0]
+    diffs = {'rpn_scores': check_close('main path rpn scores', scores_k,
+                                       scores_p),
+             'rpn_deltas': check_close('main path rpn deltas', deltas_k,
+                                       deltas_p)}
+    diffs.update({name: check_close(f'main path {name}', fk[name], fp[name])
+                  for name in ('cls_prob', 'bbox_pred')})
+    moved = ((mask_k != mask_p)
+             | ((rois_k - rois_p).abs() > ROI_ATOL).any(-1)).sum().item()
+    print(f'kernel vs plain path on request 0: max |diff| {diffs}; the '
+          f'plain path\'s own proposals differ in {moved} of '
+          f'{mask_k.numel()} slots', flush=True)
+    (dk, vk), (dp, vp) = ([x.cpu().numpy() for x in d]
+                          for d in (kdets, pdets))
     for i in range(len(dk)):
-        match_detections(dk[i][vk[i]], dp[i][vp[i]], coord_atol=2e-2)
+        match_detections(dk[i][vk[i]], dp[i][vp[i]], coord_atol=BOX_ATOL)
     print(f'detections (request 0): {vk.sum(1).tolist()} per image, '
           'kernel path == plain path (tie-aware)', flush=True)
 
 
-def main_path(args, dev):
+def serving_predictor(seed):
+    """The served detector: DAnA res50 2-way 3-shot with random weights
+    from `seed`, on the card, the supports of classes 0 and 1 encoded."""
     from dana_tpu_torch.engine.predict import Predictor
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
     from dana_tpu_torch.utils import config as cfg
-
-    config, params = cfg.get_model('res50', way=2, shot=3, seed=args.seed)
-    pred = Predictor(params, config)              # device='cuda' default
-    rng = np.random.default_rng(args.seed)
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    rng = np.random.default_rng(seed)
+    pred = Predictor(params, config)              # device='cuda'
     means = np.asarray(cfg.PIXEL_MEANS, np.float32)
     for cls in range(2):
         sup = rng.integers(0, 256, (config.n_shot, SUPPORT_HW, SUPPORT_HW,
                                     3)).astype(np.float32) - means
         pred.encode_supports(cls, sup)
-    b = args.batch
-    queries = [rng.integers(0, 256, (b, *QUERY_HW, 3), dtype=np.uint8)
-               for _ in range(args.requests)]
-    info = np.tile(np.array([*QUERY_HW, 1.0], np.float32), (b, 1))
-    classes = [[(i + j) % 2 for j in range(b)] for i in range(args.requests)]
+    return pred
+
+
+def serving_requests(seed, n):
+    """n requests of BATCH uint8 queries -> [(query, im_info, classes)]."""
+    rng = np.random.default_rng(seed + 1)
+    info = np.tile(np.array([*QUERY_HW, 1.0], np.float32), (BATCH, 1))
+    return [(rng.integers(0, 256, (BATCH, *QUERY_HW, 3), dtype=np.uint8),
+             info, [(i + j) % 2 for j in range(BATCH)]) for i in range(n)]
+
+
+def main_path(seed):
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+
+    pred = serving_predictor(seed)
+    requests = serving_requests(seed, REQUESTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -292,9 +328,9 @@ def main_path(args, dev):
     roi_align.roi_align.launches = 0
     nms.HOST_SYNCS = 0
     outs, req_ms = [], []
-    for q, cls in zip(queries, classes):
+    for query, info, classes in requests:
         t0 = time.perf_counter()
-        dets, valid = pred.predict(q, info, cls)
+        dets, valid = pred.predict(query, info, classes)
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((dets, valid))
@@ -302,7 +338,7 @@ def main_path(args, dev):
                 'roi_align_fwd': roi_align.roi_align.launches}
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'main path: {args.requests} requests of {b} x {QUERY_HW} uint8, '
+    print(f'main path: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
     for name, n in launches.items():
@@ -310,13 +346,13 @@ def main_path(args, dev):
             fail(f'kernel {name} was not launched on the main path')
 
     for dets, valid in outs:
-        if dets.shape != (b, 100, 5) or valid.shape != (b, 100):
+        if dets.shape != (BATCH, 100, 5) or valid.shape != (BATCH, 100):
             fail(f'bad output shapes {dets.shape}, {valid.shape}')
         if not torch.isfinite(dets).all():
             fail('non-finite detections')
     n_det = [int(v.sum()) for _, v in outs]
 
-    compare_paths(pred, config, queries[0], info, classes[0], dev)
+    compare_paths(pred, *requests[0])
     return launches, dict(req_ms=req_ms, peak_gib=peak, nms_syncs=syncs,
                           detections=n_det)
 
@@ -324,8 +360,6 @@ def main_path(args, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--requests', type=int, default=3)
-    ap.add_argument('--batch', type=int, default=8)
     args = ap.parse_args()
 
     # phase 1: device
@@ -361,7 +395,7 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 4: the serving path
-    launches, summary = main_path(args, dev)
+    launches, summary = main_path(args.seed)
 
     per_req = {'cisa_shots': k1_sites, 'roi_align_fwd': {'roi': k2}}
     print(json.dumps({'serving_summary': summary, 'kernel_sites': per_req}),

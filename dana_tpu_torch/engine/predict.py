@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from dana_tpu_torch.engine.postprocess import postprocess_batch
 from dana_tpu_torch.models import dana
@@ -54,13 +55,16 @@ class Predictor:
         """im_data [B,H,W,3] uint8 BGR or float mean-subtracted, im_info
         [B,3] (height, width, scale), classes [B] whose supports were
         encoded -> (dets [B,100,5], valid [B,100]) on the device."""
-        im_data = torch.as_tensor(im_data, device=self.device)
-        im_info = torch.as_tensor(im_info, device=self.device).float()
+        with record_function('dana.upload'):
+            im_data = torch.as_tensor(im_data, device=self.device)
+            im_info = torch.as_tensor(im_info, device=self.device).float()
+            support_feats = self.batch_support_feats(classes)
         out = dana.forward(self.model, self.config, im_data, im_info,
-                           support_feats=self.batch_support_feats(classes))
-        return postprocess_batch(
-            out['rois'], out['cls_prob'], out['bbox_pred'], im_info,
-            bbox_stds=self.config.bbox_normalize_stds,
-            bbox_means=self.config.bbox_normalize_means,
-            score_thresh=cfg.TEST_SCORE_THRESH, nms_thresh=cfg.TEST_NMS,
-            max_per_image=cfg.TEST_MAX_PER_IMAGE)
+                           support_feats=support_feats)
+        with record_function('dana.postprocess'):
+            return postprocess_batch(
+                out['rois'], out['cls_prob'], out['bbox_pred'], im_info,
+                bbox_stds=self.config.bbox_normalize_stds,
+                bbox_means=self.config.bbox_normalize_means,
+                score_thresh=cfg.TEST_SCORE_THRESH, nms_thresh=cfg.TEST_NMS,
+                max_per_image=cfg.TEST_MAX_PER_IMAGE)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from dana_tpu_torch.core.anchors import generate_anchors, shifted_anchors
 from dana_tpu_torch.models import layers as L
@@ -196,8 +197,9 @@ def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
     """pooled_feat [B,R,7,7,1024], support_pooled [B,shot,7,7,1024] ->
     (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2])."""
     b, r, ph, pw, c = pooled_feat.shape
-    tail = resnet.top_forward(pooled_feat.reshape(b * r, ph, pw, c),
-                              model.backbone).mean(dim=(1, 2))
+    with record_function('dana.rcnn_head.layer4'):
+        tail = resnet.top_forward(pooled_feat.reshape(b * r, ph, pw, c),
+                                  model.backbone).mean(dim=(1, 2))
     bbox_pred = model.RCNN_bbox_pred(tail.reshape(b, r, -1))
 
     pe = _pe(config.pooling_size ** 2, pooled_feat)
@@ -255,7 +257,7 @@ def prep_query_images(config: DanaConfig, im_data):
 
 def _pool_rois(config: DanaConfig, base_feat, rois):
     return roi_align(base_feat, rois.contiguous(), config.pooling_size,
-                     1.0 / config.feat_stride, 0)
+                     1.0 / config.feat_stride)
 
 
 def forward(model: DAnA, config: DanaConfig, im_data, im_info,
@@ -266,32 +268,44 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
     (height, width, scale); either support_ims [B, n_shot, H, W, 3] or
     precomputed support_feats (feat [B,n,h,w,C], pooled [B,n,7,7,C]).
     Returns dict(rois [B,R,5], cls_prob [B,R,2], bbox_pred [B,R,4],
-    cls_score [B,R,2], roi_mask [B,R])."""
-    im_data = prep_query_images(config, im_data).float()
-    base_feat = resnet.base_forward(im_data, model.backbone)
+    cls_score [B,R,2], roi_mask [B,R]).
+
+    Each stage runs inside a `torch.profiler.record_function` range named
+    `dana.<stage>`, so one profiled request gives the time of every stage
+    (tools/profile_torch_predict.py); the ranges cost nothing measurable
+    when no profiler runs."""
+    with record_function('dana.trunk'):
+        im_data = prep_query_images(config, im_data).float()
+        base_feat = resnet.base_forward(im_data, model.backbone)
     _, fh, fw, _ = base_feat.shape
 
     if support_feats is None:
-        support_feats = extract_support_feats(model, config, support_ims)
+        with record_function('dana.support_trunk'):
+            support_feats = extract_support_feats(model, config, support_ims)
     sup_feat, sup_pooled = support_feats
     pos_feat = sup_feat[:, :config.n_shot]
     pos_pooled = sup_pooled[:, :config.n_shot]
 
-    corr = rpn_attention(model, config, base_feat, pos_feat)
-    _, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
+    with record_function('dana.rpn_attention'):
+        corr = rpn_attention(model, config, base_feat, pos_feat)
+    with record_function('dana.rpn_heads'):
+        _, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
 
-    base_anchor = generate_anchors(ratios=config.anchor_ratios,
-                                   scales=np.array(config.anchor_scales))
-    anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
-                              device=base_feat.device)
-    rois, _, roi_mask = rpn_lib.proposal_layer(
-        probs_fg, deltas, anchors, im_info.float(),
-        pre_nms_top_n=config.test_pre_nms,
-        post_nms_top_n=config.test_post_nms,
-        nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
+    with record_function('dana.proposals'):
+        base_anchor = generate_anchors(ratios=config.anchor_ratios,
+                                       scales=np.array(config.anchor_scales))
+        anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
+                                  device=base_feat.device)
+        rois, _, roi_mask = rpn_lib.proposal_layer(
+            probs_fg, deltas, anchors, im_info.float(),
+            pre_nms_top_n=config.test_pre_nms,
+            post_nms_top_n=config.test_post_nms,
+            nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
 
-    pooled = _pool_rois(config, base_feat, rois)               # [B,R,7,7,C]
-    bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
-                                               pos_pooled)
+    with record_function('dana.roi_align'):
+        pooled = _pool_rois(config, base_feat, rois)           # [B,R,7,7,C]
+    with record_function('dana.rcnn_head'):
+        bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
+                                                   pos_pooled)
     return dict(rois=rois, cls_prob=cls_prob, bbox_pred=bbox_pred,
                 cls_score=cls_score, roi_mask=roi_mask)

@@ -20,8 +20,6 @@ from dana_tpu_torch.models import layers as L
 
 ARCH_LAYERS = {
     'resnet50': [3, 4, 6, 3],
-    'resnet101': [3, 4, 23, 3],
-    'resnet152': [3, 8, 36, 3],
 }
 
 

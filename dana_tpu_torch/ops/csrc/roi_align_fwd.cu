@@ -35,16 +35,12 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_SAMPLES = 64;     // samples per axis the kernel supports
 
+// Adaptive samples per bin axis: ceil(extent / pooled), by floor plus
+// exact-product correction, capped at max_samples.
 __device__ __forceinline__ float axis_count(float extent, int pooled,
-                                            int sampling_ratio,
                                             int max_samples) {
-  float cnt;
-  if (sampling_ratio > 0) {
-    cnt = (float)sampling_ratio;
-  } else {
-    const float qf = floorf(__fdiv_rn(extent, (float)pooled));
-    cnt = qf + (__fmul_rn(qf, (float)pooled) < extent ? 1.f : 0.f);
-  }
+  const float qf = floorf(__fdiv_rn(extent, (float)pooled));
+  const float cnt = qf + (__fmul_rn(qf, (float)pooled) < extent ? 1.f : 0.f);
   return fminf(fmaxf(cnt, 1.f), (float)max_samples);
 }
 
@@ -71,8 +67,7 @@ __global__ void __launch_bounds__(THREADS)
 roi_align_fwd_kernel(const float* __restrict__ feat,
                      const float* __restrict__ rois, float* __restrict__ out,
                      int R, int H, int W, int C, int roi_cols, int P,
-                     float spatial_scale, int sampling_ratio,
-                     int max_samples) {
+                     float spatial_scale, int max_samples) {
   __shared__ int ylo[MAX_SAMPLES], yhi[MAX_SAMPLES];
   __shared__ int xlo[MAX_SAMPLES], xhi[MAX_SAMPLES];
   __shared__ float wylo[MAX_SAMPLES], wyhi[MAX_SAMPLES];
@@ -92,8 +87,8 @@ roi_align_fwd_kernel(const float* __restrict__ feat,
   const float ext_x = fmaxf(__fsub_rn(x2, x1), 1.f);
   const float bin_y = __fdiv_rn(ext_y, (float)P);
   const float bin_x = __fdiv_rn(ext_x, (float)P);
-  const float cy = axis_count(ext_y, P, sampling_ratio, max_samples);
-  const float cx = axis_count(ext_x, P, sampling_ratio, max_samples);
+  const float cy = axis_count(ext_y, P, max_samples);
+  const float cx = axis_count(ext_x, P, max_samples);
   const int ny = (int)cy, nx = (int)cx;
 
   const int tid = threadIdx.x;
@@ -135,14 +130,13 @@ extern "C" int roi_align_fwd_max_samples() { return MAX_SAMPLES; }
 extern "C" int roi_align_fwd_f32(const void* feat, const void* rois, void* out,
                                  int B, int R, int H, int W, int C,
                                  int roi_cols, int P, float spatial_scale,
-                                 int sampling_ratio, int max_samples,
-                                 void* stream) {
+                                 int max_samples, void* stream) {
   if (max_samples > MAX_SAMPLES)
     return (int)cudaErrorInvalidValue;
   const size_t blocks = (size_t)B * R * P * P;
   if (blocks == 0) return (int)cudaSuccess;
   roi_align_fwd_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)feat, (const float*)rois, (float*)out, R, H, W, C,
-      roi_cols, P, spatial_scale, sampling_ratio, max_samples);
+      roi_cols, P, spatial_scale, max_samples);
   return (int)cudaGetLastError();
 }

@@ -21,19 +21,15 @@ import torch
 from dana_tpu_torch.ops import build
 
 
-def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int,
-                  sampling_ratio: int):
+def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
     """[..., pooled, size] interpolation weights for one axis from roi
     start/end `lo`, `hi` [...] in feature coordinates."""
     extent = torch.clamp(hi - lo, min=1.0)
     bin_sz = extent / pooled
-    if sampling_ratio > 0:
-        count = torch.full_like(extent, float(sampling_ratio))
-    else:
-        # ceil(extent / pooled), exact for every extent: a reciprocal
-        # multiply would make ceil(21 * (1/7)) = 4
-        q = torch.floor(extent / pooled)
-        count = q + (q * pooled < extent).to(q.dtype)
+    # ceil(extent / pooled), exact for every extent: a reciprocal multiply
+    # would make ceil(21 * (1/7)) = 4
+    q = torch.floor(extent / pooled)
+    count = q + (q * pooled < extent).to(q.dtype)
     count = torch.clamp(count, 1, max_samples)
 
     dev, dt = lo.device, lo.dtype
@@ -57,16 +53,15 @@ def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int,
 
 
 def roi_align_plain(feat, rois, output_size: int = 7,
-                    spatial_scale: float = 1.0 / 16.0,
-                    sampling_ratio: int = 0, max_samples: int = 16):
+                    spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
     """feat [B,H,W,C] float32, rois [B,R,4|5] (a leading batch-index
     column is ignored; rois are grouped per image) -> [B,R,P,P,C]."""
     b, h, w, c = feat.shape
     r = rois[..., -4:].float() * spatial_scale
-    wy = _axis_weights(r[..., 1], r[..., 3], h, output_size, max_samples,
-                       sampling_ratio)                          # [B,R,P,H]
-    wx = _axis_weights(r[..., 0], r[..., 2], w, output_size, max_samples,
-                       sampling_ratio)                          # [B,R,P,W]
+    wy = _axis_weights(r[..., 1], r[..., 3], h, output_size,
+                       max_samples)                             # [B,R,P,H]
+    wx = _axis_weights(r[..., 0], r[..., 2], w, output_size,
+                       max_samples)                             # [B,R,P,W]
     outs = []
     for i in range(b):      # per image: the [R,P,W,C] stage is large
         tmp = torch.einsum('rph,hwc->rpwc', wy[i], feat[i])
@@ -79,20 +74,19 @@ def _lib():
     if lib.roi_align_fwd_f32.argtypes is None:
         lib.roi_align_fwd_f32.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.roi_align_fwd_f32.restype = ctypes.c_int
         lib.roi_align_fwd_max_samples.restype = ctypes.c_int
     return lib
 
 
 def roi_align(feat, rois, output_size: int = 7,
-              spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 0,
-              max_samples: int = 16):
+              spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
     """RoIAlign forward: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Same arguments as `roi_align_plain`."""
     if feat.device.type == 'cpu':
         return roi_align_plain(feat, rois, output_size, spatial_scale,
-                               sampling_ratio, max_samples)
+                               max_samples)
     if feat.device.type != 'cuda' or rois.device != feat.device:
         raise ValueError('roi_align: feat and rois must be on one CUDA '
                          f'device (got {feat.device}, {rois.device})')
@@ -116,8 +110,8 @@ def roi_align(feat, rois, output_size: int = 7,
     with torch.cuda.device(feat.device):
         err = lib.roi_align_fwd_f32(
             feat.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
-            rois.shape[-1], output_size, spatial_scale, sampling_ratio,
-            max_samples, torch.cuda.current_stream(feat.device).cuda_stream)
+            rois.shape[-1], output_size, spatial_scale, max_samples,
+            torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_fwd')
     roi_align.launches += 1
     return out

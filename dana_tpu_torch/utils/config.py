@@ -29,20 +29,20 @@ NMS_MAX_INPUT = 12000
 BBOX_NORMALIZE_MEANS = (0.0, 0.0, 0.0, 0.0)
 BBOX_NORMALIZE_STDS = (0.1, 0.1, 0.2, 0.2)
 
-_ARCHS = {'res50': 'resnet50', 'res101': 'resnet101'}
+_ARCHS = {'res50': 'resnet50'}
 
 
-def get_model(name='res50', way=2, shot=3, use_BA_block=True, seed=1996):
+def get_model(name='res50', way=2, shot=3, seed=1996):
     """-> (DanaConfig, numpy param tree in the JAX layout), the `way`-way
-    `shot`-shot DAnA detector on a ResNet trunk with random weights from
-    `seed`."""
+    `shot`-shot DAnA detector (BA block on) on a ResNet-50 trunk with
+    random weights from `seed`."""
     from dana_tpu_torch.models import dana
     if name not in _ARCHS:
         raise ValueError(f'network {name!r} is not part of the port '
                          f'(have {sorted(_ARCHS)})')
     config = dana.DanaConfig(
         n_way=way, n_shot=shot, arch=_ARCHS[name],
-        semantic_enhance=use_BA_block,
+        semantic_enhance=True,
         anchor_scales=ANCHOR_SCALES, anchor_ratios=ANCHOR_RATIOS,
         pooling_size=POOLING_SIZE,
         test_pre_nms=TEST_RPN_PRE_NMS_TOP_N,

@@ -229,8 +229,8 @@ def test_roi_align_plain_matches_jax(p):
 def test_roi_align_sample_cap_binds():
     """The capped roi averages 16 samples per axis, not ceil(125/7)=18."""
     lo, hi = torch.tensor([0.0]), torch.tensor([2000.0 / 16])
-    w16 = troi._axis_weights(lo, hi, 12, 7, 16, 0)
-    w64 = troi._axis_weights(lo, hi, 12, 7, 64, 0)
+    w16 = troi._axis_weights(lo, hi, 12, 7, 16)
+    w64 = troi._axis_weights(lo, hi, 12, 7, 64)
     assert not torch.allclose(w16, w64)
 
 

@@ -1,110 +1,85 @@
 #!/usr/bin/env python3
 """Where a serving request's time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/profile_torch_predict.py [--seed 0] [--batch 8] [--iters 5]
+    python3 tools/profile_torch_predict.py [--seed 0] [--iters 10]
+        [--trace .scratch/profile_torch_predict.trace.json]
 
 Builds the predictor that chip_smoke.py drives (DAnA ResNet-50 2-way
 3-shot, random weights from --seed, two classes' 320px supports encoded
-once) and sends --iters requests of --batch uint8 608x1024 queries.  Each
-request runs the stages of `dana.forward` and the postprocess one after
-another with a CUDA event between stages, so a stage's time includes any
-device idle time its host synchronisations cause.  One more request runs
-under torch.profiler for the kernels with the most device time and the
-device's busy share.  The last line is one JSON object with the medians.
+once) and sends requests of 8 uint8 608x1024 queries through
+`Predictor.predict`: --iters of them untraced for the wall time per
+request, then --iters under torch.profiler, whose trace is written to
+--trace (it opens in Perfetto).  The stages are the `dana.*`
+record_function ranges of `models/dana.py` `forward` and
+`engine/predict.py`.  Every kernel and copy on the card is charged to the
+ranges that were open on the host when it was launched (the trace's
+correlation ids), which also covers the hand-written kernels launched
+through ctypes; a stage's host time includes any wait on the card.  Also
+printed: the kernels with the most device time and the device's idle
+share.  The last line is one JSON object with the per-request numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
-sys.path.insert(0, __file__.rsplit('/tools/', 1)[0])
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-QUERY_HW = (608, 1024)
-SUPPORT_HW = 320
-
-
-def staged_request(pred, query, info, classes):
-    """One request, stage by stage -> (dets, {stage: device ms})."""
-    from dana_tpu_torch.core.anchors import generate_anchors, shifted_anchors
-    from dana_tpu_torch.engine.postprocess import postprocess_batch
-    from dana_tpu_torch.models import dana, resnet
-    from dana_tpu_torch.models import rpn as rpn_lib
-    from dana_tpu_torch.utils import config as cfg
-
-    model, config = pred.model, pred.config
-    names, events = [], [torch.cuda.Event(enable_timing=True)]
-
-    def mark(name):
-        names.append(name)
-        events.append(torch.cuda.Event(enable_timing=True))
-        events[-1].record()
-
-    with torch.inference_mode():
-        events[0].record()
-        im = torch.as_tensor(query, device=pred.device)
-        im_info = torch.as_tensor(info, device=pred.device)
-        sup_feat, sup_pooled = pred.batch_support_feats(classes)
-        mark('upload')
-        base = resnet.base_forward(dana.prep_query_images(config, im).float(),
-                                   model.backbone)
-        mark('trunk (conv1-layer3)')
-        corr = dana.rpn_attention(model, config, base,
-                                  sup_feat[:, :config.n_shot])
-        mark('rpn attention (K1)')
-        _, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
-        mark('rpn heads')
-        anchors = shifted_anchors(
-            base.shape[1], base.shape[2], config.feat_stride,
-            generate_anchors(ratios=config.anchor_ratios,
-                             scales=np.array(config.anchor_scales)),
-            device=pred.device)
-        rois, _, _ = rpn_lib.proposal_layer(
-            probs_fg, deltas, anchors, im_info,
-            pre_nms_top_n=config.test_pre_nms,
-            post_nms_top_n=config.test_post_nms,
-            nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
-        mark('proposals (top-k + NMS)')
-        pooled = dana._pool_rois(config, base, rois)
-        mark('roi align (K2)')
-        bbox, prob, _ = dana.rcnn_head(model, config, pooled,
-                                       sup_pooled[:, :config.n_shot])
-        mark('rcnn head (layer4 + K1 + FFN)')
-        dets = postprocess_batch(
-            rois, prob, bbox, im_info,
-            bbox_stds=config.bbox_normalize_stds,
-            bbox_means=config.bbox_normalize_means,
-            score_thresh=cfg.TEST_SCORE_THRESH, nms_thresh=cfg.TEST_NMS,
-            max_per_image=cfg.TEST_MAX_PER_IMAGE)
-        mark('postprocess (NMS)')
-        resnet.top_forward(pooled.reshape(-1, *pooled.shape[2:]),
-                           model.backbone)
-        mark('of which layer4 tail (re-run)')
-    torch.cuda.synchronize()
-    return dets, {n: events[i].elapsed_time(events[i + 1])
-                  for i, n in enumerate(names)}
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
-def device_ms(evt):
-    """Self device time of a profiler event, in ms."""
-    us = getattr(evt, 'self_device_time_total', None)
-    if us is None:
-        us = getattr(evt, 'self_cuda_time_total', 0)
-    return us / 1e3
+def stage_times(trace_path, iters):
+    """-> ({stage: (device ms, host ms)} per request, device busy ms per
+    request, {kernel name: (device ms per request, calls per request)})."""
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    ranges, launch_ts, device = [], {}, []
+    for e in events:
+        cat, args = e.get('cat', ''), e.get('args', {})
+        if cat == 'user_annotation' and e['name'].startswith('dana.'):
+            ranges.append((e['name'], e['ts'], e['ts'] + e['dur']))
+        elif cat in ('cuda_runtime', 'cuda_driver') and 'correlation' in args:
+            launch_ts[args['correlation']] = e['ts']
+        elif cat in DEVICE_CATS:
+            device.append((e['name'], args.get('correlation'), e['dur']))
+    dev_us = collections.Counter()
+    host_us = collections.Counter()
+    for name, t0, t1 in ranges:
+        host_us[name] += t1 - t0
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    for name, corr, dur in device:
+        kernels[name][0] += dur
+        kernels[name][1] += 1
+        ts = launch_ts.get(corr)
+        if ts is None:
+            continue
+        for stage, t0, t1 in ranges:
+            if t0 <= ts <= t1:
+                dev_us[stage] += dur
+    busy = sum(dur for _, _, dur in device) / 1e3 / iters
+    stages = {k: (dev_us[k] / 1e3 / iters, host_us[k] / 1e3 / iters)
+              for k in sorted(host_us)}
+    kernels = {k: (v[0] / 1e3 / iters, v[1] / iters)
+               for k, v in kernels.items()}
+    return stages, busy, kernels
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--batch', type=int, default=8)
-    ap.add_argument('--iters', type=int, default=5)
+    ap.add_argument('--iters', type=int, default=10)
+    ap.add_argument('--trace', default=os.path.join(
+        REPO, '.scratch', 'profile_torch_predict.trace.json'))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('profile_torch_predict: no CUDA device')
@@ -113,59 +88,61 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
 
-    from dana_tpu_torch.engine.predict import Predictor
+    import chip_smoke
     from dana_tpu_torch.ops import build
-    from dana_tpu_torch.utils import config as cfg
     build.build_all()
-    config, params = cfg.get_model('res50', way=2, shot=3, seed=args.seed)
-    pred = Predictor(params, config)
-    rng = np.random.default_rng(args.seed)
-    means = np.asarray(cfg.PIXEL_MEANS, np.float32)
-    for c in range(2):
-        pred.encode_supports(c, rng.integers(
-            0, 256, (config.n_shot, SUPPORT_HW, SUPPORT_HW, 3)
-        ).astype(np.float32) - means)
-    b = args.batch
-    info = np.tile(np.array([*QUERY_HW, 1.0], np.float32), (b, 1))
-    classes = [c % 2 for c in range(b)]
-    query = rng.integers(0, 256, (b, *QUERY_HW, 3), dtype=np.uint8)
+    pred = chip_smoke.serving_predictor(args.seed)
+    query, info, classes = chip_smoke.serving_requests(args.seed, 1)[0]
 
-    pred.predict(query, info, classes)            # warm-up
-    torch.cuda.synchronize()
-    stages, walls = [], []
+    def request():
+        pred.predict(query, info, classes)
+        torch.cuda.synchronize()
+
+    for _ in range(2):                                  # warm-up
+        request()
+    walls = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
-        _, st = staged_request(pred, query, info, classes)
+        request()
         walls.append((time.perf_counter() - t0) * 1e3)
-        stages.append(st)
-    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
-    total = sum(v for k, v in med.items() if not k.startswith('of which'))
-    for k, v in med.items():
-        print(f'{k:34s} {v:9.3f} ms  {100 * v / total:5.1f}%', flush=True)
-    print(f'{"sum of stages":34s} {total:9.3f} ms; host wall per request '
-          f'(median) {statistics.median(walls):.3f} ms', flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pred.predict(query, info, classes)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): the CPU ops that launched
-    # them carry the same time again
-    evts = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith('CUDA')),
-                  key=device_ms, reverse=True)
-    busy = sum(device_ms(e) for e in evts)
-    for e in evts[:15]:
-        print(f'  {device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}',
+        for _ in range(args.iters):
+            request()
+        traced_wall = (time.perf_counter() - t0) * 1e3 / args.iters
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    stages, busy, kernels = stage_times(args.trace, args.iters)
+    if not busy or not any(d for d, _ in stages.values()):
+        sys.exit('profile_torch_predict: the trace holds no device time in '
+                 'the dana.* ranges')
+
+    top = sum(d for k, (d, _) in stages.items() if k.count('.') == 1)
+    print(f'{"stage (per request)":26s} {"device ms":>10s} {"share":>6s} '
+          f'{"host ms":>10s}', flush=True)
+    for k, (d, h) in stages.items():
+        print(f'{k:26s} {d:10.3f} {100 * d / busy:5.1f}% {h:10.3f}',
               flush=True)
-    print(f'profiled request: wall {wall:.3f} ms, device busy {busy:.3f} ms, '
-          f'idle share {1 - busy / wall:.3f}', flush=True)
-    print(json.dumps({'card': smi.stdout.strip(), 'stage_ms': med,
+    print(f'top-level stages hold {top:.3f} of {busy:.3f} device ms',
+          flush=True)
+    heavy = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, calls) in heavy:
+        print(f'  {ms:9.3f} ms  x{calls:<6g} {name[:90]}', flush=True)
+    print(f'request wall (median of {args.iters}, untraced) '
+          f'{statistics.median(walls):.3f} ms; traced {traced_wall:.3f} ms '
+          f'with {busy:.3f} ms of device time: idle share '
+          f'{1 - busy / traced_wall:.3f}', flush=True)
+    print(json.dumps({'card': smi.stdout.strip(),
+                      'stage_device_ms': {k: d for k, (d, _) in
+                                          stages.items()},
+                      'stage_host_ms': {k: h for k, (_, h) in
+                                        stages.items()},
                       'wall_ms': statistics.median(walls),
-                      'profiled_wall_ms': wall, 'device_busy_ms': busy}))
+                      'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
+                      'idle_share': 1 - busy / traced_wall}))
 
 
 if __name__ == '__main__':
