@@ -6,24 +6,37 @@
 Run from the repository root.  Phases, each of which fails the run:
   1. device: a CUDA card must be present; prints its name and power
      limit, the torch / CUDA versions and the float32 (TF32) flags;
-  2. build: every kernel of the serving path is compiled by nvcc from
-     dana_tpu_torch/ops/csrc, all at once;
+  2. build: every kernel of the serving and training paths is compiled
+     by nvcc from dana_tpu_torch/ops/csrc, one nvcc per source, all at
+     once;
   3. kernels: each kernel's wrapper is held against its plain PyTorch
      version on the card (|kernel - plain| <= 1e-4 + 1e-4 |plain|: both
      sum float32 products in different orders) at the shapes the serving
-     path gives it plus edge shapes, and timed with CUDA events beside
-     its plain version, a library yardstick and its bound;
-  4. main path: the DAnA ResNet-50 2-way 3-shot detector with random
+     and training paths give it plus edge shapes, and timed with CUDA
+     events beside its plain version, a library yardstick and its bound;
+     the backward passes of the CISA and RoIAlign autograd Functions are
+     held against autograd of the plain versions;
+  4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
      encoded once.  The launch counters are zeroed just before and read
-     just after; every kernel must have launched.  The outputs must be
-     finite and of the right shapes, and the first request, served again
-     with the plain versions in place of the kernels (and the kernel
-     path's proposals), must agree: the RPN's scores and deltas, the
-     R-CNN head's outputs and the detections (tie-aware matching).
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+     just after; every kernel of the path must have launched, and the
+     single-group CISA (no site on this path or the next) never.  The
+     outputs must be finite and of the right shapes, and the first
+     request, served again with the plain versions in place of the
+     kernels (and the kernel path's proposals), must agree: the RPN's
+     scores and deltas, the R-CNN head's outputs and the detections
+     (tie-aware matching);
+  5. training: a Trainer on the same detector takes STEPS SGD steps on
+     seeded episodes of TRAIN_BATCH uint8 608x1024 queries, 1-5 gt boxes
+     each and 2x3 supports of 320px.  The counters are zeroed just before
+     and read just after: 3 CISA and 1 RoIAlign-from-weights launches a
+     step, no single-group CISA launch.  Losses must be finite, no step
+     skipped, fg rois sampled, every trainable parameter moved and every
+     frozen one unchanged.  Step 0,
+     run again on the plain versions from the same weights, draws and
+     proposals, must give the same losses (1e-4 relative) and gradients
+     (GRAD_RTOL of each parameter's gradient norm).
 """
 
 from __future__ import annotations
@@ -47,6 +60,14 @@ QUERY_HW = (608, 1024)        # first query canvas bucket
 SUPPORT_HW = 320
 BATCH = 8                     # queries per request
 REQUESTS = 3
+TRAIN_BATCH = 4               # episodes per training step
+STEPS = 3
+MAX_GT = 20                   # gt slots per query (1-5 boxes filled)
+# float32 sums in another order in the kernel and plain forwards move a
+# step's gradients by about 1e-6 of their norm; the mined background rois
+# of the R-CNN loss are picked by rank, so a near tie could flip a pick
+GRAD_RTOL = 1e-3
+LOSS_RTOL = 1e-4
 
 
 def fail(msg):
@@ -89,27 +110,33 @@ def check_close(name, got, want):
 
 # ---------------------------------------------------------------- phase 3
 
+def cisa_library(q, k, v, u, scale, gamma):
+    """K1's yardstick: SDPA over the shots as heads, plus the
+    query-independent unary term, then the shot mean (timed here; the
+    port never calls it)."""
+    import torch.nn.functional as F
+    o = F.scaled_dot_product_attention(
+        q[:, None].expand(-1, k.shape[1], -1, -1), k, v, scale=scale)
+    return (o + gamma * (u[:, :, None, :] @ v)).mean(1)
+
+
 def check_cisa(dev, gen):
     from dana_tpu_torch.ops.cisa_attention import (
         cisa_attention_shots, cisa_attention_shots_plain)
-    import torch.nn.functional as F
     from dana_tpu_torch.utils import config as cfg
-
-    def library(q, k, v, u, scale, gamma):
-        # SDPA over the shots as heads, plus the query-independent unary
-        # term, then the shot mean (a yardstick; the port never calls it)
-        o = F.scaled_dot_product_attention(
-            q[:, None].expand(-1, k.shape[1], -1, -1), k, v, scale=scale)
-        return (o + gamma * (u[:, :, None, :] @ v)).mean(1)
+    library = cisa_library
 
     fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
     ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
     bins = cfg.POOLING_SIZE ** 2
-    # (G, S, Nq, Ns, D, C): the two serving-path sites of a request, then
-    # edge shapes
+    # (G, S, Nq, Ns, D, C): the two serving-path sites of a request, the
+    # training step's (its RoI site runs twice), then edge shapes
     cases = {'rpn': (BATCH, 3, fh * fw, ns_rpn, 256, 1024),
              'roi': (BATCH, 3, cfg.TEST_RPN_POST_NMS_TOP_N * bins, bins, 256,
                      1024),
+             'train_rpn': (TRAIN_BATCH, 3, fh * fw, ns_rpn, 256, 1024),
+             'train_roi': (TRAIN_BATCH, 3, cfg.TRAIN_BATCH_SIZE * bins, bins,
+                           256, 1024),
              'ns1': (2, 3, 1000, 1, 256, 1024),
              'ragged': (3, 2, 77, 57, 256, 1100)}
     err, sites = 0.0, {}
@@ -125,7 +152,7 @@ def check_cisa(dev, gen):
                                cisa_attention_shots(*args), want)
         err = max(err, case_err)
         lib_err = (library(*args) - want).abs().max().item()
-        if name in ('rpn', 'roi'):
+        if name in ('rpn', 'roi', 'train_rpn', 'train_roi'):
             nbytes = 4 * (q.numel() + k.numel() + v.numel() + u.numel()
                           + g * nq * c)
             flops = 2 * g * s * nq * ns * (d + c)
@@ -197,6 +224,154 @@ def check_roi_align(dev, gen):
     return err, site
 
 
+def check_cisa_single(dev, gen):
+    """K4: single-group CISA, the cisa_shots kernel entered at S = 1."""
+    from dana_tpu_torch.ops.cisa_attention import (cisa_attention,
+                                                   cisa_attention_plain)
+    import torch.nn.functional as F
+
+    def library(q, k, v, u, scale, gamma):
+        return (F.scaled_dot_product_attention(q, k, v, scale=scale)
+                + gamma * (u @ v))
+
+    fh, fw = (s // 16 for s in QUERY_HW)
+    cases = {'main': (BATCH, fh * fw, (SUPPORT_HW // 16) ** 2, 256, 1024),
+             'ns1': (4, 1000, 1, 256, 1024),
+             'ragged': (3, 77, 57, 256, 1100)}
+    err, site = 0.0, None
+    for name, (g, nq, ns, d, c) in cases.items():
+        q = torch.randn(g, nq, d, device=dev, generator=gen)
+        k = torch.randn(g, ns, d, device=dev, generator=gen)
+        v = torch.randn(g, ns, c, device=dev, generator=gen)
+        u = torch.softmax(torch.randn(g, 1, ns, device=dev, generator=gen),
+                          -1)
+        args = (q, k, v, u, 1.0 / 16.0, 0.1)
+        want = cisa_attention_plain(*args)
+        case_err = check_close(f'cisa_attention[{name}]',
+                               cisa_attention(*args), want)
+        err = max(err, case_err)
+        lib_err = (library(*args) - want).abs().max().item()
+        if name == 'main':
+            nbytes = 4 * (q.numel() + k.numel() + v.numel() + u.numel()
+                          + g * nq * c)
+            flops = 2 * g * nq * ns * (d + c)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            site = dict(ms=cuda_ms(lambda: cisa_attention(*args), 10),
+                        plain_ms=cuda_ms(lambda: cisa_attention_plain(*args),
+                                         5),
+                        library_ms=cuda_ms(lambda: library(*args), 5),
+                        bound_ms=b_ms, bound_by=b_by, flops=flops,
+                        bytes=nbytes)
+        print(f'cisa_attention[{name}] G={g} Nq={nq} Ns={ns} D={d} C={c}: '
+              f'max|kernel-plain| {case_err:.3e}, max|library-plain| '
+              f'{lib_err:.3e}' + (f', {site}' if name == 'main' else ''),
+              flush=True)
+        del q, k, v, u, want, args
+    return err, site
+
+
+def pw_library(wy, feat, wx):
+    """K3's yardstick: its whole function as one batched three-operand
+    einsum (timed here; the port never calls it)."""
+    return torch.einsum('brph,bhwc,brqw->brpqc', wy, feat, wx)
+
+
+def check_roi_align_pw(dev, gen):
+    """K3: RoIAlign from precomputed axis weights, at the training step's
+    shapes (TRAIN_BATCH images, 128 sampled rois, edge cases first)."""
+    from dana_tpu_torch.ops.roi_align import (roi_align_pw,
+                                              roi_align_pw_plain,
+                                              roi_weights)
+    from dana_tpu_torch.utils import config as cfg
+    b, r, c, p = TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE, 1024, cfg.POOLING_SIZE
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
+    wy, wx = roi_weights(serving_rois(b, r, gen, dev), fh, fw, p,
+                         1 / cfg.FEAT_STRIDE)
+    want = roi_align_pw_plain(feat, wy, wx)
+    err = check_close('roi_align_pw', roi_align_pw(feat, wy, wx), want)
+    lib_err = (pw_library(wy, feat, wx) - want).abs().max().item()
+    nbytes = 4 * (feat.numel() + wy.numel() + wx.numel() + want.numel())
+    # the work these weights need: per (roi, row) stage 1 over the row's
+    # nonzero Wy taps for every nonzero Wx column, stage 2 over P bins
+    nh = (wy != 0).sum(-1).sum(-1)                          # [B,R]
+    nw = (wx != 0).any(-2).sum(-1)                          # [B,R]
+    flops = 2 * c * (nw * (nh + p * p)).sum().item()
+    dense = 2 * c * b * r * p * (fh * fw + p * fw)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    site = dict(ms=cuda_ms(lambda: roi_align_pw(feat, wy, wx), 10),
+                plain_ms=cuda_ms(lambda: roi_align_pw_plain(feat, wy, wx), 3),
+                library_ms=cuda_ms(lambda: pw_library(wy, feat, wx), 3),
+                bound_ms=b_ms, bound_by=b_by, flops=flops,
+                dense_flops=dense, bytes=nbytes)
+    print(f'roi_align_pw feat={tuple(feat.shape)} wy={tuple(wy.shape)} '
+          f'wx={tuple(wx.shape)}: max|kernel-plain| {err:.3e}, '
+          f'max|library-plain| {lib_err:.3e}, {site}', flush=True)
+    return err, site
+
+
+def check_backward(dev, gen):
+    """The training step's autograd Functions (K1's forward with the plain
+    recompute VJP; K3's forward with the plain contraction of the saved
+    weights) against autograd of the plain versions, at the training
+    shapes: gradients, and forward + backward times beside a library
+    yardstick and the bound of forward + backward."""
+    from dana_tpu_torch.ops import cisa_attention as ca
+    from dana_tpu_torch.ops import roi_align as ra
+    from dana_tpu_torch.utils import config as cfg
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    g, s_, ns = TRAIN_BATCH, 3, (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
+    d, c, p = 256, 1024, cfg.POOLING_SIZE
+    xs = [torch.randn(*shape, device=dev, generator=gen) for shape in
+          ((g, fh * fw, d), (g, s_, ns, d), (g, s_, ns, c))]
+    xs.append(torch.softmax(torch.randn(g, s_, ns, device=dev,
+                                        generator=gen), -1))
+    cot = torch.randn(g, fh * fw, c, device=dev, generator=gen)
+    feat = torch.randn(g, fh, fw, c, device=dev, generator=gen)
+    rois = serving_rois(g, cfg.TRAIN_BATCH_SIZE, gen, dev)
+    rcot = torch.randn(g, rois.shape[1], p, p, c, device=dev, generator=gen)
+    wy, wx = ra.roi_weights(rois, fh, fw, p)
+    nh = (wy != 0).sum(-1).sum(-1)
+    nw = (wx != 0).any(-2).sum(-1)
+    # forward + backward: CISA recomputes its forward and takes two
+    # products for each of the forward's two (3x the forward's operations);
+    # RoIAlign's backward runs the forward's contractions transposed
+    cisa_io = sum(t.numel() for t in xs) * 2 + cot.numel() * 2
+    roi_io = (feat.numel() * 2 + wy.numel() + wx.numel() + rcot.numel() * 2)
+    bounds = {
+        'cisa_shots': bound_ms(4 * cisa_io,
+                               3 * 2 * g * s_ * fh * fw * ns * (d + c)),
+        'roi_align_pw': bound_ms(4 * roi_io,
+                                 2 * 2 * c * (nw * (nh + p * p)).sum().item())}
+    cases = {
+        'cisa_shots': (xs, lambda *a: ca.cisa_attention_shots(*a, 1 / 16,
+                                                              0.1),
+                       lambda *a: ca.cisa_attention_shots_plain(*a, 1 / 16,
+                                                                0.1),
+                       lambda *a: cisa_library(*a, 1 / 16, 0.1), cot),
+        'roi_align_pw': ([feat], lambda f: ra.roi_align_train(f, rois, p),
+                         lambda f: ra.roi_align_plain(f, rois, p),
+                         lambda f: pw_library(wy, f, wx), rcot)}
+    out = {}
+    for name, (inputs, fn, plain, library, ct) in cases.items():
+        grads, row = {}, {}
+        for path, f in (('ms', fn), ('plain_ms', plain),
+                        ('library_ms', library)):
+            leaves = [t.detach().requires_grad_() for t in inputs]
+
+            def backward():
+                return torch.autograd.grad(f(*leaves), leaves, ct)
+            grads[path] = backward()
+            row[path] = cuda_ms(backward, 3)
+        row['max_abs_err'] = max(
+            check_close(f'{name} backward', a, b)
+            for a, b in zip(grads['ms'], grads['plain_ms']))
+        row['bound_ms'], row['bound_by'] = bounds[name]
+        out[name] = row
+    print(f'backward passes (forward + backward): {out}', flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 
 @contextlib.contextmanager
@@ -205,13 +380,15 @@ def plain_ops():
     comparison only)."""
     from dana_tpu_torch.models import dana
     from dana_tpu_torch.ops import cisa_attention, roi_align
-    saved = dana.cisa_attention_shots, dana.roi_align
+    saved = dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train
     dana.cisa_attention_shots = cisa_attention.cisa_attention_shots_plain
     dana.roi_align = roi_align.roi_align_plain
+    dana.roi_align_train = roi_align.roi_align_plain
     try:
         yield
     finally:
-        dana.cisa_attention_shots, dana.roi_align = saved
+        (dana.cisa_attention_shots, dana.roi_align,
+         dana.roi_align_train) = saved
 
 
 def match_detections(da, db, coord_atol):
@@ -316,7 +493,7 @@ def serving_requests(seed, n):
              info, [(i + j) % 2 for j in range(BATCH)]) for i in range(n)]
 
 
-def main_path(seed):
+def serving_path(seed):
     from dana_tpu_torch.ops import cisa_attention, nms, roi_align
 
     pred = serving_predictor(seed)
@@ -325,6 +502,7 @@ def main_path(seed):
     torch.cuda.reset_peak_memory_stats()
 
     cisa_attention.cisa_attention_shots.launches = 0
+    cisa_attention.cisa_attention.launches = 0
     roi_align.roi_align.launches = 0
     nms.HOST_SYNCS = 0
     outs, req_ms = [], []
@@ -335,15 +513,19 @@ def main_path(seed):
         req_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((dets, valid))
     launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-                'roi_align_fwd': roi_align.roi_align.launches}
+                'roi_align_fwd': roi_align.roi_align.launches,
+                'cisa_attention': cisa_attention.cisa_attention.launches}
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'main path: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
-    for name, n in launches.items():
-        if n == 0:
+    for name in ('cisa_shots', 'roi_align_fwd'):
+        if launches[name] == 0:
             fail(f'kernel {name} was not launched on the main path')
+    if launches['cisa_attention']:
+        fail('cisa_attention launched on the serving path, which has no '
+             'single-group CISA site')
 
     for dets, valid in outs:
         if dets.shape != (BATCH, 100, 5) or valid.shape != (BATCH, 100):
@@ -355,6 +537,156 @@ def main_path(seed):
     compare_paths(pred, *requests[0])
     return launches, dict(req_ms=req_ms, peak_gib=peak, nms_syncs=syncs,
                           detections=n_det)
+
+
+# ---------------------------------------------------------------- phase 5
+
+def training_episodes(seed, n, dev):
+    """n seeded episodes: TRAIN_BATCH uint8 608x1024 queries, 1-5 class-1
+    gt boxes each (MAX_GT slots, zero rows pad) and n_way * n_shot = 6
+    mean-subtracted 320px supports per query, made on the card."""
+    from dana_tpu_torch.utils import config as cfg
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    h, w = QUERY_HW
+    b = TRAIN_BATCH
+    means = torch.tensor(cfg.PIXEL_MEANS, device=dev)
+    out = []
+    for _ in range(n):
+        wh = torch.rand(b, MAX_GT, 2, device=dev, generator=gen) \
+            * torch.tensor([400.0, 300.0], device=dev) + 32
+        xy = torch.rand(b, MAX_GT, 2, device=dev, generator=gen) \
+            * (torch.tensor([w, h], device=dev) - wh)
+        n_gt = torch.randint(1, 6, (b, 1), device=dev, generator=gen)
+        filled = torch.arange(MAX_GT, device=dev)[None] < n_gt
+        gt = torch.cat([xy, xy + wh - 1, torch.ones(b, MAX_GT, 1,
+                                                    device=dev)], -1)
+        out.append(dict(
+            im_data=torch.randint(0, 256, (b, h, w, 3), device=dev,
+                                  generator=gen, dtype=torch.uint8),
+            im_info=torch.tensor([[h, w, 1.0]] * b, device=dev),
+            gt_boxes=torch.where(filled[..., None], gt, 0.0),
+            support_ims=torch.randint(
+                0, 256, (b, 6, SUPPORT_HW, SUPPORT_HW, 3), device=dev,
+                generator=gen).float() - means))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_step(record, pinned=None):
+    """Record the training forward's draws and proposals in `record`;
+    with `pinned` (a record), replay its proposals instead."""
+    from dana_tpu_torch.models import rpn
+    real_draws, real_layer = rpn.uniform_draws, rpn.proposal_layer
+
+    def draws(*args, **kwargs):
+        record['draws'] = real_draws(*args, **kwargs)
+        return record['draws']
+
+    def layer(*args, **kwargs):
+        out = real_layer(*args, **kwargs)
+        record['proposals'] = out
+        return out if pinned is None else pinned['proposals']
+    rpn.uniform_draws, rpn.proposal_layer = draws, layer
+    try:
+        yield
+    finally:
+        rpn.uniform_draws, rpn.proposal_layer = real_draws, real_layer
+
+
+# leaves whose gradient is zero by construction (centred q and k, a
+# softmax over the unary and the BA block's channel scores): they move
+# only by float32 rounding
+NO_GRAD = {f'{site}_{layer}_layer.bias' for site in ('rpn', 'rcnn')
+           for layer in ('adapt_q', 'adapt_k', 'unary', 'channel_k')}
+COMPARED = ('rpn_', 'rcnn_', 'RCNN_rpn.', 'output_score_layer.',
+            'RCNN_bbox_pred.')         # attention, RPN and head layers
+
+
+def training_path(seed):
+    """STEPS SGD steps of the Trainer, then step 0 again on the plain
+    versions; -> (launches, summary)."""
+    from dana_tpu_torch.engine.train import LOSSES, Trainer
+    from dana_tpu_torch.ops import cisa_attention, roi_align
+    from dana_tpu_torch.utils import config as cfg
+
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    trainer = Trainer(params, config, seed=seed)        # device='cuda'
+    episodes = training_episodes(seed, STEPS, trainer.device)
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    cisa_attention.cisa_attention_shots.launches = 0
+    cisa_attention.cisa_attention.launches = 0
+    roi_align.roi_align_pw.launches = 0
+    metrics, step_ms, record = [], [], {}
+    for i, batch in enumerate(episodes):
+        t0 = time.perf_counter()
+        with recorded_step(record) if i == 0 else contextlib.nullcontext():
+            m = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads0 = {n: p.grad.clone() for n, p
+                      in trainer.model.named_parameters()
+                      if p.requires_grad and n.startswith(COMPARED)}
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
+                'roi_align_pw': roi_align.roi_align_pw.launches,
+                'cisa_attention': cisa_attention.cisa_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'training path: {STEPS} steps of {TRAIN_BATCH} x {QUERY_HW} '
+          f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
+          f'GiB, launches {launches}, metrics {metrics}', flush=True)
+    want = {'cisa_shots': 3 * STEPS, 'roi_align_pw': STEPS,
+            'cisa_attention': 0}       # no single-group CISA site
+    if launches != want:
+        fail(f'training path launches {launches}, expected {want}')
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in (*LOSSES, 'loss')):
+            fail(f'non-finite training loss: {m}')
+        if m['skipped'] != 0.0 or m['fg_cnt'] <= 0:
+            fail(f'a step was skipped or sampled no fg roi: {m}')
+    end = trainer.model.state_dict()
+    trainable = {n for n, p in trainer.model.named_parameters()
+                 if p.requires_grad}
+    still = {n for n in trainable if torch.equal(end[n], start[n])}
+    if not still <= NO_GRAD:
+        fail(f'trainable parameters did not move: {sorted(still - NO_GRAD)}')
+    moved = [n for n in start
+             if n not in trainable and not torch.equal(end[n], start[n])]
+    if moved or len(start) == len(trainable):
+        fail(f'frozen parameters and buffers moved: {moved}')
+    del trainer, start, end
+    torch.cuda.empty_cache()
+
+    # step 0 on the plain versions: same weights, draws and proposals
+    plain = Trainer(params, config, seed=seed)
+    with plain_ops(), recorded_step({}, pinned=record):
+        pm = plain.step(episodes[0], draws=record['draws'])
+    diffs = {}
+    for k in (*LOSSES, 'loss'):
+        a, b = metrics[0][k], float(pm[k])
+        diffs[k] = abs(a - b) / max(abs(b), 1e-12)
+        if diffs[k] > LOSS_RTOL:
+            fail(f'step 0 {k}: kernel path {a}, plain path {b}')
+    worst = 0.0
+    for n, p in plain.model.named_parameters():
+        if n not in grads0 or n in NO_GRAD:
+            continue
+        rel = ((grads0[n] - p.grad).norm()
+               / p.grad.norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if not rel <= GRAD_RTOL:
+            fail(f'step 0 gradient of {n}: |kernel - plain| is {rel:.3e} '
+                 'of its norm')
+    print(f'step 0, kernel vs plain path: loss relative diffs {diffs}; '
+          f'worst gradient relative diff {worst:.3e} over {len(grads0)} '
+          'attention, RPN and head parameters', flush=True)
+    return launches, dict(step_ms=step_ms,
+                          steady_step_ms=float(np.mean(step_ms[1:])),
+                          peak_gib=peak, metrics=metrics,
+                          loss_rel_diff=diffs, grad_rel_diff=worst)
 
 
 def main():
@@ -381,7 +713,8 @@ def main():
 
     # phase 2: build
     secs = build.build_all()
-    print(f'kernels built in {secs:.1f} s', flush=True)
+    print(f'{len(build.KERNELS)} kernel sources built in {secs:.1f} s',
+          flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
@@ -392,13 +725,32 @@ def main():
     with torch.inference_mode():
         k1_err, k1_sites = check_cisa(dev, gen)
         k2_err, k2 = check_roi_align(dev, gen)
+        k3_err, k3 = check_roi_align_pw(dev, gen)
+        k4_err, k4 = check_cisa_single(dev, gen)
+    backward = check_backward(dev, gen)
     torch.cuda.empty_cache()
 
     # phase 4: the serving path
-    launches, summary = main_path(args.seed)
+    serving_launches, serving = serving_path(args.seed)
+    torch.cuda.empty_cache()
+    # phase 5: the training path
+    training_launches, training = training_path(args.seed)
 
-    per_req = {'cisa_shots': k1_sites, 'roi_align_fwd': {'roi': k2}}
-    print(json.dumps({'serving_summary': summary, 'kernel_sites': per_req}),
+    launches = {'cisa_shots': serving_launches['cisa_shots']
+                + training_launches['cisa_shots'],
+                'roi_align_fwd': serving_launches['roi_align_fwd'],
+                'roi_align_pw': training_launches['roi_align_pw'],
+                'cisa_attention': serving_launches['cisa_attention']
+                + training_launches['cisa_attention']}
+    by_path = {'serving': serving_launches, 'training': training_launches}
+    print(json.dumps({'serving_summary': serving,
+                      'training_summary': training,
+                      'launches_by_path': by_path,
+                      'backward': backward,
+                      'kernel_sites': {'cisa_shots': k1_sites,
+                                       'roi_align_fwd': {'roi': k2},
+                                       'roi_align_pw': {'train_roi': k3},
+                                       'cisa_attention': {'main': k4}}}),
           flush=True)
 
     def row(name, source, replaces, err, sites):
@@ -413,11 +765,17 @@ def main():
                 'bound_by': vals[0]['bound_by'],
                 'library_ms': None if None in lib else sum(lib)}
 
+    serving_k1 = {k: k1_sites[k] for k in ('rpn', 'roi')}
     kernels = [
         row('cisa_shots', 'dana_tpu_torch/ops/csrc/cisa_shots.cu',
-            'dana_tpu/ops/cisa_attention.py:173', k1_err, k1_sites),
+            'dana_tpu/ops/cisa_attention.py:173', k1_err, serving_k1),
         row('roi_align_fwd', 'dana_tpu_torch/ops/csrc/roi_align_fwd.cu',
             'dana_tpu/ops/roi_align_pallas.py:221', k2_err, {'roi': k2}),
+        row('roi_align_pw', 'dana_tpu_torch/ops/csrc/roi_align_pw.cu',
+            'dana_tpu/ops/roi_align_pallas.py:175', k3_err,
+            {'train_roi': k3}),
+        row('cisa_attention', 'dana_tpu_torch/ops/csrc/cisa_shots.cu',
+            'dana_tpu/ops/cisa_attention.py:65', k4_err, {'main': k4}),
     ]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,84 @@
+"""The training entry point: one episodic SGD step of the DAnA detector
+(port of dana_tpu/engine/train.py `loss_fn` and `make_train_step`).
+
+The step's loss is the sum of the four heads' losses; its gradient
+reaches every trainable parameter, never the frozen stem and layer1; a
+step whose loss or gradients are not finite changes neither the
+parameters nor the momentum and reports skipped = 1.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from dana_tpu_torch.engine import optim
+from dana_tpu_torch.models import dana
+from dana_tpu_torch.utils import config as cfg
+from dana_tpu_torch.utils.device import resolve_device, use_full_f32
+from dana_tpu_torch.utils.weights import from_jax_params
+
+LOSSES = ('rpn_loss_cls', 'rpn_loss_box', 'rcnn_loss_cls', 'rcnn_loss_bbox')
+
+
+class Trainer:
+    """Trainer(params, config, device='cuda', lr=..., seed=0, clip_norm=0.0).
+
+    params: the JAX package's param tree (numpy leaves).  The device
+    defaults to the card and the constructor raises without CUDA unless
+    device='cpu' is passed; float32 math runs without TF32
+    (utils.device.use_full_f32).
+    The target layers draw from a torch.Generator on the device, seeded by
+    `seed`.  clip_norm > 0 clips the trainable gradients' total norm.
+    """
+
+    def __init__(self, params, config: dana.DanaConfig, device='cuda',
+                 lr: float = cfg.TRAIN_LEARNING_RATE, seed: int = 0,
+                 clip_norm: float = 0.0):
+        self.device = resolve_device(device)
+        use_full_f32()
+        self.model = optim.freeze_fixed(
+            from_jax_params(params, config).to(self.device))
+        self.config = config
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer = optim.make_sgd(self.model, lr)
+        self.clip_norm = clip_norm
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def step(self, batch, draws=None):
+        """One SGD step on `batch`: dict(im_data [B,H,W,3] uint8 or float,
+        im_info [B,3], gt_boxes [B,G,5], support_ims [B, n_way*n_shot,
+        H, W, 3] float), numpy arrays or tensors.  `draws` (a dict keyed
+        by rpn.DRAW_KEYS) replaces the generator's draws.  -> dict of
+        0-dim tensors on the device: the four losses, loss, fg_cnt,
+        bg_cnt and skipped (read on the host once, to decide the update)."""
+        b = {k: torch.as_tensor(v, device=self.device)
+             for k, v in batch.items()}
+        for p in self.params:
+            p.grad = None
+        out = dana.forward(
+            self.model, self.config, b['im_data'], b['im_info'].float(),
+            support_ims=b['support_ims'].float(), training=True,
+            gt_boxes=b['gt_boxes'].float(),
+            draws=self.generator if draws is None else draws)
+        total = sum(out[k] for k in LOSSES)
+        with record_function('dana.backward'):
+            total.backward()
+        skipped = self.update(total)
+        labels = out['rois_label']
+        return dict({k: out[k].detach() for k in LOSSES},
+                    loss=total.detach(), fg_cnt=(labels > 0).sum(),
+                    bg_cnt=(labels == 0).sum(), skipped=skipped[0])
+
+    def update(self, loss):
+        """The SGD update from the trainable parameters' .grad, clipped
+        first when clip_norm > 0; nothing changes where `loss` or a
+        gradient is not finite.  -> skipped, a float tensor [1]."""
+        with record_function('dana.update'):
+            grads = [p.grad for p in self.params]
+            skipped = optim.nonfinite(loss, grads)
+            if not skipped.item():
+                if self.clip_norm:
+                    optim.clip_gradients(grads, self.clip_norm)
+                self.optimizer.step()
+        return skipped

@@ -1,5 +1,5 @@
-"""DAnA (Dual-Awareness Attention) few-shot detector, eval path (port of
-dana_tpu/models/dana.py).
+"""DAnA (Dual-Awareness Attention) few-shot detector, eval and training
+forward (port of dana_tpu/models/dana.py).
 
 `DAnA` holds the weights as modules named after the reference torch
 modules (`backbone.layer1.0.conv1`, `rpn_adapt_q_layer`,
@@ -28,17 +28,19 @@ from dana_tpu_torch.core.anchors import generate_anchors, shifted_anchors
 from dana_tpu_torch.models import layers as L
 from dana_tpu_torch.models import resnet
 from dana_tpu_torch.models import rpn as rpn_lib
+from dana_tpu_torch.models.losses import (hard_mined_pair_ce,
+                                          masked_cross_entropy,
+                                          smooth_l1_loss)
 from dana_tpu_torch.ops.cisa_attention import cisa_attention_shots
-from dana_tpu_torch.ops.roi_align import roi_align
+from dana_tpu_torch.ops.roi_align import roi_align, roi_align_train
 
 
 @dataclasses.dataclass(frozen=True)
 class DanaConfig:
-    """Model configuration of the eval path (field names and defaults of
-    the JAX DanaConfig).  The port runs float32, concat attention,
-    positional encoding on both attention sites and RoIAlign pooling on a
-    bottleneck ResNet: the JAX fields that select otherwise are not
-    ported."""
+    """Model configuration (field names and defaults of the JAX
+    DanaConfig).  The port runs float32, concat attention, positional
+    encoding on both attention sites and RoIAlign pooling on a bottleneck
+    ResNet: the JAX fields that select otherwise are not ported."""
     n_way: int = 2
     n_shot: int = 3
     rpn_reduce_dim: int = 256
@@ -51,11 +53,23 @@ class DanaConfig:
     anchor_scales: tuple = (4, 8, 16, 32)
     anchor_ratios: tuple = (0.5, 1.0, 2.0)
     feat_stride: int = 16
+    train_pre_nms: int = 12000
+    train_post_nms: int = 2000
     test_pre_nms: int = 6000
     test_post_nms: int = 300
     rpn_nms_thresh: float = 0.7
     nms_cap: int = 12000
     pixel_means: tuple = (102.9801, 115.9465, 122.7717)
+    # target layers (training)
+    rpn_batchsize: int = 256
+    rpn_fg_fraction: float = 0.5
+    rpn_pos_overlap: float = 0.7
+    rpn_neg_overlap: float = 0.3
+    rois_per_image: int = 128
+    fg_fraction: float = 0.25
+    fg_thresh: float = 0.5
+    bg_thresh_hi: float = 0.5
+    bg_thresh_lo: float = 0.1
     bbox_normalize_means: tuple = (0.0, 0.0, 0.0, 0.0)
     bbox_normalize_stds: tuple = (0.1, 0.1, 0.2, 0.2)
 
@@ -201,7 +215,16 @@ def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
         tail = resnet.top_forward(pooled_feat.reshape(b * r, ph, pw, c),
                                   model.backbone).mean(dim=(1, 2))
     bbox_pred = model.RCNN_bbox_pred(tail.reshape(b, r, -1))
+    return (bbox_pred, *rcnn_scores(model, config, pooled_feat,
+                                     support_pooled))
 
+
+def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
+                support_pooled):
+    """The R-CNN head's attention and score part: pooled_feat
+    [B,R,7,7,1024] attends support_pooled [B,shot,7,7,1024] -> (cls_prob
+    [B,R,2], cls_score [B,R,2])."""
+    b, r, ph, pw, c = pooled_feat.shape
     pe = _pe(config.pooling_size ** 2, pooled_feat)
     q = pooled_feat.reshape(b, r, ph * pw, c) + pe[:ph * pw]
     s_tokens = _support_tokens(support_pooled, pe)
@@ -215,7 +238,7 @@ def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
     x = corr.reshape(b, r, -1)             # token-major: index q*64 + d
     x = F.relu(model.output_score_layer.linear1(x))
     cls_score = model.output_score_layer.linear2(x)
-    return bbox_pred, torch.softmax(cls_score, dim=-1), cls_score
+    return torch.softmax(cls_score, dim=-1), cls_score
 
 
 def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
@@ -255,25 +278,40 @@ def prep_query_images(config: DanaConfig, im_data):
     return im_data
 
 
-def _pool_rois(config: DanaConfig, base_feat, rois):
-    return roi_align(base_feat, rois.contiguous(), config.pooling_size,
-                     1.0 / config.feat_stride)
-
-
 def forward(model: DAnA, config: DanaConfig, im_data, im_info,
-            support_ims=None, support_feats=None):
-    """Eval forward (training=False of the JAX forward).
+            support_ims=None, support_feats=None, training=False,
+            gt_boxes=None, draws=None):
+    """The detector's forward, eval (training=False) or the episodic
+    training forward with its four losses.
 
     im_data [B,H,W,3] float (mean-subtracted) or uint8; im_info [B,3]
-    (height, width, scale); either support_ims [B, n_shot, H, W, 3] or
-    precomputed support_feats (feat [B,n,h,w,C], pooled [B,n,7,7,C]).
-    Returns dict(rois [B,R,5], cls_prob [B,R,2], bbox_pred [B,R,4],
+    (height, width, scale); either support_ims [B, n, H, W, 3] (n =
+    n_shot at eval, n_way * n_shot in training: the first n_shot are the
+    positive class, the rest negative) or precomputed support_feats
+    (feat [B,n,h,w,C], pooled [B,n,7,7,C]).
+
+    Eval returns dict(rois [B,R,5], cls_prob [B,R,2], bbox_pred [B,R,4],
     cls_score [B,R,2], roi_mask [B,R]).
+
+    Training also takes gt_boxes [B,G,5] (zero rows pad; class column 1)
+    and the target layers' uniform draws: a dict keyed by
+    `rpn.DRAW_KEYS`, or a torch.Generator to draw them from
+    (`rpn.uniform_draws`).  It returns the sampled rois [B,S,5],
+    rois_label [B,S], the positive branch's cls_prob / bbox_pred /
+    cls_score, the negative branch's neg_cls_score and rpn_loss_cls,
+    rpn_loss_box, rcnn_loss_cls, rcnn_loss_bbox.  The RoIs are pooled by
+    `roi_align_train` (K3 on the card), and the negative supports run
+    only the head's attention and score part: their box branch would
+    feed no loss.
 
     Each stage runs inside a `torch.profiler.record_function` range named
     `dana.<stage>`, so one profiled request gives the time of every stage
     (tools/profile_torch_predict.py); the ranges cost nothing measurable
     when no profiler runs."""
+    if training and config.n_way < 2:
+        raise ValueError('training needs n_way >= 2: a negative support way '
+                         f'feeds the hard-mined loss (got n_way='
+                         f'{config.n_way})')
     with record_function('dana.trunk'):
         im_data = prep_query_images(config, im_data).float()
         base_feat = resnet.base_forward(im_data, model.backbone)
@@ -289,7 +327,7 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
     with record_function('dana.rpn_attention'):
         corr = rpn_attention(model, config, base_feat, pos_feat)
     with record_function('dana.rpn_heads'):
-        _, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
+        logits, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
 
     with record_function('dana.proposals'):
         base_anchor = generate_anchors(ratios=config.anchor_ratios,
@@ -297,15 +335,70 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
         anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
                                   device=base_feat.device)
         rois, _, roi_mask = rpn_lib.proposal_layer(
-            probs_fg, deltas, anchors, im_info.float(),
-            pre_nms_top_n=config.test_pre_nms,
-            post_nms_top_n=config.test_post_nms,
+            probs_fg.detach(), deltas.detach(), anchors, im_info.float(),
+            pre_nms_top_n=(config.train_pre_nms if training
+                           else config.test_pre_nms),
+            post_nms_top_n=(config.train_post_nms if training
+                            else config.test_post_nms),
             nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
 
+    if not training:
+        with record_function('dana.roi_align'):
+            pooled = roi_align(base_feat, rois.contiguous(),
+                               config.pooling_size, 1.0 / config.feat_stride)
+        with record_function('dana.rcnn_head'):
+            bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
+                                                       pos_pooled)
+        return dict(rois=rois, cls_prob=cls_prob, bbox_pred=bbox_pred,
+                    cls_score=cls_score, roi_mask=roi_mask)
+
+    with record_function('dana.targets'):
+        if isinstance(draws, torch.Generator):
+            draws = rpn_lib.uniform_draws(
+                draws, probs_fg.shape[0], probs_fg.shape[1],
+                rois.shape[1] + gt_boxes.shape[1], config.rois_per_image)
+        with torch.no_grad():
+            labels, at_targets, at_in_w, at_out_w = rpn_lib.anchor_target(
+                anchors, gt_boxes, im_info, draws['anchor_fg'],
+                draws['anchor_bg'], batch_rois=config.rpn_batchsize,
+                fg_fraction=config.rpn_fg_fraction,
+                pos_overlap=config.rpn_pos_overlap,
+                neg_overlap=config.rpn_neg_overlap)
+            rois, rois_label, rois_target, rois_in_w, rois_out_w = \
+                rpn_lib.proposal_target(
+                    rois, gt_boxes, draws['roi_fg_rank'], draws['roi_fg'],
+                    draws['roi_bg'], rois_per_image=config.rois_per_image,
+                    fg_fraction=config.fg_fraction,
+                    fg_thresh=config.fg_thresh,
+                    bg_thresh_hi=config.bg_thresh_hi,
+                    bg_thresh_lo=config.bg_thresh_lo,
+                    bbox_normalize_means=config.bbox_normalize_means,
+                    bbox_normalize_stds=config.bbox_normalize_stds)
+
     with record_function('dana.roi_align'):
-        pooled = _pool_rois(config, base_feat, rois)           # [B,R,7,7,C]
+        pooled = roi_align_train(base_feat, rois, config.pooling_size,
+                                 1.0 / config.feat_stride)
     with record_function('dana.rcnn_head'):
         bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
                                                    pos_pooled)
-    return dict(rois=rois, cls_prob=cls_prob, bbox_pred=bbox_pred,
-                cls_score=cls_score, roi_mask=roi_mask)
+        neg_pooled = sup_pooled[:, config.n_shot:
+                                config.n_way * config.n_shot]
+        _, neg_score = rcnn_scores(model, config, pooled, neg_pooled)
+
+    with record_function('dana.losses'):
+        losses = dict(
+            rpn_loss_cls=masked_cross_entropy(logits, labels, labels != -1),
+            rpn_loss_box=smooth_l1_loss(deltas, at_targets,
+                                        at_in_w[..., None],
+                                        at_out_w[..., None], sigma=3.0),
+            # flattened over all rois of all images (the reference's
+            # default dim=[1] on [B*R, 4])
+            rcnn_loss_bbox=smooth_l1_loss(
+                bbox_pred.reshape(-1, 4), rois_target.reshape(-1, 4),
+                rois_in_w.reshape(-1, 4), rois_out_w.reshape(-1, 4),
+                sigma=1.0, reduce_dims=(1,)),
+            rcnn_loss_cls=hard_mined_pair_ce(cls_score, rois_label,
+                                             neg_score))
+    return dict(losses, rois=rois, rois_label=rois_label, cls_prob=cls_prob,
+                bbox_pred=bbox_pred, cls_score=cls_score,
+                neg_cls_score=neg_score)

@@ -1,15 +1,24 @@
-"""RoIAlign forward over NHWC features (port of dana_tpu/ops/roi_align.py,
-float32 path, and of the Pallas kernel in dana_tpu/ops/roi_align_pallas.py).
+"""RoIAlign over NHWC features (port of dana_tpu/ops/roi_align.py, float32
+path, and of the two Pallas kernels in dana_tpu/ops/roi_align_pallas.py).
 
-`roi_align` is the port's RoIAlign: on a CUDA tensor it launches the
-hand-written kernel `csrc/roi_align_fwd.cu`, on a CPU tensor it runs
-`roi_align_plain`, the separable form of the JAX package:
+RoIAlign is separable (the JAX package's float32 form):
 
     pooled[r, ph, pw, c] = sum_h sum_w Wy[r, ph, h] * Wx[r, pw, w] * feat[h, w, c]
 
-with Wy / Wx built per axis from the roi coordinates (adaptive sample
-count by floor plus exact-product correction, capped at `max_samples`,
-and the clamp rules of the reference CUDA kernel).
+with Wy / Wx built per axis from the roi coordinates (`roi_weights`:
+adaptive sample count by floor plus exact-product correction, capped at
+`max_samples`, and the clamp rules of the reference CUDA kernel).
+
+Two entries, each a hand-written kernel for CUDA tensors and its plain
+version for CPU tensors:
+  * `roi_align` (serving): `csrc/roi_align_fwd.cu` samples the rois
+    directly; plain twin `roi_align_plain`.
+  * `roi_align_pw` (training): `csrc/roi_align_pw.cu` contracts
+    precomputed Wy / Wx; plain twin `roi_align_pw_plain`.
+`roi_align_train` is the training step's differentiable RoIAlign: it
+builds Wy / Wx once, pools with `roi_align_pw` and, in the backward,
+contracts the same weights with the output gradient in plain tensor
+math (no gradient for the rois, which come from the sampler).
 """
 
 from __future__ import annotations
@@ -52,21 +61,44 @@ def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
     return contrib.sum(dim=-2)                                  # [...,P,size]
 
 
+def roi_weights(rois, h: int, w: int, output_size: int = 7,
+                spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
+    """rois [B,R,4|5] in image coordinates (a leading batch-index column
+    is ignored) on an h x w feature map -> (Wy [B,R,P,h], Wx [B,R,P,w])."""
+    r = rois[..., -4:].float() * spatial_scale
+    wy = _axis_weights(r[..., 1], r[..., 3], h, output_size, max_samples)
+    wx = _axis_weights(r[..., 0], r[..., 2], w, output_size, max_samples)
+    return wy, wx
+
+
+def roi_align_pw_plain(feat, wy, wx):
+    """feat [B,H,W,C], Wy [B,R,P,H], Wx [B,R,P,W] -> [B,R,P,P,C]: the two
+    contractions, per image (the [R,P,W,C] stage is large)."""
+    outs = []
+    for i in range(feat.shape[0]):
+        tmp = torch.einsum('rph,hwc->rpwc', wy[i], feat[i])
+        outs.append(torch.einsum('rqw,rpwc->rpqc', wx[i], tmp))
+    return torch.stack(outs)
+
+
+def roi_align_pw_backward(grad, wy, wx):
+    """The gradient of `roi_align_pw_plain` for feat: grad [B,R,P,P,C] ->
+    [B,H,W,C], grad_feat[h,w] = sum_{r,p} Wy[r,p,h] sum_q Wx[r,q,w]
+    grad[r,p,q], two contractions per image."""
+    outs = []
+    for i in range(grad.shape[0]):
+        tmp = torch.einsum('rqw,rpqc->rpwc', wx[i], grad[i])
+        outs.append(torch.einsum('rph,rpwc->hwc', wy[i], tmp))
+    return torch.stack(outs)
+
+
 def roi_align_plain(feat, rois, output_size: int = 7,
                     spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
     """feat [B,H,W,C] float32, rois [B,R,4|5] (a leading batch-index
     column is ignored; rois are grouped per image) -> [B,R,P,P,C]."""
-    b, h, w, c = feat.shape
-    r = rois[..., -4:].float() * spatial_scale
-    wy = _axis_weights(r[..., 1], r[..., 3], h, output_size,
-                       max_samples)                             # [B,R,P,H]
-    wx = _axis_weights(r[..., 0], r[..., 2], w, output_size,
-                       max_samples)                             # [B,R,P,W]
-    outs = []
-    for i in range(b):      # per image: the [R,P,W,C] stage is large
-        tmp = torch.einsum('rph,hwc->rpwc', wy[i], feat[i])
-        outs.append(torch.einsum('rqw,rpwc->rpqc', wx[i], tmp))
-    return torch.stack(outs)
+    wy, wx = roi_weights(rois, feat.shape[1], feat.shape[2], output_size,
+                         spatial_scale, max_samples)
+    return roi_align_pw_plain(feat, wy, wx)
 
 
 def _lib():
@@ -118,3 +150,87 @@ def roi_align(feat, rois, output_size: int = 7,
 
 
 roi_align.launches = 0
+
+
+def _pw_lib():
+    lib = build.load('roi_align_pw')
+    if lib.roi_align_pw_f32.argtypes is None:
+        lib.roi_align_pw_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.roi_align_pw_f32.restype = ctypes.c_int
+        lib.roi_align_pw_pooled_ok.argtypes = [ctypes.c_int]
+        lib.roi_align_pw_pooled_ok.restype = ctypes.c_int
+    return lib
+
+
+def roi_align_pw(feat, wy, wx):
+    """RoIAlign from precomputed axis weights: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  Same arguments as
+    `roi_align_pw_plain`."""
+    if feat.device.type == 'cpu':
+        return roi_align_pw_plain(feat, wy, wx)
+    ts = (feat, wy, wx)
+    if feat.device.type != 'cuda' or any(t.device != feat.device for t in ts):
+        raise ValueError('roi_align_pw: inputs must be on one CUDA device '
+                         f'(got {[str(t.device) for t in ts]})')
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError('roi_align_pw kernel takes float32 inputs '
+                        f'(got {[t.dtype for t in ts]})')
+    if feat.dim() != 4 or wy.dim() != 4 or wx.dim() != 4:
+        raise ValueError('roi_align_pw: bad ranks')
+    b, h, w, c = feat.shape
+    r, p = wy.shape[1:3]
+    if wy.shape != (b, r, p, h) or wx.shape != (b, r, p, w):
+        raise ValueError(f'roi_align_pw: shapes feat {tuple(feat.shape)}, '
+                         f'wy {tuple(wy.shape)}, wx {tuple(wx.shape)} do '
+                         'not agree')
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError('roi_align_pw kernel takes contiguous tensors')
+    if c % 4 or feat.data_ptr() % 16:
+        raise ValueError('roi_align_pw kernel reads feat as float4: needs '
+                         f'C % 4 == 0 (C={c}) and 16-byte aligned feat')
+    lib = _pw_lib()
+    if not lib.roi_align_pw_pooled_ok(p):
+        raise ValueError(f'roi_align_pw kernel is built for P = 5 and 7 '
+                         f'(got {p})')
+    if 4 * (2 * h + w + w * p) > 48 * 1024:
+        raise ValueError(f'roi_align_pw kernel: a {h}x{w} map with P={p} '
+                         'needs more than 48 KB of shared memory')
+    out = torch.empty(b, r, p, p, c, device=feat.device, dtype=torch.float32)
+    with torch.cuda.device(feat.device):
+        err = lib.roi_align_pw_f32(
+            feat.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
+            b, r, h, w, c, p,
+            torch.cuda.current_stream(feat.device).cuda_stream)
+    build.check(err, 'roi_align_pw')
+    roi_align_pw.launches += 1
+    return out
+
+
+roi_align_pw.launches = 0
+
+
+class _RoIAlignPW(torch.autograd.Function):
+    """roi_align_pw with the plain contraction backward; gradient for feat
+    only (the weights come from the rois, which have none)."""
+
+    @staticmethod
+    def forward(ctx, feat, wy, wx):
+        ctx.save_for_backward(wy, wx)
+        return roi_align_pw(feat, wy, wx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wy, wx = ctx.saved_tensors
+        return roi_align_pw_backward(grad.contiguous(), wy, wx), None, None
+
+
+def roi_align_train(feat, rois, output_size: int = 7,
+                    spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
+    """The training step's RoIAlign, differentiable in feat: Wy / Wx are
+    built once, pooled with `roi_align_pw` (K3 on the card) and kept for
+    the backward.  Same arguments and result as `roi_align_plain`."""
+    with torch.no_grad():
+        wy, wx = roi_weights(rois, feat.shape[1], feat.shape[2],
+                             output_size, spatial_scale, max_samples)
+    return _RoIAlignPW.apply(feat, wy.contiguous(), wx.contiguous())

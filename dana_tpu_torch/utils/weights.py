@@ -1,10 +1,11 @@
-"""Carry weights into the port's modules.
+"""Carry weights into and out of the port's modules.
 
 `from_jax_params` takes the JAX package's param tree (nested dicts of
 numpy arrays: HWIO convs, [in, out] linears) and `load_reference_state_dict`
 a reference-format state dict (`RCNN_base.*`, `RCNN_top.*`, OIHW convs,
 [out, in] linears), as a released `.pth` holds it.  Both fill a `DAnA`
 module with a strict load, so every weight is consumed and none missing.
+`to_jax_params` turns a module back into the JAX param tree.
 """
 
 from __future__ import annotations
@@ -51,6 +52,24 @@ def from_jax_params(tree: dict, config: DanaConfig) -> DAnA:
             v = v.T
         state[name] = torch.from_numpy(np.ascontiguousarray(v))
     return _load(config, state)
+
+
+def to_jax_params(model: DAnA) -> dict:
+    """DAnA module -> the JAX param tree (numpy float32 leaves, HWIO convs,
+    [in, out] linears), every parameter and buffer."""
+    tree = {}
+    for name, t in model.state_dict().items():
+        v = t.detach().cpu().numpy()
+        if v.ndim == 4:                          # OIHW -> HWIO
+            v = v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:                        # [out, in] -> [in, out]
+            v = v.T
+        *path, leaf = name.split('.')
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(v, np.float32)
+    return tree
 
 
 def load_reference_state_dict(sd: dict, config: DanaConfig) -> DAnA:

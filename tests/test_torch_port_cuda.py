@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the training step's autograd Functions against autograd of the plain
+versions.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device.
 On a machine with one (and no JAX), run:
@@ -55,18 +57,22 @@ def test_cisa_kernel_refuses_too_many_keys(dev):
         ca.cisa_attention_shots(q, k, v, u, 1.0, 0.1)
 
 
-def test_roi_align_kernel_matches_plain(dev):
-    gen = torch.Generator(device=dev).manual_seed(1)
-    feat = torch.randn(2, 10, 12, 40, device=dev, generator=gen)
+def _edge_rois(dev, gen, b=2, n=24):
     edge = torch.tensor([
         [-40, -30, 60, 50], [150, 140, 260, 230], [-100, 20, -20, 60],
         [30, 30, 30.4, 30.2], [80, 80, 60, 50], [0, 0, 2000, 1900],
         [5.5, 7.25, 159.0, 191.0], [16, 16, 16 + 21 * 16, 48]],
         device=dev)
-    xy = torch.rand(2, 24, 2, device=dev, generator=gen) * 150
-    wh = torch.rand(2, 24, 2, device=dev, generator=gen) * 90 + 1
-    rois = torch.cat([edge.expand(2, -1, -1),
+    xy = torch.rand(b, n, 2, device=dev, generator=gen) * 150
+    wh = torch.rand(b, n, 2, device=dev, generator=gen) * 90 + 1
+    return torch.cat([edge.expand(b, -1, -1),
                       torch.cat([xy, xy + wh], -1)], 1).contiguous()
+
+
+def test_roi_align_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    feat = torch.randn(2, 10, 12, 40, device=dev, generator=gen)
+    rois = _edge_rois(dev, gen)
     for p in (7, 5):
         before = ra.roi_align.launches
         got = ra.roi_align(feat, rois, p)
@@ -77,3 +83,78 @@ def test_roi_align_kernel_matches_plain(dev):
         ra.roi_align(feat.double(), rois)
     with pytest.raises(ValueError):
         ra.roi_align(feat[:, :, ::2], rois)
+
+
+@pytest.mark.parametrize('c', [40, 1024])
+def test_roi_align_pw_kernel_matches_plain(dev, c):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feat = torch.randn(2, 10, 12, c, device=dev, generator=gen)
+    rois = _edge_rois(dev, gen)
+    for p in (7, 5):
+        wy, wx = ra.roi_weights(rois, 10, 12, p)
+        before = ra.roi_align_pw.launches
+        got = ra.roi_align_pw(feat, wy, wx)
+        torch.testing.assert_close(got, ra.roi_align_pw_plain(feat, wy, wx),
+                                   rtol=TOL, atol=TOL)
+        torch.testing.assert_close(got, ra.roi_align(feat, rois, p),
+                                   rtol=TOL, atol=TOL)
+        assert ra.roi_align_pw.launches == before + 1
+    with pytest.raises(ValueError, match='float4'):
+        ra.roi_align_pw(feat[..., :6].contiguous(), wy, wx)
+    with pytest.raises(TypeError):
+        ra.roi_align_pw(feat.double(), wy, wx)
+
+
+@pytest.mark.parametrize('shape', [
+    (2, 100, 400, 256, 1024),
+    (2, 77, 1, 256, 1024),           # Ns = 1
+    (3, 33, 57, 64, 1100),           # ragged Nq, C past one channel chunk
+])
+def test_cisa_single_kernel_matches_plain(dev, shape):
+    g, nq, ns, d, c = shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(g, nq, d, device=dev, generator=gen)
+    k = torch.randn(g, ns, d, device=dev, generator=gen)
+    v = torch.randn(g, ns, c, device=dev, generator=gen)
+    u = torch.softmax(torch.randn(g, 1, ns, device=dev, generator=gen), -1)
+    before = ca.cisa_attention.launches, ca.cisa_attention_shots.launches
+    got = ca.cisa_attention(q, k, v, u, d ** -0.5, 0.1)
+    want = ca.cisa_attention_plain(q, k, v, u, d ** -0.5, 0.1)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    assert (ca.cisa_attention.launches,
+            ca.cisa_attention_shots.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize('single', [False, True], ids=['shots', 'single'])
+def test_cisa_function_grads_match_plain_autograd(dev, single):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g, s, nq, ns, d, c = 2, 3, 70, 49, 64, 96
+    shapes = ([(g, nq, d), (g, ns, d), (g, ns, c), (g, 1, ns)] if single
+              else [(g, nq, d), (g, s, ns, d), (g, s, ns, c), (g, s, ns)])
+    xs = [torch.randn(*sh, device=dev, generator=gen) for sh in shapes]
+    xs[3] = torch.softmax(xs[3], -1)
+    cot = torch.randn(g, nq, c, device=dev, generator=gen)
+    fn = ca.cisa_attention if single else ca.cisa_attention_shots
+    plain = ca.cisa_attention_plain if single \
+        else ca.cisa_attention_shots_plain
+    grads = []
+    for f in (fn, plain):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        grads.append(torch.autograd.grad(f(*leaves, 0.125, 0.1), leaves,
+                                         cot))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def test_roi_align_train_grad_matches_plain_autograd(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feat = torch.randn(2, 10, 12, 64, device=dev, generator=gen)
+    rois = _edge_rois(dev, gen)
+    cot = torch.randn(2, rois.shape[1], 7, 7, 64, device=dev, generator=gen)
+    before = ra.roi_align_pw.launches
+    grads = []
+    for f in (ra.roi_align_train, ra.roi_align_plain):
+        x = feat.clone().requires_grad_()
+        grads.append(torch.autograd.grad(f(x, rois), x, cot)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=TOL, atol=TOL)
+    assert ra.roi_align_pw.launches == before + 1

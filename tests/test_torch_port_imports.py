@@ -67,3 +67,25 @@ def test_kernel_wrappers_refuse_other_devices():
         cisa_attention_shots(q, torch.empty(1, 1, 2, 8, device='meta'),
                              torch.empty(1, 1, 2, 8, device='meta'),
                              torch.empty(1, 1, 2, device='meta'), 1.0, 0.1)
+
+
+def test_trainer_defaults_to_cuda():
+    from dana_tpu_torch.engine.train import Trainer
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Trainer(None, None)
+
+
+def test_training_kernel_wrappers_refuse_other_devices():
+    from dana_tpu_torch.ops.cisa_attention import cisa_attention
+    from dana_tpu_torch.ops.roi_align import roi_align_pw
+    with pytest.raises(ValueError):
+        roi_align_pw(torch.empty(1, 4, 4, 8, device='meta'),
+                     torch.empty(1, 2, 7, 4, device='meta'),
+                     torch.empty(1, 2, 7, 4, device='meta'))
+    with pytest.raises(ValueError):
+        cisa_attention(torch.empty(1, 4, 8, device='meta'),
+                       torch.empty(1, 2, 8, device='meta'),
+                       torch.empty(1, 2, 8, device='meta'),
+                       torch.empty(1, 1, 2, device='meta'), 1.0, 0.1)

@@ -1,7 +1,9 @@
 """The port's ops against the JAX package on the CPU: boxes, anchors, both
-NMS functions, the plain CISA core (against the Pallas kernel in
-interpret mode and the XLA path) and the plain RoIAlign (against the
-XLA float32 path and the Pallas kernel in interpret mode).
+NMS functions, the plain CISA cores, shot-fused and single-group
+(against the Pallas kernels in interpret mode and the XLA paths), the
+plain RoIAlign, from rois and from precomputed axis weights (against the
+XLA float32 path and both Pallas kernels in interpret mode), and the
+gradients of the CISA and RoIAlign autograd Functions (against jax.grad).
 
 On the CPU the kernels' wrappers run their plain versions; the kernels
 themselves are held to those on the card (tests/test_torch_port_cuda.py,
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dana_tpu.core import anchors as janchors
@@ -18,7 +21,8 @@ from dana_tpu.core import boxes as jboxes
 from dana_tpu.ops import cisa_attention as jca
 from dana_tpu.ops import nms as jnms
 from dana_tpu.ops.roi_align import roi_align as jroi_align
-from dana_tpu.ops.roi_align_pallas import roi_align_pallas
+from dana_tpu.ops.roi_align_pallas import (roi_align_pallas,
+                                           roi_align_pallas_pw)
 
 from dana_tpu_torch.core import anchors as tanchors
 from dana_tpu_torch.core import boxes as tboxes
@@ -179,6 +183,49 @@ def test_cisa_plain_matches_pallas_and_xla(shape):
     np.testing.assert_allclose(plain, xla, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize('shape', [
+    dict(g=2, nq=70, ns=16, d=32, c=64),           # ragged Nq vs block 32
+    dict(g=2, nq=64, ns=1, d=32, c=48),            # Ns = 1
+    dict(g=3, nq=33, ns=49, d=64, c=96),
+], ids=['ragged', 'ns1', 'roi_like'])
+def test_cisa_single_plain_matches_pallas_and_xla(shape):
+    q, k, v, u = _cisa_inputs(s=1, **shape, seed=shape['nq'] + 1)
+    k, v = k[:, 0], v[:, 0]                        # [G,Ns,D], [G,Ns,C]
+    scale, gamma = 1.0 / np.sqrt(shape['d']), 0.1
+    args = [jnp.asarray(x) for x in (q, k, v, u)]  # u [G,1,Ns]
+    xla = np.asarray(jca.cisa_attention_xla(*args, scale, gamma))
+    pallas = np.asarray(jca.cisa_attention(*args, scale, gamma, 32))
+    plain = tca.cisa_attention_plain(_t(q), _t(k), _t(v), _t(u), scale,
+                                     gamma).numpy()
+    np.testing.assert_allclose(plain, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(plain, xla, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize('single', [False, True], ids=['shots', 'single'])
+def test_cisa_function_grads_match_jax(single):
+    """The autograd Function (forward: the plain version on the CPU;
+    backward: the plain VJP) against jax.grad through the Pallas op's
+    custom_vjp, for q, k, v and u, on a ragged Nq."""
+    q, k, v, u = _cisa_inputs(2, 1 if single else 3, 37, 20, 16, 24, seed=9)
+    if single:
+        k, v = k[:, 0], v[:, 0]
+    scale, gamma = 0.25, 0.1
+    cot = np.random.default_rng(10).normal(
+        size=(2, 37, 24)).astype(np.float32)
+    jop = jca.cisa_attention if single else jca.cisa_attention_shots
+    top = tca.cisa_attention if single else tca.cisa_attention_shots
+
+    def jloss(*xs):
+        return jnp.sum(jop(*xs, scale, gamma, 16) * cot)
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(x) for x in (q, k, v, u)))
+    xs = [_t(x).requires_grad_() for x in (q, k, v, u)]
+    (top(*xs, scale, gamma) * _t(cot)).sum().backward()
+    for name, x, w in zip('qkvu', xs, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
 def test_cisa_wrapper_on_cpu_runs_plain():
     q, k, v, u = (_t(x) for x in _cisa_inputs(1, 3, 10, 5, 8, 12, seed=0))
     before = tca.cisa_attention_shots.launches
@@ -186,6 +233,16 @@ def test_cisa_wrapper_on_cpu_runs_plain():
     assert torch.equal(got, tca.cisa_attention_shots_plain(q, k, v, u, 0.3,
                                                            0.1))
     assert tca.cisa_attention_shots.launches == before
+
+
+def test_cisa_single_wrapper_on_cpu_runs_plain():
+    q, k, v, u = (_t(x) for x in _cisa_inputs(2, 1, 10, 5, 8, 12, seed=1))
+    before = tca.cisa_attention.launches, tca.cisa_attention_shots.launches
+    got = tca.cisa_attention(q, k[:, 0], v[:, 0], u, 0.3, 0.1)
+    assert torch.equal(got, tca.cisa_attention_plain(q, k[:, 0], v[:, 0], u,
+                                                     0.3, 0.1))
+    assert (tca.cisa_attention.launches,
+            tca.cisa_attention_shots.launches) == before
 
 
 # -------------------------------------------------------------- RoIAlign
@@ -234,6 +291,40 @@ def test_roi_align_sample_cap_binds():
     assert not torch.allclose(w16, w64)
 
 
+def test_roi_align_pw_plain_matches_pallas_pw():
+    """The weight-taking form, with the port's own axis weights, against
+    the Pallas weight-taking kernel (interpret mode)."""
+    rng = np.random.default_rng(11)
+    feat = rng.normal(size=(2, 10, 12, 8)).astype(np.float32)
+    rois = _edge_rois()
+    wy, wx = troi.roi_weights(_t(rois), 10, 12, 7, 1 / 16.0)
+    plain = troi.roi_align_pw_plain(_t(feat), wy, wx).numpy()
+    pallas = np.asarray(roi_align_pallas_pw(jnp.asarray(feat),
+                                            jnp.asarray(rois), 7, 1 / 16.0))
+    np.testing.assert_allclose(plain, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_roi_align_train_grad_matches_jax():
+    """grad_feat of the RoIAlign autograd Function (plain contractions of
+    the saved weights) against jax.grad of the JAX float32 roi_align."""
+    rng = np.random.default_rng(12)
+    feat = rng.normal(size=(2, 10, 12, 8)).astype(np.float32)
+    rois = np.concatenate([np.zeros((2, 14, 1), np.float32), _edge_rois()],
+                          -1)
+    cot = rng.normal(size=(2, 14, 7, 7, 8)).astype(np.float32)
+    want = jax.grad(lambda f: jnp.sum(jroi_align(f, jnp.asarray(rois), 7,
+                                                 1 / 16.0, 0) * cot))(
+        jnp.asarray(feat))
+    f = _t(feat).requires_grad_()
+    out = troi.roi_align_train(f, _t(rois), 7, 1 / 16.0)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  troi.roi_align_plain(_t(feat),
+                                                       _t(rois)).numpy())
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_roi_align_wrapper_on_cpu_runs_plain():
     rng = np.random.default_rng(7)
     feat = _t(rng.normal(size=(2, 6, 7, 4)).astype(np.float32))
@@ -242,3 +333,13 @@ def test_roi_align_wrapper_on_cpu_runs_plain():
     assert torch.equal(troi.roi_align(feat, rois),
                        troi.roi_align_plain(feat, rois))
     assert troi.roi_align.launches == before
+
+
+def test_roi_align_pw_wrapper_on_cpu_runs_plain():
+    rng = np.random.default_rng(8)
+    feat = _t(rng.normal(size=(2, 6, 7, 4)).astype(np.float32))
+    wy, wx = troi.roi_weights(_t(_edge_rois()), 6, 7)
+    before = troi.roi_align_pw.launches
+    assert torch.equal(troi.roi_align_pw(feat, wy, wx),
+                       troi.roi_align_pw_plain(feat, wy, wx))
+    assert troi.roi_align_pw.launches == before

@@ -89,3 +89,26 @@ def test_predict_opens_every_stage_range():
     names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
     assert names == STAGES
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_train_step_opens_every_stage_range():
+    from dana_tpu_torch.engine.train import Trainer
+    conf = tdana.DanaConfig(n_way=2, n_shot=1, train_pre_nms=100,
+                            train_post_nms=16, nms_cap=100, rois_per_image=8,
+                            rpn_batchsize=16)
+    trainer = Trainer(tdana.init_params(conf, seed=2), conf, device='cpu')
+    rng = np.random.default_rng(2)
+    gt = np.zeros((1, 2, 5), np.float32)
+    gt[0, 0] = [10, 10, 70, 60, 1]
+    batch = dict(im_data=rng.integers(0, 256, (1, 96, 128, 3))
+                 .astype(np.uint8),
+                 im_info=np.array([[96, 128, 1.0]], np.float32), gt_boxes=gt,
+                 support_ims=rng.normal(0, 50, (1, 2, 224, 224, 3))
+                 .astype(np.float32))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.step(batch)
+    names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
+    assert names == (STAGES - {'dana.upload', 'dana.postprocess'}) | {
+        'dana.support_trunk', 'dana.targets', 'dana.losses',
+        'dana.backward', 'dana.update'}

@@ -74,6 +74,65 @@ def stage_times(trace_path, iters):
     return stages, busy, kernels
 
 
+def card_name():
+    """The `nvidia-smi` name and power limit line; exits without a card."""
+    if not torch.cuda.is_available():
+        sys.exit(f'{os.path.basename(sys.argv[0])}: no CUDA device')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    return smi.stdout.strip()
+
+
+def profile(run, iters, trace, card, unit='request'):
+    """Time `run` (ending in a synchronize) --iters times untraced, then
+    --iters times under torch.profiler; print the stage table, the top
+    kernels and the idle share; -> the JSON summary (per `unit`)."""
+    for _ in range(2):                                  # warm-up
+        run()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        traced_wall = (time.perf_counter() - t0) * 1e3 / iters
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    stages, busy, kernels = stage_times(trace, iters)
+    if not busy or not any(d for d, _ in stages.values()):
+        sys.exit('the trace holds no device time in the dana.* ranges')
+
+    top = sum(d for k, (d, _) in stages.items() if k.count('.') == 1)
+    print(f'{"stage (per " + unit + ")":26s} {"device ms":>10s} '
+          f'{"share":>6s} {"host ms":>10s}', flush=True)
+    for k, (d, h) in stages.items():
+        print(f'{k:26s} {d:10.3f} {100 * d / busy:5.1f}% {h:10.3f}',
+              flush=True)
+    print(f'top-level stages hold {top:.3f} of {busy:.3f} device ms',
+          flush=True)
+    heavy = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, calls) in heavy:
+        print(f'  {ms:9.3f} ms  x{calls:<6g} {name[:90]}', flush=True)
+    print(f'{unit} wall (median of {iters}, untraced) '
+          f'{statistics.median(walls):.3f} ms; traced {traced_wall:.3f} ms '
+          f'with {busy:.3f} ms of device time: idle share '
+          f'{1 - busy / traced_wall:.3f}', flush=True)
+    return {'card': card,
+            'stage_device_ms': {k: d for k, (d, _) in stages.items()},
+            'stage_host_ms': {k: h for k, (_, h) in stages.items()},
+            'wall_ms': statistics.median(walls),
+            'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
+            'idle_share': 1 - busy / traced_wall}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -81,12 +140,7 @@ def main():
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_predict.trace.json'))
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit('profile_torch_predict: no CUDA device')
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    card = card_name()
 
     import chip_smoke
     from dana_tpu_torch.ops import build
@@ -98,51 +152,7 @@ def main():
         pred.predict(query, info, classes)
         torch.cuda.synchronize()
 
-    for _ in range(2):                                  # warm-up
-        request()
-    walls = []
-    for _ in range(args.iters):
-        t0 = time.perf_counter()
-        request()
-        walls.append((time.perf_counter() - t0) * 1e3)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            request()
-        traced_wall = (time.perf_counter() - t0) * 1e3 / args.iters
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    stages, busy, kernels = stage_times(args.trace, args.iters)
-    if not busy or not any(d for d, _ in stages.values()):
-        sys.exit('profile_torch_predict: the trace holds no device time in '
-                 'the dana.* ranges')
-
-    top = sum(d for k, (d, _) in stages.items() if k.count('.') == 1)
-    print(f'{"stage (per request)":26s} {"device ms":>10s} {"share":>6s} '
-          f'{"host ms":>10s}', flush=True)
-    for k, (d, h) in stages.items():
-        print(f'{k:26s} {d:10.3f} {100 * d / busy:5.1f}% {h:10.3f}',
-              flush=True)
-    print(f'top-level stages hold {top:.3f} of {busy:.3f} device ms',
-          flush=True)
-    heavy = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (ms, calls) in heavy:
-        print(f'  {ms:9.3f} ms  x{calls:<6g} {name[:90]}', flush=True)
-    print(f'request wall (median of {args.iters}, untraced) '
-          f'{statistics.median(walls):.3f} ms; traced {traced_wall:.3f} ms '
-          f'with {busy:.3f} ms of device time: idle share '
-          f'{1 - busy / traced_wall:.3f}', flush=True)
-    print(json.dumps({'card': smi.stdout.strip(),
-                      'stage_device_ms': {k: d for k, (d, _) in
-                                          stages.items()},
-                      'stage_host_ms': {k: h for k, (_, h) in
-                                        stages.items()},
-                      'wall_ms': statistics.median(walls),
-                      'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
-                      'idle_share': 1 - busy / traced_wall}))
+    print(json.dumps(profile(request, args.iters, args.trace, card)))
 
 
 if __name__ == '__main__':
