@@ -13,7 +13,9 @@ Run from the repository root.  Phases, each of which fails the run:
      version on the card (|kernel - plain| <= 1e-4 + 1e-4 |plain|: both
      sum float32 products in different orders) at the shapes the serving
      and training paths give it plus edge shapes, and timed with CUDA
-     events beside its plain version, a library yardstick and its bound;
+     events beside its plain version, a library yardstick and its bound
+     (the CISA kernels' at the 3xTF32 tensor-core rate, with their
+     achieved TFLOP/s);
      the backward passes of the CISA and RoIAlign autograd Functions are
      held against autograd of the plain versions;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
@@ -53,6 +55,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_TC_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+# K1 and K4 take each float32 product as three TF32 products (3xTF32)
+CISA_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
 TOL = 1e-4
 ROI_ATOL = 2e-3               # px: a proposal counted as moved (ROADMAP Queue C)
 BOX_ATOL = 1e-3               # px, detections of a unique score
@@ -90,11 +95,24 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
+
+
+def cisa_site(fn, plain, library, nbytes, flops):
+    """Times of a CISA kernel site beside its plain version and library
+    yardstick; its bound at the 3xTF32 tensor-core rate, and at the
+    float32 rate outside the tensor cores for comparison."""
+    b_ms, b_by = bound_ms(nbytes, flops, CISA_FLOP_PER_S)
+    ms = cuda_ms(fn, 10)
+    return dict(ms=ms, plain_ms=cuda_ms(plain, 5),
+                library_ms=cuda_ms(library, 5), bound_ms=b_ms,
+                bound_by=b_by, bound_rate='3xTF32 tensor cores',
+                simt_bound_ms=bound_ms(nbytes, flops)[0],
+                tflop_per_s=flops / ms / 1e9, flops=flops, bytes=nbytes)
 
 
 def check_close(name, got, want):
@@ -156,13 +174,10 @@ def check_cisa(dev, gen):
             nbytes = 4 * (q.numel() + k.numel() + v.numel() + u.numel()
                           + g * nq * c)
             flops = 2 * g * s * nq * ns * (d + c)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            sites[name] = dict(
-                ms=cuda_ms(lambda: cisa_attention_shots(*args), 10),
-                plain_ms=cuda_ms(lambda: cisa_attention_shots_plain(*args),
-                                 5),
-                library_ms=cuda_ms(lambda: library(*args), 5),
-                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+            sites[name] = cisa_site(
+                lambda: cisa_attention_shots(*args),
+                lambda: cisa_attention_shots_plain(*args),
+                lambda: library(*args), nbytes, flops)
         print(f'cisa_shots[{name}] G={g} S={s} Nq={nq} Ns={ns} D={d} C={c}:'
               f' max|kernel-plain| {case_err:.3e}, max|library-plain| '
               f'{lib_err:.3e}' + (f', {sites[name]}' if name in sites
@@ -255,13 +270,9 @@ def check_cisa_single(dev, gen):
             nbytes = 4 * (q.numel() + k.numel() + v.numel() + u.numel()
                           + g * nq * c)
             flops = 2 * g * nq * ns * (d + c)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            site = dict(ms=cuda_ms(lambda: cisa_attention(*args), 10),
-                        plain_ms=cuda_ms(lambda: cisa_attention_plain(*args),
-                                         5),
-                        library_ms=cuda_ms(lambda: library(*args), 5),
-                        bound_ms=b_ms, bound_by=b_by, flops=flops,
-                        bytes=nbytes)
+            site = cisa_site(lambda: cisa_attention(*args),
+                             lambda: cisa_attention_plain(*args),
+                             lambda: library(*args), nbytes, flops)
         print(f'cisa_attention[{name}] G={g} Nq={nq} Ns={ns} D={d} C={c}: '
               f'max|kernel-plain| {case_err:.3e}, max|library-plain| '
               f'{lib_err:.3e}' + (f', {site}' if name == 'main' else ''),

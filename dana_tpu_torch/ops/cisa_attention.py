@@ -75,10 +75,11 @@ def _launch(q, k, v, unary_sm, scale, gamma):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError('cisa_attention_shots kernel takes contiguous '
                          'tensors')
-    if d % 4 or q.data_ptr() % 16 or k.data_ptr() % 16:
-        raise ValueError('cisa_attention_shots kernel reads q and k as '
-                         f'float4: needs D % 4 == 0 (D={d}) and 16-byte '
-                         'aligned q, k')
+    if d % 8 or c % 4 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('cisa_attention_shots kernel stages q, k and v in '
+                         f'16-byte copies and steps D by 8: needs D % 8 == 0 '
+                         f'(D={d}), C % 4 == 0 (C={c}) and 16-byte aligned '
+                         'q, k, v')
     lib = _lib()
     smem = lib.cisa_shots_smem_bytes(ns, d)
     if smem > lib.cisa_shots_smem_limit():

@@ -29,10 +29,13 @@ def dev():
 
 
 @pytest.mark.parametrize('shape', [
-    (2, 3, 100, 400, 256, 1024),
-    (2, 3, 77, 1, 256, 1024),        # Ns = 1
+    (2, 3, 100, 400, 256, 1024),     # RPN site: 32-row tiles, 128-key chunks
+    (2, 3, 77, 1, 256, 1024),        # Ns = 1: 7 padded key columns masked
     (3, 2, 33, 57, 64, 1100),        # ragged Nq, C past one channel chunk
-    (1, 1, 16, 2000, 32, 8),         # a large support set
+    (1, 1, 16, 2000, 32, 8),         # a large support set: 16-row tiles
+    (1, 3, 14700, 49, 256, 1024),    # RoI site: 64-row tiles, ragged Nq
+    (3, 2, 77, 57, 256, 1100),       # ragged Nq and Ns, a channel tail
+    (1, 3, 40, 2000, 32, 8),         # one shot's tile at a time
 ])
 def test_cisa_kernel_matches_plain(dev, shape):
     g, s, nq, ns, d, c = shape
@@ -55,6 +58,10 @@ def test_cisa_kernel_refuses_too_many_keys(dev):
     u = torch.zeros(1, 1, 20000, device=dev)
     with pytest.raises(ValueError, match='shared memory'):
         ca.cisa_attention_shots(q, k, v, u, 1.0, 0.1)
+    with pytest.raises(ValueError, match='D % 8'):
+        ca.cisa_attention_shots(q[..., :12].contiguous(),
+                                k[:, :, :5, :12].contiguous(), v[:, :, :5],
+                                u[..., :5], 1.0, 0.1)
 
 
 def _edge_rois(dev, gen, b=2, n=24):
@@ -109,6 +116,8 @@ def test_roi_align_pw_kernel_matches_plain(dev, c):
     (2, 100, 400, 256, 1024),
     (2, 77, 1, 256, 1024),           # Ns = 1
     (3, 33, 57, 64, 1100),           # ragged Nq, C past one channel chunk
+    (1, 14700, 49, 256, 1024),       # 64-row tiles, ragged Nq
+    (1, 16, 2000, 32, 8),            # a large support set: 16-row tiles
 ])
 def test_cisa_single_kernel_matches_plain(dev, shape):
     g, nq, ns, d, c = shape
