@@ -15,7 +15,9 @@ Run from the repository root.  Phases, each of which fails the run:
      and training paths give it plus edge shapes, and timed with CUDA
      events beside its plain version, a library yardstick and its bound
      (the CISA kernels' at the 3xTF32 tensor-core rate, with their
-     achieved TFLOP/s);
+     achieved TFLOP/s; the RoIAlign kernels' with their GB/s, the bytes
+     they read through L2 by the taps they keep, and their time without
+     the rois that span the whole map);
      the backward passes of the CISA and RoIAlign autograd Functions are
      held against autograd of the plain versions;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
@@ -195,6 +197,43 @@ def _sample_counts(rois, p):
     return (q + (q * p < ext).float()).clamp(1, 16)       # max_samples
 
 
+def roi_taps(wy, wx, c):
+    """The work of the RoIAlign kernels' shared body on these weights: one
+    block per (b, r, ph) row of bins reads each kept feature row (h with
+    Wy[ph, h] != 0, w with some Wx[pw, w] != 0) once.  -> (operations:
+    stage 1 over the kept rows for every kept column, stage 2 over P x P
+    bins; modelled bytes read through L2: kept rows x kept columns x 4 C
+    summed over (b, r, ph))."""
+    nh = (wy != 0).sum(-1)                                  # [B,R,P]
+    nw = (wx != 0).any(-2).sum(-1)                          # [B,R]
+    p = wy.shape[2]
+    flops = 2 * c * (nw * (nh.sum(-1) + p * p)).sum().item()
+    return flops, 4 * c * (nh * nw[..., None]).sum().item()
+
+
+def roi_site(fn, plain, nbytes, flops, gather, fn_cut, library=None):
+    """Times of a RoIAlign kernel beside its plain version (and library
+    yardstick), its bound, and its rates: GB/s of the counted bytes and of
+    the modelled L2 bytes; `fn_cut`: the kernel on the same rois without
+    the whole-map ones (`without_whole_map`), whose rows are the longest."""
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = cuda_ms(fn, 10)
+    return dict(ms=ms, plain_ms=cuda_ms(plain, 3),
+                library_ms=None if library is None else cuda_ms(library, 3),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                gb_per_s=nbytes / ms / 1e6, gather_bytes=gather,
+                gather_gb_per_s=gather / ms / 1e6,
+                ms_without_whole_map=cuda_ms(fn_cut, 10))
+
+
+def without_whole_map(rois):
+    """`serving_rois` with each image's two whole-map edge rois (5 and 6)
+    replaced by copies of two random ones."""
+    out = rois.clone()
+    out[:, 5:7] = rois[:, 8:10]
+    return out
+
+
 def serving_rois(b, r, gen, dev):
     """Proposal-like rois on a 608x1024 image, edge cases first."""
     h, w = QUERY_HW
@@ -214,7 +253,8 @@ def serving_rois(b, r, gen, dev):
 
 
 def check_roi_align(dev, gen):
-    from dana_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+    from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
+                                              roi_weights)
     from dana_tpu_torch.utils import config as cfg
     b, r, c = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, 1024
     p = cfg.POOLING_SIZE
@@ -224,16 +264,18 @@ def check_roi_align(dev, gen):
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
     err = check_close('roi_align_fwd', roi_align(feat, rois, p, 1 / 16.0),
                       want)
-    counts = _sample_counts(rois, p)
     nbytes = 4 * (feat.numel() + rois.numel() + want.numel())
-    # 4 corner multiply-adds per sample, per bin, per channel
-    flops = 8 * c * p * p * (counts[..., 0] * counts[..., 1]).sum().item()
-    b_ms, b_by = bound_ms(nbytes, flops)
-    site = dict(ms=cuda_ms(lambda: roi_align(feat, rois, p, 1 / 16.0), 10),
-                plain_ms=cuda_ms(lambda: roi_align_plain(feat, rois, p,
-                                                         1 / 16.0), 3),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
-                bytes=nbytes)
+    flops, gather = roi_taps(*roi_weights(rois, fh, fw, p, 1 / 16.0), c)
+    cut = without_whole_map(rois)
+    site = roi_site(lambda: roi_align(feat, rois, p, 1 / 16.0),
+                    lambda: roi_align_plain(feat, rois, p, 1 / 16.0),
+                    nbytes, flops, gather,
+                    lambda: roi_align(feat, cut, p, 1 / 16.0))
+    # K2's earlier form, a block per output bin: 4 corner rows of 4 C
+    # bytes for every sample of every bin
+    counts = _sample_counts(rois, p)
+    site['bin_gather_bytes'] = 16 * c * p * p * (counts[..., 0]
+                                                 * counts[..., 1]).sum().item()
     print(f'roi_align_fwd feat={tuple(feat.shape)} rois={tuple(rois.shape)}:'
           f' max|kernel-plain| {err:.3e}, {site}', flush=True)
     return err, site
@@ -297,24 +339,20 @@ def check_roi_align_pw(dev, gen):
     b, r, c, p = TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE, 1024, cfg.POOLING_SIZE
     fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
-    wy, wx = roi_weights(serving_rois(b, r, gen, dev), fh, fw, p,
-                         1 / cfg.FEAT_STRIDE)
+    rois = serving_rois(b, r, gen, dev)
+    wy, wx = roi_weights(rois, fh, fw, p, 1 / cfg.FEAT_STRIDE)
+    wy_cut, wx_cut = roi_weights(without_whole_map(rois), fh, fw, p,
+                                 1 / cfg.FEAT_STRIDE)
     want = roi_align_pw_plain(feat, wy, wx)
     err = check_close('roi_align_pw', roi_align_pw(feat, wy, wx), want)
     lib_err = (pw_library(wy, feat, wx) - want).abs().max().item()
     nbytes = 4 * (feat.numel() + wy.numel() + wx.numel() + want.numel())
-    # the work these weights need: per (roi, row) stage 1 over the row's
-    # nonzero Wy taps for every nonzero Wx column, stage 2 over P bins
-    nh = (wy != 0).sum(-1).sum(-1)                          # [B,R]
-    nw = (wx != 0).any(-2).sum(-1)                          # [B,R]
-    flops = 2 * c * (nw * (nh + p * p)).sum().item()
-    dense = 2 * c * b * r * p * (fh * fw + p * fw)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    site = dict(ms=cuda_ms(lambda: roi_align_pw(feat, wy, wx), 10),
-                plain_ms=cuda_ms(lambda: roi_align_pw_plain(feat, wy, wx), 3),
-                library_ms=cuda_ms(lambda: pw_library(wy, feat, wx), 3),
-                bound_ms=b_ms, bound_by=b_by, flops=flops,
-                dense_flops=dense, bytes=nbytes)
+    flops, gather = roi_taps(wy, wx, c)
+    site = roi_site(lambda: roi_align_pw(feat, wy, wx),
+                    lambda: roi_align_pw_plain(feat, wy, wx), nbytes, flops,
+                    gather, lambda: roi_align_pw(feat, wy_cut, wx_cut),
+                    library=lambda: pw_library(wy, feat, wx))
+    site['dense_flops'] = 2 * c * b * r * p * (fh * fw + p * fw)
     print(f'roi_align_pw feat={tuple(feat.shape)} wy={tuple(wy.shape)} '
           f'wx={tuple(wx.shape)}: max|kernel-plain| {err:.3e}, '
           f'max|library-plain| {lib_err:.3e}, {site}', flush=True)
@@ -342,8 +380,6 @@ def check_backward(dev, gen):
     rois = serving_rois(g, cfg.TRAIN_BATCH_SIZE, gen, dev)
     rcot = torch.randn(g, rois.shape[1], p, p, c, device=dev, generator=gen)
     wy, wx = ra.roi_weights(rois, fh, fw, p)
-    nh = (wy != 0).sum(-1).sum(-1)
-    nw = (wx != 0).any(-2).sum(-1)
     # forward + backward: CISA recomputes its forward and takes two
     # products for each of the forward's two (3x the forward's operations);
     # RoIAlign's backward runs the forward's contractions transposed
@@ -352,8 +388,7 @@ def check_backward(dev, gen):
     bounds = {
         'cisa_shots': bound_ms(4 * cisa_io,
                                3 * 2 * g * s_ * fh * fw * ns * (d + c)),
-        'roi_align_pw': bound_ms(4 * roi_io,
-                                 2 * 2 * c * (nw * (nh + p * p)).sum().item())}
+        'roi_align_pw': bound_ms(4 * roi_io, 2 * roi_taps(wy, wx, c)[0])}
     cases = {
         'cisa_shots': (xs, lambda *a: ca.cisa_attention_shots(*a, 1 / 16,
                                                               0.1),
@@ -780,9 +815,9 @@ def main():
     kernels = [
         row('cisa_shots', 'dana_tpu_torch/ops/csrc/cisa_shots.cu',
             'dana_tpu/ops/cisa_attention.py:173', k1_err, serving_k1),
-        row('roi_align_fwd', 'dana_tpu_torch/ops/csrc/roi_align_fwd.cu',
+        row('roi_align_fwd', 'dana_tpu_torch/ops/csrc/roi_align.cu',
             'dana_tpu/ops/roi_align_pallas.py:221', k2_err, {'roi': k2}),
-        row('roi_align_pw', 'dana_tpu_torch/ops/csrc/roi_align_pw.cu',
+        row('roi_align_pw', 'dana_tpu_torch/ops/csrc/roi_align.cu',
             'dana_tpu/ops/roi_align_pallas.py:175', k3_err,
             {'train_roi': k3}),
         row('cisa_attention', 'dana_tpu_torch/ops/csrc/cisa_shots.cu',

@@ -17,7 +17,7 @@ import os
 import subprocess
 import time
 
-KERNELS = ('cisa_shots', 'roi_align_fwd', 'roi_align_pw')
+KERNELS = ('cisa_shots', 'roi_align')
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), '_build')

@@ -10,11 +10,15 @@ adaptive sample count by floor plus exact-product correction, capped at
 `max_samples`, and the clamp rules of the reference CUDA kernel).
 
 Two entries, each a hand-written kernel for CUDA tensors and its plain
-version for CPU tensors:
-  * `roi_align` (serving): `csrc/roi_align_fwd.cu` samples the rois
-    directly; plain twin `roi_align_plain`.
-  * `roi_align_pw` (training): `csrc/roi_align_pw.cu` contracts
-    precomputed Wy / Wx; plain twin `roi_align_pw_plain`.
+version for CPU tensors.  Both kernels are in `csrc/roi_align.cu` and share
+one body that pools a row of bins (b, r, ph) from its kept taps; they
+differ in where the taps come from:
+  * `roi_align` (serving): the kernel builds Wy / Wx from the rois; plain
+    twin `roi_align_plain`.
+  * `roi_align_pw` (training): the kernel takes precomputed Wy / Wx; plain
+    twin `roi_align_pw_plain`.
+Both take P = 5 or 7, C % 4 == 0 and 16-byte aligned feat (the body reads
+float4 channel groups), and raise on anything else.
 `roi_align_train` is the training step's differentiable RoIAlign: it
 builds Wy / Wx once, pools with `roi_align_pw` and, in the backward,
 contracts the same weights with the output gradient in plain tensor
@@ -102,13 +106,32 @@ def roi_align_plain(feat, rois, output_size: int = 7,
 
 
 def _lib():
-    lib = build.load('roi_align_fwd')
+    lib = build.load('roi_align')
     if lib.roi_align_fwd_f32.argtypes is None:
         lib.roi_align_fwd_f32.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.roi_align_fwd_f32.restype = ctypes.c_int
         lib.roi_align_fwd_max_samples.restype = ctypes.c_int
+        lib.roi_align_pw_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.roi_align_pw_f32.restype = ctypes.c_int
+        lib.roi_align_pw_pooled_ok.argtypes = [ctypes.c_int]
+        lib.roi_align_pw_pooled_ok.restype = ctypes.c_int
+    return lib
+
+
+def _check_body(name, feat, p):
+    """The shared body's contract (float4 channels, P = 5 or 7); -> the
+    loaded library."""
+    c = feat.shape[-1]
+    if c % 4 or feat.data_ptr() % 16:
+        raise ValueError(f'{name} kernel reads feat as float4: needs '
+                         f'C % 4 == 0 (C={c}) and 16-byte aligned feat')
+    lib = _lib()
+    if not lib.roi_align_pw_pooled_ok(p):
+        raise ValueError(f'{name} kernel is built for P = 5 and 7 '
+                         f'(got {p})')
     return lib
 
 
@@ -131,9 +154,9 @@ def roi_align(feat, rois, output_size: int = 7,
                          f'rois {tuple(rois.shape)}')
     if not (feat.is_contiguous() and rois.is_contiguous()):
         raise ValueError('roi_align kernel takes contiguous tensors')
-    lib = _lib()
-    if max_samples > lib.roi_align_fwd_max_samples():
-        raise ValueError(f'roi_align kernel supports max_samples <= '
+    lib = _check_body('roi_align', feat, output_size)
+    if not 1 <= max_samples <= lib.roi_align_fwd_max_samples():
+        raise ValueError(f'roi_align kernel supports 1 <= max_samples <= '
                          f'{lib.roi_align_fwd_max_samples()}')
     b, h, w, c = feat.shape
     r = rois.shape[1]
@@ -150,17 +173,6 @@ def roi_align(feat, rois, output_size: int = 7,
 
 
 roi_align.launches = 0
-
-
-def _pw_lib():
-    lib = build.load('roi_align_pw')
-    if lib.roi_align_pw_f32.argtypes is None:
-        lib.roi_align_pw_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.roi_align_pw_f32.restype = ctypes.c_int
-        lib.roi_align_pw_pooled_ok.argtypes = [ctypes.c_int]
-        lib.roi_align_pw_pooled_ok.restype = ctypes.c_int
-    return lib
 
 
 def roi_align_pw(feat, wy, wx):
@@ -186,16 +198,7 @@ def roi_align_pw(feat, wy, wx):
                          'not agree')
     if not all(t.is_contiguous() for t in ts):
         raise ValueError('roi_align_pw kernel takes contiguous tensors')
-    if c % 4 or feat.data_ptr() % 16:
-        raise ValueError('roi_align_pw kernel reads feat as float4: needs '
-                         f'C % 4 == 0 (C={c}) and 16-byte aligned feat')
-    lib = _pw_lib()
-    if not lib.roi_align_pw_pooled_ok(p):
-        raise ValueError(f'roi_align_pw kernel is built for P = 5 and 7 '
-                         f'(got {p})')
-    if 4 * (2 * h + w + w * p) > 48 * 1024:
-        raise ValueError(f'roi_align_pw kernel: a {h}x{w} map with P={p} '
-                         'needs more than 48 KB of shared memory')
+    lib = _check_body('roi_align_pw', feat, p)
     out = torch.empty(b, r, p, p, c, device=feat.device, dtype=torch.float32)
     with torch.cuda.device(feat.device):
         err = lib.roi_align_pw_f32(

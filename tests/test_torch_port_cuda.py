@@ -76,27 +76,56 @@ def _edge_rois(dev, gen, b=2, n=24):
                       torch.cat([xy, xy + wh], -1)], 1).contiguous()
 
 
-def test_roi_align_kernel_matches_plain(dev):
+# rois past the edge cases above, on the 10x12 map (160x192 px): at the
+# 16-sample cap and spanning the whole map from outside it on every side,
+# and wholly outside the map below and right of it (its output is zero,
+# like that of the roi wholly left of the map)
+_MORE_ROIS = [[-900, -900, 3000, 3000], [300, 300, 400, 420]]
+_OUTSIDE = (2, 33)         # the rois wholly outside the map
+
+
+def _kernel_rois(dev, gen, cols):
+    rois = torch.cat([_edge_rois(dev, gen),
+                      torch.tensor(_MORE_ROIS, device=dev).expand(2, -1, -1)],
+                     1)
+    if cols == 5:          # a leading batch-index column, ignored
+        idx = torch.arange(2, device=dev, dtype=torch.float32)
+        rois = torch.cat([idx[:, None, None].expand(2, rois.shape[1], 1),
+                          rois], -1)
+    return rois.contiguous()
+
+
+@pytest.mark.parametrize('c', [40, 1024])
+@pytest.mark.parametrize('cols', [4, 5])
+def test_roi_align_kernel_matches_plain(dev, c, cols):
     gen = torch.Generator(device=dev).manual_seed(1)
-    feat = torch.randn(2, 10, 12, 40, device=dev, generator=gen)
-    rois = _edge_rois(dev, gen)
+    feat = torch.randn(2, 10, 12, c, device=dev, generator=gen)
+    rois = _kernel_rois(dev, gen, cols)
     for p in (7, 5):
-        before = ra.roi_align.launches
-        got = ra.roi_align(feat, rois, p)
-        torch.testing.assert_close(got, ra.roi_align_plain(feat, rois, p),
-                                   rtol=TOL, atol=TOL)
-        assert ra.roi_align.launches == before + 1
+        for max_samples in (16, 64):
+            before = ra.roi_align.launches
+            got = ra.roi_align(feat, rois, p, max_samples=max_samples)
+            torch.testing.assert_close(
+                got, ra.roi_align_plain(feat, rois, p,
+                                        max_samples=max_samples),
+                rtol=TOL, atol=TOL)
+            assert ra.roi_align.launches == before + 1
+            assert not got[:, _OUTSIDE].any()
     with pytest.raises(TypeError):
         ra.roi_align(feat.double(), rois)
     with pytest.raises(ValueError):
         ra.roi_align(feat[:, :, ::2], rois)
+    with pytest.raises(ValueError, match='float4'):
+        ra.roi_align(feat[..., :6].contiguous(), rois)
+    with pytest.raises(ValueError, match='P = 5 and 7'):
+        ra.roi_align(feat, rois, 6)
 
 
 @pytest.mark.parametrize('c', [40, 1024])
 def test_roi_align_pw_kernel_matches_plain(dev, c):
     gen = torch.Generator(device=dev).manual_seed(2)
     feat = torch.randn(2, 10, 12, c, device=dev, generator=gen)
-    rois = _edge_rois(dev, gen)
+    rois = _kernel_rois(dev, gen, 4)
     for p in (7, 5):
         wy, wx = ra.roi_weights(rois, 10, 12, p)
         before = ra.roi_align_pw.launches
@@ -106,6 +135,7 @@ def test_roi_align_pw_kernel_matches_plain(dev, c):
         torch.testing.assert_close(got, ra.roi_align(feat, rois, p),
                                    rtol=TOL, atol=TOL)
         assert ra.roi_align_pw.launches == before + 1
+        assert not got[:, _OUTSIDE].any()
     with pytest.raises(ValueError, match='float4'):
         ra.roi_align_pw(feat[..., :6].contiguous(), wy, wx)
     with pytest.raises(TypeError):
