@@ -19,7 +19,12 @@ Run from the repository root.  Phases, each of which fails the run:
      they read through L2 by the taps they keep, and their time without
      the rois that span the whole map);
      the backward passes of the CISA and RoIAlign autograd Functions are
-     held against autograd of the plain versions;
+     held against autograd of the plain versions; K1 at its serving RPN
+     site and K2 are also held (and timed) at the other four query
+     buckets' shapes (K1's RoI site has one shape at every bucket), and
+     K2 against K3 on the same rois' axis weights at
+     K2_TOL (the two share one pooling body and, since the plain weights
+     divide as the kernel does, their weights);
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -40,7 +45,18 @@ Run from the repository root.  Phases, each of which fails the run:
      frozen one unchanged.  Step 0,
      run again on the plain versions from the same weights, draws and
      proposals, must give the same losses (1e-4 relative) and gradients
-     (GRAD_RTOL of each parameter's gradient norm).
+     (GRAD_RTOL of each parameter's gradient norm);
+  6. the dataset CLI: `dana_tpu_torch.inference.main` evaluates the
+     synth_test split (20 images, written with synth_train into a
+     temporary DANA_SYNTH_ROOT by the port's generator) with --way 2 --shot
+     3 --bs 8 at the full default config (cfgs/res50.yml values, --ascale
+     4: 12 anchors, 600 px queries, 6000/300 proposals), random weights
+     from --seed.  The counters are zeroed just before and read just
+     after: 2 CISA and 1 RoIAlign launches a chunk, none of the training
+     kernels.  Every image's target-class cell of all_boxes must hold
+     finite detections and COCOeval must return 12 finite stats; img/s,
+     the host-side timing and the stats are printed (AP on random
+     weights is near 0 and not judged).
 """
 
 from __future__ import annotations
@@ -48,8 +64,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,9 +80,14 @@ TF32_TC_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 # K1 and K4 take each float32 product as three TF32 products (3xTF32)
 CISA_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
 TOL = 1e-4
-ROI_ATOL = 2e-3               # px: a proposal counted as moved (ROADMAP Queue C)
+# K2 against K3 on the same rois' weights: one pooling body, weights that
+# differ only in the order each entry sums its samples
+K2_TOL = 1e-6
+ROI_ATOL = 2e-3               # px: a proposal counted as moved (ROADMAP)
 BOX_ATOL = 1e-3               # px, detections of a unique score
 QUERY_HW = (608, 1024)        # first query canvas bucket
+# the other query canvases the loaders emit (TPU.SIZE_BUCKETS)
+OTHER_BUCKETS = ((1024, 608), (704, 704), (608, 1216), (1216, 608))
 SUPPORT_HW = 320
 BATCH = 8                     # queries per request
 REQUESTS = 3
@@ -117,14 +141,14 @@ def cisa_site(fn, plain, library, nbytes, flops):
                 tflop_per_s=flops / ms / 1e9, flops=flops, bytes=nbytes)
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, tol=TOL):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not torch.isfinite(got).all():
         fail(f'{name}: kernel output is not finite')
-    if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
         fail(f'{name}: kernel disagrees with its plain version '
-             f'(max |err| {err:.3e})')
+             f'(max |err| {err:.3e}, tolerance {tol:g})')
     return err
 
 
@@ -234,9 +258,10 @@ def without_whole_map(rois):
     return out
 
 
-def serving_rois(b, r, gen, dev):
-    """Proposal-like rois on a 608x1024 image, edge cases first."""
-    h, w = QUERY_HW
+def serving_rois(b, r, gen, dev, hw=None):
+    """Proposal-like rois on an image of the query bucket `hw` (default
+    QUERY_HW), edge cases first."""
+    h, w = hw or QUERY_HW
     edge = torch.tensor([
         [-40, -30, 60, 50], [900, 500, 1100, 700], [-300, 20, -20, 60],
         [30, 30, 30.4, 30.2], [80, 80, 60, 50], [0, 0, 3000, 2500],
@@ -254,7 +279,7 @@ def serving_rois(b, r, gen, dev):
 
 def check_roi_align(dev, gen):
     from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
-                                              roi_weights)
+                                              roi_align_pw, roi_weights)
     from dana_tpu_torch.utils import config as cfg
     b, r, c = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, 1024
     p = cfg.POOLING_SIZE
@@ -262,10 +287,14 @@ def check_roi_align(dev, gen):
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
     rois = serving_rois(b, r, gen, dev)
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
-    err = check_close('roi_align_fwd', roi_align(feat, rois, p, 1 / 16.0),
-                      want)
+    got = roi_align(feat, rois, p, 1 / 16.0)
+    err = check_close('roi_align_fwd', got, want, K2_TOL)
+    weights = roi_weights(rois, fh, fw, p, 1 / 16.0)
+    c3_err = check_close('roi_align_fwd against roi_align_pw on its rois\' '
+                         'weights', got, roi_align_pw(feat, *weights),
+                         K2_TOL)
     nbytes = 4 * (feat.numel() + rois.numel() + want.numel())
-    flops, gather = roi_taps(*roi_weights(rois, fh, fw, p, 1 / 16.0), c)
+    flops, gather = roi_taps(*weights, c)
     cut = without_whole_map(rois)
     site = roi_site(lambda: roi_align(feat, rois, p, 1 / 16.0),
                     lambda: roi_align_plain(feat, rois, p, 1 / 16.0),
@@ -276,9 +305,64 @@ def check_roi_align(dev, gen):
     counts = _sample_counts(rois, p)
     site['bin_gather_bytes'] = 16 * c * p * p * (counts[..., 0]
                                                  * counts[..., 1]).sum().item()
+    site['max_abs_err_vs_roi_align_pw'] = c3_err
     print(f'roi_align_fwd feat={tuple(feat.shape)} rois={tuple(rois.shape)}:'
-          f' max|kernel-plain| {err:.3e}, {site}', flush=True)
+          f' max|kernel-plain| {err:.3e}, max|K2-K3 on its weights| '
+          f'{c3_err:.3e}, {site}', flush=True)
     return err, site
+
+
+def check_buckets(dev, gen):
+    """K1 at its serving RPN site and K2 at the shapes each of the other
+    query buckets gives them (BATCH images, 300 rois), against their plain
+    versions, timed; -> (max errors {name: err}, {bucket: sites}).  K1's
+    RoI site (Nq = 300 * 49, Ns = 49) has one shape at every bucket: phase
+    3 holds it once."""
+    from dana_tpu_torch.ops.cisa_attention import (
+        cisa_attention_shots, cisa_attention_shots_plain)
+    from dana_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+    from dana_tpu_torch.utils import config as cfg
+    ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
+    p = cfg.POOLING_SIZE
+    errs, out = {'cisa_shots': 0.0, 'roi_align_fwd': 0.0}, {}
+    for hw in OTHER_BUCKETS:
+        fh, fw = (s // cfg.FEAT_STRIDE for s in hw)
+        nq, ns = fh * fw, ns_rpn
+        q = torch.randn(BATCH, nq, 256, device=dev, generator=gen)
+        k = torch.randn(BATCH, 3, ns, 256, device=dev, generator=gen)
+        v = torch.randn(BATCH, 3, ns, 1024, device=dev, generator=gen)
+        u = torch.softmax(torch.randn(BATCH, 3, ns, device=dev,
+                                      generator=gen), -1)
+        args = (q, k, v, u, 1.0 / 16.0, 0.1)
+        e = check_close(f'cisa_shots[rpn {hw}]', cisa_attention_shots(*args),
+                        cisa_attention_shots_plain(*args))
+        errs['cisa_shots'] = max(errs['cisa_shots'], e)
+        flops = 2 * BATCH * 3 * nq * ns * (256 + 1024)
+        row = {'rpn': dict(
+            nq=nq, max_abs_err=e,
+            ms=cuda_ms(lambda: cisa_attention_shots(*args), 10),
+            plain_ms=cuda_ms(lambda: cisa_attention_shots_plain(*args), 3),
+            bound_ms=bound_ms(4 * (q.numel() + k.numel() + v.numel()
+                                   + u.numel() + BATCH * nq * 1024),
+                              flops, CISA_FLOP_PER_S)[0])}
+        del q, k, v, u, args
+        feat = torch.randn(BATCH, fh, fw, 1024, device=dev, generator=gen)
+        rois = serving_rois(BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, gen, dev, hw)
+        got = roi_align(feat, rois, p, 1 / 16.0)
+        e = check_close(f'roi_align_fwd[{hw}]', got,
+                        roi_align_plain(feat, rois, p, 1 / 16.0), K2_TOL)
+        errs['roi_align_fwd'] = max(errs['roi_align_fwd'], e)
+        row['roi_align'] = dict(
+            map=(fh, fw), max_abs_err=e,
+            ms=cuda_ms(lambda: roi_align(feat, rois, p, 1 / 16.0), 10),
+            plain_ms=cuda_ms(lambda: roi_align_plain(feat, rois, p, 1 / 16.0),
+                             3),
+            bound_ms=bound_ms(4 * (feat.numel() + rois.numel()
+                                   + got.numel()), 0)[0])
+        del feat, rois, got
+        out['x'.join(map(str, hw))] = row
+        print(f'bucket {hw}: {row}', flush=True)
+    return errs, out
 
 
 def check_cisa_single(dev, gen):
@@ -735,6 +819,80 @@ def training_path(seed):
                           loss_rel_diff=diffs, grad_rel_diff=worst)
 
 
+# ---------------------------------------------------------------- phase 6
+
+def cli_path(seed):
+    """The dataset CLI over synth_test (written with synth_train into a
+    temporary DANA_SYNTH_ROOT) on the card; -> (launches, summary)."""
+    from dana_tpu_torch import inference
+    from dana_tpu_torch.data.imdb import combined_roidb
+    from dana_tpu_torch.data.synth import synth_fsod
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    saved = os.environ.get('DANA_SYNTH_ROOT')
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ['DANA_SYNTH_ROOT'] = os.path.join(tmp, 'synth')
+        try:
+            t0 = time.perf_counter()
+            synth_fsod('test', num_images=20)
+            synth_fsod('train')
+            synth_s = time.perf_counter() - t0
+            _, roidb, _, _ = combined_roidb('synth_test', training=False,
+                                            use_flipped=False)
+            out_dir = os.path.join(tmp, 'eval')
+            argv = ['--dataset', 'synth', '--way', '2', '--shot', '3',
+                    '--bs', str(BATCH), '--seed', str(seed),
+                    '--eval_dir', out_dir]
+            torch.cuda.synchronize()
+            cisa_attention.cisa_attention_shots.launches = 0
+            cisa_attention.cisa_attention.launches = 0
+            roi_align.roi_align.launches = 0
+            roi_align.roi_align_pw.launches = 0
+            nms.HOST_SYNCS = 0
+            t0 = time.perf_counter()
+            result = inference.main(argv)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = {
+                'cisa_shots': cisa_attention.cisa_attention_shots.launches,
+                'roi_align_fwd': roi_align.roi_align.launches,
+                'roi_align_pw': roi_align.roi_align_pw.launches,
+                'cisa_attention': cisa_attention.cisa_attention.launches}
+            syncs = nms.HOST_SYNCS
+            with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
+                all_boxes = pickle.load(f)
+        finally:
+            if saved is None:
+                os.environ.pop('DANA_SYNTH_ROOT', None)
+            else:
+                os.environ['DANA_SYNTH_ROOT'] = saved
+    timing = result['timing']
+    chunks = timing['chunks']
+    want = {'cisa_shots': 2 * chunks, 'roi_align_fwd': chunks,
+            'roi_align_pw': 0, 'cisa_attention': 0}
+    if launches != want:
+        fail(f'CLI path launches {launches}, expected {want} for {chunks} '
+             'chunks')
+    n_det = []
+    for i, entry in enumerate(roidb):
+        d = all_boxes[int(entry['gt_classes'][0])][i]
+        if not (isinstance(d, np.ndarray) and d.ndim == 2
+                and d.shape[1] == 5 and np.isfinite(d).all()):
+            fail(f'CLI path: image {i}\'s target-class cell holds {d!r}')
+        n_det.append(len(d))
+    stats = [float(x) for x in result['stats']]
+    if len(stats) != 12 or not np.isfinite(stats).all():
+        fail(f'CLI path: COCOeval stats {stats}')
+    summary = dict(images=timing['images'], chunks=chunks,
+                   img_per_s=timing['img_per_s'], timing=timing,
+                   main_s=main_s, synth_s=synth_s, nms_syncs=syncs,
+                   detections=n_det, stats=stats)
+    print(f'CLI path: synth_test, {timing["images"]} images in {chunks} '
+          f'chunks of {BATCH}, {timing["img_per_s"]:.2f} img/s over the set '
+          f'(main {main_s:.1f} s), launches {launches}, timing {timing}, '
+          f'COCOeval stats {stats}', flush=True)
+    return launches, summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -773,6 +931,9 @@ def main():
         k2_err, k2 = check_roi_align(dev, gen)
         k3_err, k3 = check_roi_align_pw(dev, gen)
         k4_err, k4 = check_cisa_single(dev, gen)
+        bucket_errs, buckets = check_buckets(dev, gen)
+    k1_err = max(k1_err, bucket_errs['cisa_shots'])
+    k2_err = max(k2_err, bucket_errs['roi_align_fwd'])
     backward = check_backward(dev, gen)
     torch.cuda.empty_cache()
 
@@ -781,22 +942,25 @@ def main():
     torch.cuda.empty_cache()
     # phase 5: the training path
     training_launches, training = training_path(args.seed)
+    torch.cuda.empty_cache()
+    # phase 6: the dataset CLI
+    cli_launches, cli = cli_path(args.seed)
 
-    launches = {'cisa_shots': serving_launches['cisa_shots']
-                + training_launches['cisa_shots'],
-                'roi_align_fwd': serving_launches['roi_align_fwd'],
-                'roi_align_pw': training_launches['roi_align_pw'],
-                'cisa_attention': serving_launches['cisa_attention']
-                + training_launches['cisa_attention']}
-    by_path = {'serving': serving_launches, 'training': training_launches}
+    by_path = {'serving': serving_launches, 'training': training_launches,
+               'cli': cli_launches}
+    launches = {name: sum(p.get(name, 0) for p in by_path.values())
+                for name in ('cisa_shots', 'roi_align_fwd', 'roi_align_pw',
+                             'cisa_attention')}
     print(json.dumps({'serving_summary': serving,
                       'training_summary': training,
+                      'cli_summary': cli,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'kernel_sites': {'cisa_shots': k1_sites,
                                        'roi_align_fwd': {'roi': k2},
                                        'roi_align_pw': {'train_roi': k3},
-                                       'cisa_attention': {'main': k4}}}),
+                                       'cisa_attention': {'main': k4},
+                                       'buckets': buckets}}),
           flush=True)
 
     def row(name, source, replaces, err, sites):

@@ -17,15 +17,19 @@ from dana_tpu_torch.utils.weights import from_jax_params
 
 
 class Predictor:
-    """Predictor(params, config, device='cuda').
+    """Predictor(params, config, device='cuda', postprocess=None).
 
     params: the JAX package's param tree (numpy leaves) or a built
     `dana.DAnA` module.  The device defaults to the card and the
     constructor raises without CUDA unless device='cpu' is passed; on the
     card float32 math runs without TF32 (utils.device.use_full_f32).
+    `postprocess` is the detection postprocess's keywords
+    (`utils.config.postprocess_kwargs` of the CLI's tree; the built-in
+    tree's when None).
     """
 
-    def __init__(self, params, config: dana.DanaConfig, device='cuda'):
+    def __init__(self, params, config: dana.DanaConfig, device='cuda',
+                 postprocess=None):
         self.device = resolve_device(device)
         if self.device.type == 'cuda':
             use_full_f32()
@@ -33,6 +37,7 @@ class Predictor:
             else from_jax_params(params, config)
         self.model = model.to(self.device)
         self.config = config
+        self.postprocess = postprocess or cfg.postprocess_kwargs()
         self._sup_cache = {}
 
     @torch.inference_mode()
@@ -44,6 +49,9 @@ class Predictor:
             self.model, self.config, ims)
         return self._sup_cache[int(cls)]
 
+    def has_supports(self, cls):
+        return int(cls) in self._sup_cache
+
     def batch_support_feats(self, classes):
         """Cached (feat [B,n,h,w,C], pooled [B,n,7,7,C]) for the query
         batch's target classes."""
@@ -54,10 +62,14 @@ class Predictor:
     def predict(self, im_data, im_info, classes):
         """im_data [B,H,W,3] uint8 BGR or float mean-subtracted, im_info
         [B,3] (height, width, scale), classes [B] whose supports were
-        encoded -> (dets [B,100,5], valid [B,100]) on the device."""
+        encoded -> (dets [B,100,5], valid [B,100]) on the device.  Host
+        arrays or tensors; a tensor in pinned memory is copied without
+        blocking the host."""
         with record_function('dana.upload'):
-            im_data = torch.as_tensor(im_data, device=self.device)
-            im_info = torch.as_tensor(im_info, device=self.device).float()
+            im_data = torch.as_tensor(im_data).to(self.device,
+                                                  non_blocking=True)
+            im_info = torch.as_tensor(im_info).to(self.device,
+                                                  non_blocking=True).float()
             support_feats = self.batch_support_feats(classes)
         out = dana.forward(self.model, self.config, im_data, im_info,
                            support_feats=support_feats)
@@ -66,5 +78,4 @@ class Predictor:
                 out['rois'], out['cls_prob'], out['bbox_pred'], im_info,
                 bbox_stds=self.config.bbox_normalize_stds,
                 bbox_means=self.config.bbox_normalize_means,
-                score_thresh=cfg.TEST_SCORE_THRESH, nms_thresh=cfg.TEST_NMS,
-                max_per_image=cfg.TEST_MAX_PER_IMAGE)
+                **self.postprocess)

@@ -38,10 +38,14 @@ def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
     """[..., pooled, size] interpolation weights for one axis from roi
     start/end `lo`, `hi` [...] in feature coordinates."""
     extent = torch.clamp(hi - lo, min=1.0)
-    bin_sz = extent / pooled
+    # IEEE division on every device, as the kernel divides: PyTorch on CUDA
+    # turns a division by a Python number into a product with its float32
+    # reciprocal, which moved bin widths by an ulp against the CPU and K2
+    pooled_t = torch.full_like(extent, pooled)
+    bin_sz = extent / pooled_t
     # ceil(extent / pooled), exact for every extent: a reciprocal multiply
     # would make ceil(21 * (1/7)) = 4
-    q = torch.floor(extent / pooled)
+    q = torch.floor(extent / pooled_t)
     count = q + (q * pooled < extent).to(q.dtype)
     count = torch.clamp(count, 1, max_samples)
 

@@ -1,0 +1,138 @@
+"""The dataset CLIs' arguments: the flags of the repo's root `utils.py`
+`parse_args`, with its `--ascale` presets and dataset-name mapping, plus
+`--device`.
+
+Flags that ask for what the port does not have yet are refused with the
+ROADMAP item that ports it, instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from dana_tpu_torch.utils import config as config_lib
+
+# the --ascale presets (reference utils.py:68-73)
+ASCALE_PRESETS = {
+    3: ['ANCHOR_SCALES', '[8, 16, 32]', 'ANCHOR_RATIOS', '[0.5,1,2]',
+        'MAX_NUM_GT_BOXES', '30'],
+    4: ['ANCHOR_SCALES', '[4, 8, 16, 32]', 'ANCHOR_RATIOS', '[0.5,1,2]',
+        'MAX_NUM_GT_BOXES', '50'],
+}
+
+# dataset name -> (train imdb, eval imdb) (reference utils.py:74-104)
+DATASETS = {
+    'pascal_voc': ('voc_2007_trainval', 'voc_2007_test'),
+    'coco': ('coco_2014_train', 'coco_2014_minival'),
+    'coco_base': ('coco_60_set1', None),
+    'coco_ft': ('coco_ft_shot30', None),
+    'val2014_novel': (None, 'coco_20_set1'),
+    'val2014_base': (None, 'coco_20_set2'),
+    'synth': ('synth_train', 'synth_test'),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description='DAnA few-shot detection on '
+                                'the PyTorch port')
+    a = p.add_argument
+    a('--dataset', default='pascal_voc', type=str)
+    a('--net', default='DAnA', type=str,
+      help='DAnA, or the backbone name res50 (DAnA on ResNet-50)')
+    a('--backbone', default='res50', type=str)
+    a('--flip', dest='use_flip', action='store_true', default=False)
+    a('--o', dest='optimizer', default='sgd', type=str)
+    a('--lr', default=0.001, type=float)
+    a('--lr_decay_step', default=1000, type=int)
+    a('--lr_decay_gamma', default=0.1, type=float)
+    a('--nw', dest='num_workers', default=8, type=int)
+    a('--ls', dest='large_scale', action='store_true')
+    a('--mGPUs', dest='mGPUs', action='store_true')
+    a('--tp', dest='tp', default=0, type=int)
+    a('--sp', dest='sp', default=0, type=int)
+    a('--slices', dest='slices', default=0, type=int)
+    a('--bs', dest='batch_size', default=16, type=int)
+    a('--start_epoch', default=1, type=int)
+    a('--epochs', dest='max_epochs', default=12, type=int)
+    a('--disp_interval', default=100, type=int)
+    a('--save_dir', default='models', type=str)
+    a('--ascale', default=4, type=int)
+    a('--eval', dest='eval', action='store_true', default=False)
+    a('--onc', dest='old_n_classes', default=81, type=int)
+    a('--eval_dir', default=None, type=str)
+    a('--fs', dest='fewshot', action='store_true', default=False)
+    a('--way', default=1, type=int)
+    a('--shot', default=5, type=int)
+    a('--sup_dir', default='all', type=str)
+    a('--r', dest='resume', action='store_true', default=False)
+    a('--load_dir', default='models', type=str)
+    a('--checkepoch', default=1, type=int)
+    a('--checkpoint', default=0, type=int)
+    a('--checkpath', default=None, type=str,
+      help='explicit checkpoint path (.dkpt or .pth)')
+    a('--dlog', action='store_true', default=False)
+    a('--imlog', action='store_true', default=False)
+    a('--seed', default=1996, type=int)
+    a('--clip_norm', default=0.0, type=float)
+    a('--steps_per_call', default=1, type=int)
+    a('--ckpt_backend', default='pickle', type=str,
+      choices=['pickle', 'orbax'])
+    a('--profile', default=None, type=str)
+    a('--dist', action='store_true', default=False)
+    a('--coordinator', default=None, type=str)
+    a('--num_procs', default=None, type=int)
+    a('--proc_id', default=None, type=int)
+    a('--device', default='cuda', type=str,
+      help="'cuda' (the default: the card) or 'cpu' (the kernels' plain "
+           'versions)')
+    a('--set', dest='set_cfgs_extra', nargs='*', default=None,
+      help='extra config overrides: KEY VALUE ...')
+    args = p.parse_args(argv)
+
+    if args.ascale not in ASCALE_PRESETS:
+        raise SystemExit(f'invalid anchor scale {args.ascale}')
+    args.set_cfgs = list(ASCALE_PRESETS[args.ascale])
+    if args.dataset in DATASETS:
+        train_name, val_name = DATASETS[args.dataset]
+        if train_name:
+            args.imdb_name = train_name
+        if val_name:
+            args.imdbval_name = val_name
+    elif args.dataset.startswith(('coco_', 'synth_', 'ycb2d_', 'voc_')):
+        args.imdb_name = args.imdbval_name = args.dataset
+    else:
+        raise SystemExit(f'dataset {args.dataset} not defined')
+    _refuse_unported(args)
+    return args
+
+
+def _refuse_unported(args):
+    if args.mGPUs or args.tp > 1 or args.sp > 1 or args.dist \
+            or args.slices > 1:
+        raise SystemExit('--mGPUs, --tp, --sp, --slices and --dist are not '
+                         'ported yet (ROADMAP Queue A 8: multi-GPU)')
+    if args.net not in ('DAnA', 'res50') or args.backbone != 'res50':
+        raise SystemExit(f'--net {args.net} --backbone {args.backbone}: the '
+                         'port has DAnA on ResNet-50 only (ROADMAP Queue A 7)')
+    if args.large_scale:
+        raise SystemExit('--ls selects the ResNet-101 config, which the port '
+                         'does not have (ROADMAP Queue A 7)')
+
+
+def load_cfg(args):
+    """-> the config tree: the built-in res50 values, then the --ascale
+    preset, then --set.  Refuses settings the port has no code for."""
+    c = config_lib.default_cfg()
+    config_lib.cfg_from_list(c, args.set_cfgs)
+    if args.set_cfgs_extra:
+        config_lib.cfg_from_list(c, args.set_cfgs_extra)
+    if c.TPU.QUANT_INT8:
+        raise SystemExit('TPU.QUANT_INT8: int8 serving is not ported yet '
+                         '(ROADMAP Queue A 9)')
+    if c.TPU.STEM_S2D:
+        raise SystemExit('TPU.STEM_S2D: the port has no space-to-depth stem; '
+                         'set TPU.STEM_S2D False')
+    if c.POOLING_MODE != 'align':
+        raise SystemExit(f'POOLING_MODE {c.POOLING_MODE}: the port pools with '
+                         'RoIAlign only (ROADMAP Queue A 7)')
+    return c

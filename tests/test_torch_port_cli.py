@@ -1,0 +1,172 @@
+"""The port's dataset inference CLI (`dana_tpu_torch.inference`) against the
+JAX package's (`inference.py`) on the CPU.
+
+Both run `tests/test_inference_cli.py`'s shrunken BASE_ARGS (ResNet-50 at
+full width, 128 px queries, 12 anchors from the default `--ascale 4`) with
+`TPU.STEM_S2D False` over `synth_test`, written by the port's generator (PPM
+images, which cv2 reads too), from the same seed.  cv2 runs without IPP for
+the JAX run: IPP's float resize sits ~0.01 grey from cv2's own algorithm,
+which the port reproduces (tests/test_torch_port_data.py).
+
+Detections are compared on the network's pixel grid: `detections.pkl`
+holds boxes in source-image pixels, 1 / im_scale = 3.75 times the query's
+at these settings, so each image's boxes are scaled back by its im_scale
+before `_assert_detections_match` holds them to the 2e-3 px that rois keep
+through the two packages' float32 forwards (ROADMAP "Carried findings").
+"""
+
+import pathlib
+import pickle
+import sys
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from test_inference_cli import BASE_ARGS, _assert_detections_match  # noqa
+
+from dana_tpu_torch import inference as port_cli  # noqa: E402
+from dana_tpu_torch.models import dana as tdana  # noqa: E402
+from dana_tpu_torch.utils import args as targs  # noqa: E402
+from dana_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
+
+COORD_ATOL = 2e-3      # query px: rois through the two float32 forwards
+STATS_ATOL = 1e-3
+_SET = BASE_ARGS.index('--set')
+
+
+def _argv(out_dir, *flags):
+    return (BASE_ARGS[:_SET] + ['--bs', '4', '--eval_dir', str(out_dir),
+                                *flags]
+            + BASE_ARGS[_SET:] + ['TPU.STEM_S2D', 'False'])
+
+
+@pytest.fixture(scope='module')
+def synth_root(tmp_path_factory):
+    from dana_tpu_torch.data.synth import synth_fsod
+    root = tmp_path_factory.mktemp('synth')
+    mp = pytest.MonkeyPatch()
+    mp.setenv('DANA_SYNTH_ROOT', str(root))
+    synth_fsod('test', num_images=20)
+    synth_fsod('train')
+    yield root
+    mp.undo()
+
+
+@pytest.fixture(scope='module')
+def jax_run(synth_root, tmp_path_factory):
+    import inference as jax_cli
+    out = tmp_path_factory.mktemp('jax_eval')
+    ipp = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        result = jax_cli.main(_argv(out))
+    finally:
+        cv2.ipp.setUseIPP(ipp)
+    return out, result
+
+
+def _on_query_grid(src, dst):
+    """Copy src/detections.pkl to dst with every image's boxes times its
+    query scale (synth images are 480 x 640, scaled to 128 px)."""
+    from dana_tpu_torch.data.blob import query_scale
+    with open(src / 'detections.pkl', 'rb') as f:
+        boxes = pickle.load(f)
+    scale = np.float32(query_scale(480, 640, 128))
+    for cls_boxes in boxes:
+        for i, d in enumerate(cls_boxes):
+            if isinstance(d, np.ndarray) and len(d):
+                cls_boxes[i] = np.concatenate([d[:, :4] * scale, d[:, 4:]],
+                                              1)
+    dst.mkdir()
+    with open(dst / 'detections.pkl', 'wb') as f:
+        pickle.dump(boxes, f)
+    return dst
+
+
+def _check_against_jax(jax_run, out, result):
+    jax_out, jax_result = jax_run
+    _assert_detections_match(_on_query_grid(jax_out, out / 'jax_grid'),
+                             _on_query_grid(out, out / 'port_grid'),
+                             coord_atol=COORD_ATOL)
+    assert len(result['stats']) == 12
+    np.testing.assert_allclose(result['stats'], jax_result['stats'],
+                               atol=STATS_ATOL)
+    with open(out / 'detections.pkl', 'rb') as f:
+        boxes = pickle.load(f)
+    assert sum(isinstance(d, np.ndarray) and len(d) > 0
+               for c in boxes for d in c) > 0
+
+
+def test_cli_matches_jax(jax_run, tmp_path):
+    result = port_cli.main(_argv(tmp_path, '--device', 'cpu'))
+    _check_against_jax(jax_run, tmp_path, result)
+    t = result['timing']
+    assert t['images'] == 20 and t['chunks'] == 5 and t['img_per_s'] > 0
+
+
+def _config():
+    c = targs.load_cfg(targs.parse_args(BASE_ARGS))
+    from dana_tpu_torch.utils.config import dana_config
+    return dana_config(c, 1, 1)
+
+
+@pytest.mark.parametrize('fmt', ['dkpt', 'pth'])
+def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
+    """A `.dkpt` (with an optimizer state of the JAX package's classes) and
+    a reference-format `.pth`, both written by the JAX package's exporters
+    from the seed-5 weights, serve the JAX run's detections."""
+    from dana_tpu.engine import optim
+    from dana_tpu.utils import checkpoint as jckpt
+    from dana_tpu.utils.torch_import import save_reference_pth
+    params = tdana.init_params(_config(), seed=5)
+    path = tmp_path / f'model_1_0.{fmt}'
+    if fmt == 'dkpt':
+        jckpt.save_checkpoint(str(path), params,
+                              opt_state=optim.sgd_init(params))
+        payload = tckpt.read_dkpt(str(path))
+        assert isinstance(payload['optimizer'], tckpt.PickledObject)
+        assert payload['optimizer'].name == 'SGDState'
+    else:
+        save_reference_pth(str(path), params)
+    out = tmp_path / 'eval'
+    result = port_cli.main(_argv(out, '--device', 'cpu', '--checkpath',
+                                 str(path)))
+    _check_against_jax(jax_run, out, result)
+
+
+def test_checkpoint_refuses_other_pooling(tmp_path):
+    from dana_tpu.utils import checkpoint as jckpt
+    config = _config()
+    path = str(tmp_path / 'model_1_0.dkpt')
+    jckpt.save_checkpoint(path, tdana.init_params(config, seed=5),
+                          pooling_mode='pool')
+    with pytest.raises(ValueError, match='RoIAlign only'):
+        tckpt.load_checkpoint(path, config)
+
+
+@pytest.mark.parametrize('flags, match', [
+    (['--mGPUs'], 'Queue A 8'), (['--tp', '2'], 'Queue A 8'),
+    (['--sp', '2'], 'Queue A 8'), (['--dist'], 'Queue A 8'),
+    (['--net', 'frcnn'], 'Queue A 7'), (['--backbone', 'res101'],
+                                        'Queue A 7'),
+    (['--ls'], 'Queue A 7'),
+    (['--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 9'),
+    (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
+])
+def test_cli_refuses_unported(tmp_path, flags, match):
+    argv = ['--dataset', 'synth', '--eval_dir', str(tmp_path),
+            '--device', 'cpu', *flags]
+    with pytest.raises(SystemExit, match=match):
+        port_cli.main(argv)
+
+
+def test_cli_needs_cuda_unless_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        port_cli.main(['--dataset', 'synth', '--eval_dir', str(tmp_path)])

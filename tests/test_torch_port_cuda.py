@@ -9,15 +9,25 @@ On a machine with one (and no JAX), run:
         tests/test_torch_port_cuda.py
 """
 
+import pathlib
+import sys
+
 import pytest
 import torch
 
 from dana_tpu_torch.ops import cisa_attention as ca
 from dana_tpu_torch.ops import roi_align as ra
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4      # float32 sums in another order than the plain version
+# K2 against its plain version and K3: one pooling body, and weights that
+# differ only in the order each entry sums its samples
+K2_TOL = 1e-6
+BUCKETS = [(608, 1024), (1024, 608), (704, 704), (608, 1216), (1216, 608)]
 
 
 @pytest.fixture
@@ -108,7 +118,11 @@ def test_roi_align_kernel_matches_plain(dev, c, cols):
             torch.testing.assert_close(
                 got, ra.roi_align_plain(feat, rois, p,
                                         max_samples=max_samples),
-                rtol=TOL, atol=TOL)
+                rtol=K2_TOL, atol=K2_TOL)
+            torch.testing.assert_close(
+                got, ra.roi_align_pw(feat, *ra.roi_weights(
+                    rois, 10, 12, p, max_samples=max_samples)),
+                rtol=K2_TOL, atol=K2_TOL)
             assert ra.roi_align.launches == before + 1
             assert not got[:, _OUTSIDE].any()
     with pytest.raises(TypeError):
@@ -119,6 +133,30 @@ def test_roi_align_kernel_matches_plain(dev, c, cols):
         ra.roi_align(feat[..., :6].contiguous(), rois)
     with pytest.raises(ValueError, match='P = 5 and 7'):
         ra.roi_align(feat, rois, 6)
+
+
+@pytest.mark.parametrize('hw', BUCKETS, ids=lambda hw: f'{hw[0]}x{hw[1]}')
+def test_kernels_at_every_query_bucket(dev, hw):
+    """K1 at the serving RPN site and K2 at the shapes each query bucket
+    gives them (8 queries, 3 shots of 320 px supports, 300 rois).  K1's
+    RoI site has the same shape at every bucket (Nq 300 * 49, Ns 49):
+    test_cisa_kernel_matches_plain holds it."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    fh, fw = hw[0] // 16, hw[1] // 16
+    nq, ns = fh * fw, 400
+    q = torch.randn(8, nq, 256, device=dev, generator=gen)
+    k = torch.randn(8, 3, ns, 256, device=dev, generator=gen)
+    v = torch.randn(8, 3, ns, 1024, device=dev, generator=gen)
+    u = torch.softmax(torch.randn(8, 3, ns, device=dev, generator=gen), -1)
+    torch.testing.assert_close(
+        ca.cisa_attention_shots(q, k, v, u, 1 / 16, 0.1),
+        ca.cisa_attention_shots_plain(q, k, v, u, 1 / 16, 0.1),
+        rtol=TOL, atol=TOL)
+    feat = torch.randn(8, fh, fw, 1024, device=dev, generator=gen)
+    rois = chip_smoke.serving_rois(8, 300, gen, dev, hw)
+    torch.testing.assert_close(ra.roi_align(feat, rois),
+                               ra.roi_align_plain(feat, rois),
+                               rtol=K2_TOL, atol=K2_TOL)
 
 
 @pytest.mark.parametrize('c', [40, 1024])
