@@ -46,17 +46,34 @@ Run from the repository root.  Phases, each of which fails the run:
      run again on the plain versions from the same weights, draws and
      proposals, must give the same losses (1e-4 relative) and gradients
      (GRAD_RTOL of each parameter's gradient norm);
+  7. the training CLI (run before phase 6, which serves its checkpoint):
+     `dana_tpu_torch.train.main` trains the same detector at the CLI's
+     full default config (cfgs/res50.yml values, --ascale 4: 12 anchors,
+     600 px queries, 12000/2000 proposals, 128 rois and 256 anchors an
+     image) on synth_train (60 images of 480x640, all in the 608x1024
+     bucket, written into a temporary DANA_SYNTH_ROOT by the port's
+     generator) with --way 2 --shot 3 --bs 4 --epochs 2 --nw 8, random
+     weights from --seed; then a second run resumes from the epoch-1
+     checkpoint (--r) and trains epoch 2 again.  The counters are zeroed
+     just before the two runs and read just after: 3 CISA and 1
+     RoIAlign-from-weights launches a step, none of the others.  Every
+     loss must be finite and no step skipped; what the resumed run's first
+     step starts from (parameters, momentum buffers, generator state, lr,
+     the batch) must equal, bit for bit, what the straight run's first
+     step of epoch 2 started from.  The two runs' epoch-2 losses are
+     printed, not compared (cuDNN's backward is not deterministic), with
+     the steady step time beside phase 5's, episodes/s, the seconds the
+     loop waited for batches and the peak memory;
   6. the dataset CLI: `dana_tpu_torch.inference.main` evaluates the
-     synth_test split (20 images, written with synth_train into a
-     temporary DANA_SYNTH_ROOT by the port's generator) with --way 2 --shot
+     synth_test split (20 images, beside synth_train) with --way 2 --shot
      3 --bs 8 at the full default config (cfgs/res50.yml values, --ascale
-     4: 12 anchors, 600 px queries, 6000/300 proposals), random weights
-     from --seed.  The counters are zeroed just before and read just
-     after: 2 CISA and 1 RoIAlign launches a chunk, none of the training
-     kernels.  Every image's target-class cell of all_boxes must hold
-     finite detections and COCOeval must return 12 finite stats; img/s,
-     the host-side timing and the stats are printed (AP on random
-     weights is near 0 and not judged).
+     4: 12 anchors, 600 px queries, 6000/300 proposals), serving the
+     checkpoint phase 7 wrote.  The counters are zeroed just before and
+     read just after: 2 CISA and 1 RoIAlign launches a chunk, none of the
+     training kernels.  Every image's target-class cell of all_boxes must
+     hold finite detections and COCOeval must return 12 finite stats;
+     img/s, the host-side timing and the stats are printed (AP after two
+     epochs on 60 images is not judged).
 """
 
 from __future__ import annotations
@@ -821,50 +838,42 @@ def training_path(seed):
 
 # ---------------------------------------------------------------- phase 6
 
-def cli_path(seed):
-    """The dataset CLI over synth_test (written with synth_train into a
-    temporary DANA_SYNTH_ROOT) on the card; -> (launches, summary)."""
+def cli_path(seed, checkpath):
+    """The dataset CLI over synth_test (written beside synth_train in the
+    current DANA_SYNTH_ROOT) on the card, serving the checkpoint phase 7
+    wrote; -> (launches, summary)."""
     from dana_tpu_torch import inference
     from dana_tpu_torch.data.imdb import combined_roidb
     from dana_tpu_torch.data.synth import synth_fsod
     from dana_tpu_torch.ops import cisa_attention, nms, roi_align
-    saved = os.environ.get('DANA_SYNTH_ROOT')
-    with tempfile.TemporaryDirectory() as tmp:
-        os.environ['DANA_SYNTH_ROOT'] = os.path.join(tmp, 'synth')
-        try:
-            t0 = time.perf_counter()
-            synth_fsod('test', num_images=20)
-            synth_fsod('train')
-            synth_s = time.perf_counter() - t0
-            _, roidb, _, _ = combined_roidb('synth_test', training=False,
-                                            use_flipped=False)
-            out_dir = os.path.join(tmp, 'eval')
-            argv = ['--dataset', 'synth', '--way', '2', '--shot', '3',
-                    '--bs', str(BATCH), '--seed', str(seed),
-                    '--eval_dir', out_dir]
-            torch.cuda.synchronize()
-            cisa_attention.cisa_attention_shots.launches = 0
-            cisa_attention.cisa_attention.launches = 0
-            roi_align.roi_align.launches = 0
-            roi_align.roi_align_pw.launches = 0
-            nms.HOST_SYNCS = 0
-            t0 = time.perf_counter()
-            result = inference.main(argv)
-            torch.cuda.synchronize()
-            main_s = time.perf_counter() - t0
-            launches = {
-                'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-                'roi_align_fwd': roi_align.roi_align.launches,
-                'roi_align_pw': roi_align.roi_align_pw.launches,
-                'cisa_attention': cisa_attention.cisa_attention.launches}
-            syncs = nms.HOST_SYNCS
-            with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
-                all_boxes = pickle.load(f)
-        finally:
-            if saved is None:
-                os.environ.pop('DANA_SYNTH_ROOT', None)
-            else:
-                os.environ['DANA_SYNTH_ROOT'] = saved
+    t0 = time.perf_counter()
+    synth_fsod('test', num_images=20)
+    synth_fsod('train')
+    synth_s = time.perf_counter() - t0
+    _, roidb, _, _ = combined_roidb('synth_test', training=False,
+                                    use_flipped=False)
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ['--dataset', 'synth', '--way', '2', '--shot', '3',
+                '--bs', str(BATCH), '--seed', str(seed),
+                '--eval_dir', out_dir, '--checkpath', checkpath]
+        torch.cuda.synchronize()
+        cisa_attention.cisa_attention_shots.launches = 0
+        cisa_attention.cisa_attention.launches = 0
+        roi_align.roi_align.launches = 0
+        roi_align.roi_align_pw.launches = 0
+        nms.HOST_SYNCS = 0
+        t0 = time.perf_counter()
+        result = inference.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {
+            'cisa_shots': cisa_attention.cisa_attention_shots.launches,
+            'roi_align_fwd': roi_align.roi_align.launches,
+            'roi_align_pw': roi_align.roi_align_pw.launches,
+            'cisa_attention': cisa_attention.cisa_attention.launches}
+        syncs = nms.HOST_SYNCS
+        with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
+            all_boxes = pickle.load(f)
     timing = result['timing']
     chunks = timing['chunks']
     want = {'cisa_shots': 2 * chunks, 'roi_align_fwd': chunks,
@@ -885,12 +894,188 @@ def cli_path(seed):
     summary = dict(images=timing['images'], chunks=chunks,
                    img_per_s=timing['img_per_s'], timing=timing,
                    main_s=main_s, synth_s=synth_s, nms_syncs=syncs,
-                   detections=n_det, stats=stats)
+                   detections=n_det, stats=stats, checkpoint=checkpath)
     print(f'CLI path: synth_test, {timing["images"]} images in {chunks} '
           f'chunks of {BATCH}, {timing["img_per_s"]:.2f} img/s over the set '
           f'(main {main_s:.1f} s), launches {launches}, timing {timing}, '
-          f'COCOeval stats {stats}', flush=True)
+          f'COCOeval stats {stats} of the trained checkpoint', flush=True)
     return launches, summary
+
+
+# ---------------------------------------------------------------- phase 7
+
+TRAIN_CLI_ARGS = ['--dataset', 'synth', '--way', '2', '--shot', '3',
+                  '--bs', str(TRAIN_BATCH), '--epochs', '2', '--nw', '8',
+                  '--dlog', '--disp_interval', '5']
+
+
+def snapshot(trainer, batch):
+    """Copies of what a step starts from: parameters, momentum buffers,
+    generator state, lr, and the batch."""
+    opt = trainer.optimizer.state
+    return dict(
+        params={n: p.detach().clone()
+                for n, p in trainer.model.named_parameters()},
+        momentum={n: opt[p]['momentum_buffer'].clone()
+                  if 'momentum_buffer' in opt.get(p, {})
+                  else torch.zeros_like(p)        # no step has reached it
+                  for n, p in trainer.model.named_parameters()
+                  if p.requires_grad},
+        generator=trainer.generator.get_state().clone(), lr=trainer.lr,
+        batch={k: torch.as_tensor(v).clone() for k, v in batch.items()})
+
+
+def same_snapshot(a, b):
+    """-> the names of the parts that differ, bit for bit."""
+    bad = [f'lr {a["lr"]} != {b["lr"]}'] if a['lr'] != b['lr'] else []
+    if not torch.equal(a['generator'], b['generator']):
+        bad.append('generator')
+    for part in ('params', 'momentum', 'batch'):
+        if a[part].keys() != b[part].keys():
+            bad.append(f'{part}: other entries')
+            continue
+        bad += [f'{part}.{k}' for k in a[part]
+                if not torch.equal(a[part][k], b[part][k])]
+    return bad
+
+
+@contextlib.contextmanager
+def boundary_snapshots(record):
+    """Record in `record['straight']` what the first step after the first
+    checkpoint starts from, and in `record['resumed']` what a resumed run's
+    first step starts from."""
+    from dana_tpu_torch.engine.train import Trainer
+    from dana_tpu_torch.utils import checkpoint as ckpt_lib
+    real_step, real_save = Trainer.step, ckpt_lib.save_checkpoint
+    armed = {}
+
+    def step(self, batch, draws=None):
+        key = armed.pop('key', None)
+        if key is not None:
+            record[key] = snapshot(self, batch)
+        return real_step(self, batch, draws)
+
+    def save(*args, **kwargs):
+        if 'straight' not in record and not armed.get('resuming'):
+            armed['key'] = 'straight'
+        return real_save(*args, **kwargs)
+
+    def resume():
+        armed.clear()
+        armed.update(key='resumed', resuming=True)
+
+    Trainer.step, ckpt_lib.save_checkpoint = step, save
+    try:
+        yield resume
+    finally:
+        Trainer.step, ckpt_lib.save_checkpoint = real_step, real_save
+
+
+def train_cli_path(seed, trainer_step_ms):
+    """The training CLI on synth_train (in the current DANA_SYNTH_ROOT):
+    two epochs straight, then epoch 2 again resumed from the epoch-1
+    checkpoint; -> (launches, summary, the straight run's last
+    checkpoint)."""
+    from dana_tpu_torch import train
+    from dana_tpu_torch.data.synth import synth_fsod
+    from dana_tpu_torch.ops import cisa_attention, roi_align
+    t0 = time.perf_counter()
+    synth_fsod('train')
+    synth_s = time.perf_counter() - t0
+    save_dir = os.path.join(os.path.dirname(os.environ['DANA_SYNTH_ROOT']),
+                            'run')
+    argv = TRAIN_CLI_ARGS + ['--seed', str(seed), '--save_dir', save_dir]
+    record = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cisa_attention.cisa_attention_shots.launches = 0
+    cisa_attention.cisa_attention.launches = 0
+    roi_align.roi_align.launches = 0
+    roi_align.roi_align_pw.launches = 0
+    with boundary_snapshots(record) as resuming:
+        t0 = time.perf_counter()
+        straight = train.main(argv)
+        straight_s = time.perf_counter() - t0
+        first = straight['epochs'][0]
+        epoch1 = train.ckpt_lib.checkpoint_path(save_dir, 1,
+                                                first['steps'] - 1)
+        resuming()
+        t0 = time.perf_counter()
+        resumed = train.main(argv + ['--r', '--checkpath', epoch1])
+        resumed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
+                'roi_align_fwd': roi_align.roi_align.launches,
+                'roi_align_pw': roi_align.roi_align_pw.launches,
+                'cisa_attention': cisa_attention.cisa_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    epochs = straight['epochs'] + resumed['epochs']
+    steps = sum(e['steps'] for e in epochs)
+    print(f'training CLI path: {[e["steps"] for e in epochs]} steps '
+          f'(straight epochs 1-2, resumed epoch 2), launches {launches}, '
+          f'peak memory {peak:.2f} GiB', flush=True)
+    want = {'cisa_shots': 3 * steps, 'roi_align_fwd': 0,
+            'roi_align_pw': steps, 'cisa_attention': 0}
+    if launches != want:
+        fail(f'training CLI launches {launches}, expected {want} for '
+             f'{steps} steps')
+    if [e['epoch'] for e in epochs] != [1, 2, 2] or \
+            straight['preempted'] or resumed['preempted']:
+        fail(f'training CLI epochs {[e["epoch"] for e in epochs]}')
+    for e in epochs:
+        if e['skipped'] or not np.isfinite(e['loss_curve']).all():
+            fail(f'training CLI epoch {e["epoch"]}: {e["skipped"]} skipped '
+                 f'steps, losses {e["loss_curve"]}')
+    if {'straight', 'resumed'} - set(record):
+        fail(f'training CLI: boundary states recorded {sorted(record)}')
+    bad = same_snapshot(record['straight'], record['resumed'])
+    if bad:
+        fail(f'the resumed state differs from the straight run\'s at the '
+             f'epoch boundary: {bad[:10]} ({len(bad)} parts)')
+    n_state = {k: len(record['straight'][k])
+               for k in ('params', 'momentum', 'batch')}
+    del record
+    torch.cuda.empty_cache()
+    a = np.array(straight['epochs'][1]['loss_curve'])
+    b = np.array(resumed['epochs'][0]['loss_curve'])
+    print(f'resumed state equals the straight run\'s at the epoch boundary '
+          f'bit for bit ({n_state} tensors, generator, lr); epoch 2 losses, '
+          f'straight {a.tolist()}, resumed {b.tolist()}, max |diff| '
+          f'{np.abs(a - b).max():.3e} (not gated)', flush=True)
+    # steady: each run's first two steps pay the first forward's set-up
+    steady = [t for run in (straight, resumed)
+              for t in sum((e['step_s'] for e in run['epochs']), [])[2:]]
+    step_ms = float(np.median(steady) * 1e3)
+    summary = dict(
+        steps=[e['steps'] for e in epochs], step_ms=step_ms,
+        eps_per_s=TRAIN_BATCH / step_ms * 1e3,
+        trainer_step_ms=trainer_step_ms,
+        epochs=[dict(epoch=e['epoch'], seconds=e['seconds'],
+                     eps_per_s=e['eps_per_s'], wait_s=e['wait_s'],
+                     wait_share=e['wait_s'] / e['seconds'],
+                     losses=e['losses']) for e in epochs],
+        peak_gib=peak, loss_curve=[e['loss_curve'] for e in epochs],
+        resumed_epoch2_max_loss_diff=float(np.abs(a - b).max()),
+        straight_s=straight_s, resumed_s=resumed_s, synth_s=synth_s)
+    print(f'training CLI: steady step {step_ms:.2f} ms '
+          f'({summary["eps_per_s"]:.2f} eps/s) against phase 5\'s '
+          f'Trainer.step {trainer_step_ms:.2f} ms; per epoch '
+          f'{summary["epochs"]}', flush=True)
+    return launches, summary, straight['checkpoint']
+
+
+@contextlib.contextmanager
+def synth_root(tmp):
+    """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
+    saved = os.environ.get('DANA_SYNTH_ROOT')
+    os.environ['DANA_SYNTH_ROOT'] = os.path.join(tmp, 'synth')
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop('DANA_SYNTH_ROOT', None)
+        else:
+            os.environ['DANA_SYNTH_ROOT'] = saved
 
 
 def main():
@@ -943,17 +1128,23 @@ def main():
     # phase 5: the training path
     training_launches, training = training_path(args.seed)
     torch.cuda.empty_cache()
-    # phase 6: the dataset CLI
-    cli_launches, cli = cli_path(args.seed)
+    # phases 7, then 6 on its checkpoint: the training CLI and the dataset
+    # CLI, on synth sets written into a temporary DANA_SYNTH_ROOT
+    with tempfile.TemporaryDirectory() as tmp, synth_root(tmp):
+        train_cli_launches, train_cli, ckpt = train_cli_path(
+            args.seed, training['steady_step_ms'])
+        torch.cuda.empty_cache()
+        cli_launches, cli = cli_path(args.seed, ckpt)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
-               'cli': cli_launches}
+               'cli': cli_launches, 'train_cli': train_cli_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ('cisa_shots', 'roi_align_fwd', 'roi_align_pw',
                              'cisa_attention')}
     print(json.dumps({'serving_summary': serving,
                       'training_summary': training,
                       'cli_summary': cli,
+                      'train_cli_summary': train_cli,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'kernel_sites': {'cisa_shots': k1_sites,

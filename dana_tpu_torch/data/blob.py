@@ -88,6 +88,33 @@ class ImageCache:
         return arr
 
 
+class FIFOCache:
+    """Bounded first-in first-out map of decoded support crops, shared by
+    the episodic loaders' assembly threads (TPU.SUPPORT_CACHE entries; 0
+    disables it).  Thread-safe; values are never written after `put`, so
+    two threads that miss on one key at once only compute it twice."""
+
+    def __init__(self, cap):
+        self.cap = int(cap)
+        self._d = {}
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        if not self.cap:
+            return None
+        with self._lock:
+            return self._d.get(key)
+
+    def put(self, key, value):
+        if not self.cap:
+            return value
+        with self._lock:
+            if key not in self._d and len(self._d) >= self.cap:
+                self._d.pop(next(iter(self._d)))
+            self._d[key] = value
+        return value
+
+
 def _ppm_tokens(f, n):
     """The next n whitespace-separated header fields of a PPM file."""
     out, tok = [], b''

@@ -6,7 +6,9 @@ The reference's groups: biases take lr * (DOUBLE_BIAS + 1) and no weight
 decay (unless BIAS_DECAY), everything else lr and WEIGHT_DECAY.  torch's
 SGD then computes g += wd * p; v = mu * v + g; p -= lr * v, the JAX
 package's `sgd_update` (its velocity starts at zero, so its first
-v = g + wd * p is torch's first momentum buffer).
+v = g + wd * p is torch's first momentum buffer).  The defaults are the
+engine's (TRAIN_* constants); the training CLI passes its config tree's
+values (cfgs/res50.yml: weight decay 1e-4, no doubled bias lr).
 """
 
 from __future__ import annotations
@@ -16,33 +18,60 @@ import torch.nn as nn
 
 from dana_tpu_torch.utils import config as cfg
 
+# the heads that train in the finetune flow: the JAX package's
+# `finetune_mask` heads that DAnA has (it has no RCNN_cls_score)
+FINETUNE_HEADS = ('RCNN_bbox_pred', 'output_score_layer',
+                  'rcnn_transform_layer')
 
-def freeze_fixed(model: nn.Module):
+
+def freeze_fixed(model: nn.Module, fixed_blocks: int = cfg.FIXED_BLOCKS):
     """Make the detector trainable except the trunk's stem (conv1) and
-    layer1..layer{FIXED_BLOCKS}, which get requires_grad False: no
+    layer1..layer{fixed_blocks}, which get requires_grad False: no
     gradient is recorded for them and their .grad stays None.  Every
     BatchNorm of the trunk is a frozen buffer already
     (layers.FrozenBatchNorm2d).  -> the model."""
     model.requires_grad_(True)
     model.backbone.conv1.requires_grad_(False)
-    for i in range(1, cfg.FIXED_BLOCKS + 1):
+    for i in range(1, fixed_blocks + 1):
         getattr(model.backbone, f'layer{i}').requires_grad_(False)
     return model
 
 
-def make_sgd(model: nn.Module, lr: float) -> torch.optim.SGD:
-    """torch SGD (momentum TRAIN_MOMENTUM) over the trainable parameters
-    in two groups: biases (lr * (TRAIN_DOUBLE_BIAS + 1), weight decay only
-    with TRAIN_BIAS_DECAY) and the rest (lr, TRAIN_WEIGHT_DECAY)."""
+def freeze_to_heads(model: nn.Module):
+    """The finetune flow's freeze (the JAX package's `finetune_mask`,
+    reference FasterRCNN.finetune, faster_rcnn.py:192-204): only the
+    detection heads DAnA has keep requires_grad, where they had it.
+    -> the model."""
+    for name, child in model.named_children():
+        if name not in FINETUNE_HEADS:
+            child.requires_grad_(False)
+    return model
+
+
+def make_sgd(model: nn.Module, lr: float, momentum=cfg.TRAIN_MOMENTUM,
+             weight_decay=cfg.TRAIN_WEIGHT_DECAY,
+             double_bias=cfg.TRAIN_DOUBLE_BIAS,
+             bias_decay=cfg.TRAIN_BIAS_DECAY) -> torch.optim.SGD:
+    """torch SGD over the trainable parameters in two groups: biases (lr *
+    (double_bias + 1), weight decay only with bias_decay) and the rest (lr,
+    weight_decay).  Each group keeps its factor on the lr as 'lr_mult'
+    (`set_lr`)."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     bias = [p for n, p in named if n.endswith('bias')]
     rest = [p for n, p in named if not n.endswith('bias')]
-    wd = cfg.TRAIN_WEIGHT_DECAY
+    mult = double_bias + 1.0
     return torch.optim.SGD(
-        [{'params': bias, 'lr': lr * (cfg.TRAIN_DOUBLE_BIAS + 1),
-          'weight_decay': wd if cfg.TRAIN_BIAS_DECAY else 0.0},
-         {'params': rest, 'lr': lr, 'weight_decay': wd}],
-        lr=lr, momentum=cfg.TRAIN_MOMENTUM)
+        [{'params': bias, 'lr': lr * mult, 'lr_mult': mult,
+          'weight_decay': weight_decay if bias_decay else 0.0},
+         {'params': rest, 'lr': lr, 'lr_mult': 1.0,
+          'weight_decay': weight_decay}],
+        lr=lr, momentum=momentum)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float):
+    """Set the base lr of every group, each times its 'lr_mult'."""
+    for g in optimizer.param_groups:
+        g['lr'] = lr * g['lr_mult']
 
 
 def clip_gradients(grads, clip_norm: float):

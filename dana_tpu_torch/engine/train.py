@@ -9,6 +9,7 @@ parameters nor the momentum and reports skipped = 1.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -16,34 +17,77 @@ from dana_tpu_torch.engine import optim
 from dana_tpu_torch.models import dana
 from dana_tpu_torch.utils import config as cfg
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
-from dana_tpu_torch.utils.weights import from_jax_params
+from dana_tpu_torch.utils.weights import (from_jax_params, velocity_from_jax,
+                                          velocity_to_jax)
 
 LOSSES = ('rpn_loss_cls', 'rpn_loss_box', 'rcnn_loss_cls', 'rcnn_loss_bbox')
 
 
 class Trainer:
-    """Trainer(params, config, device='cuda', lr=..., seed=0, clip_norm=0.0).
+    """Trainer(params, config, device='cuda', lr=..., seed=0, clip_norm=0.0,
+    fixed_blocks=..., finetune=False, **sgd).
 
-    params: the JAX package's param tree (numpy leaves).  The device
+    params: the JAX package's param tree (numpy leaves), or a DAnA module
+    (a checkpoint read by `utils.checkpoint.load_checkpoint`).  The device
     defaults to the card and the constructor raises without CUDA unless
     device='cpu' is passed; float32 math runs without TF32
     (utils.device.use_full_f32).
+    Trainable: everything but the trunk's stem and layer1..fixed_blocks;
+    with `finetune`, only the detection heads of that set
+    (optim.freeze_to_heads).  `sgd`: momentum, weight_decay, double_bias,
+    bias_decay for `optim.make_sgd`, at the engine's defaults.
     The target layers draw from a torch.Generator on the device, seeded by
     `seed`.  clip_norm > 0 clips the trainable gradients' total norm.
+    `state()` and `load_state()` carry the momentum buffers and the
+    generator's state through a checkpoint.
     """
 
     def __init__(self, params, config: dana.DanaConfig, device='cuda',
                  lr: float = cfg.TRAIN_LEARNING_RATE, seed: int = 0,
-                 clip_norm: float = 0.0):
+                 clip_norm: float = 0.0, fixed_blocks: int = cfg.FIXED_BLOCKS,
+                 finetune: bool = False, **sgd):
         self.device = resolve_device(device)
         use_full_f32()
-        self.model = optim.freeze_fixed(
-            from_jax_params(params, config).to(self.device))
+        model = params if isinstance(params, torch.nn.Module) \
+            else from_jax_params(params, config)
+        self.model = optim.freeze_fixed(model.to(self.device), fixed_blocks)
+        if finetune:
+            optim.freeze_to_heads(self.model)
         self.config = config
         self.params = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer = optim.make_sgd(self.model, lr)
+        self.optimizer = optim.make_sgd(self.model, lr, **sgd)
+        self._lr = lr
         self.clip_norm = clip_norm
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @property
+    def lr(self) -> float:
+        """The base lr (biases take it times their group's factor)."""
+        return self._lr
+
+    @lr.setter
+    def lr(self, value: float):
+        self._lr = float(value)
+        optim.set_lr(self.optimizer, self._lr)
+
+    def state(self) -> dict:
+        """-> {'velocity': the momentum buffers as a JAX velocity tree,
+        'generator': the generator's state, a uint8 numpy array}."""
+        return {'velocity': velocity_to_jax(self.model, self.optimizer),
+                'generator': self.generator.get_state().numpy()}
+
+    def load_state(self, velocity=None, generator=None):
+        """Restore what `state()` gave (either part may be None): the
+        momentum buffers of the trainable parameters from a JAX velocity
+        tree, the generator from its state."""
+        if velocity is not None:
+            for p, buf in velocity_from_jax(velocity, self.model).items():
+                if p.requires_grad:
+                    self.optimizer.state[p]['momentum_buffer'] = \
+                        buf.to(self.device)
+        if generator is not None:
+            self.generator.set_state(
+                torch.from_numpy(np.asarray(generator, np.uint8)))
 
     def step(self, batch, draws=None):
         """One SGD step on `batch`: dict(im_data [B,H,W,3] uint8 or float,

@@ -117,6 +117,9 @@ def _refuse_unported(args):
     if args.large_scale:
         raise SystemExit('--ls selects the ResNet-101 config, which the port '
                          'does not have (ROADMAP Queue A 7)')
+    if args.ckpt_backend != 'pickle':
+        raise SystemExit('--ckpt_backend orbax: the port reads and writes '
+                         'the .dkpt pickle only')
 
 
 def load_cfg(args):
@@ -126,6 +129,7 @@ def load_cfg(args):
     config_lib.cfg_from_list(c, args.set_cfgs)
     if args.set_cfgs_extra:
         config_lib.cfg_from_list(c, args.set_cfgs_extra)
+    c.TRAIN.USE_FLIPPED = args.use_flip
     if c.TPU.QUANT_INT8:
         raise SystemExit('TPU.QUANT_INT8: int8 serving is not ported yet '
                          '(ROADMAP Queue A 9)')

@@ -1,5 +1,5 @@
-"""Read the checkpoints the JAX package and the reference write (the read
-side of the JAX package's `utils/checkpoint.py` `load_checkpoint`).
+"""Read the checkpoints the JAX package and the reference write, and write
+the JAX package's (its `utils/checkpoint.py`).
 
   * `.pth`: a reference-format payload {'model': state dict, 'epoch',
     'optimizer', 'pooling_mode'} (or a bare state dict), read by
@@ -14,10 +14,18 @@ side of the JAX package's `utils/checkpoint.py` `load_checkpoint`).
 
 A checkpoint whose `pooling_mode` is not 'align' is refused: the port pools
 with RoIAlign only.
+
+`save_checkpoint` writes the `.dkpt` pickle with plain dicts, floats, ints,
+strings and numpy arrays only, so that both the JAX package's
+`load_checkpoint` and this module's restricted reader take it; its
+'optimizer' is {'velocity': tree, 'lr': float}, which the JAX package's
+`restore_optimizer` reads.  `optimizer_velocity` reads the velocity from
+either writer's payload.  Orbax directories are neither read nor written.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 import pickle
 
@@ -25,7 +33,8 @@ import numpy as np
 import torch
 
 from dana_tpu_torch.utils.weights import (from_jax_params,
-                                          load_reference_state_dict)
+                                          load_reference_state_dict,
+                                          to_jax_params)
 
 # the globals a pickled numpy tree needs (numpy 1 and numpy 2 names)
 _NUMPY_GLOBALS = {
@@ -114,6 +123,47 @@ def load_checkpoint(path, config):
                          'with RoIAlign only')
     model = build(payload.pop('model'), config)
     return model, payload
+
+
+def save_checkpoint(path, model, velocity=None, epoch=0, step=0, lr=None,
+                    pooling_mode='align', extra=None):
+    """Write the JAX package's `.dkpt` at `path`: the `to_jax_params` tree of
+    `model`, the optimizer {'velocity': `velocity` (a JAX velocity tree),
+    'lr'} when a velocity is given, and `extra` (numpy arrays and plain
+    values).  -> path."""
+    os.makedirs(osp.dirname(path) or '.', exist_ok=True)
+    payload = {
+        'format': 'dana_tpu_v1',
+        'epoch': int(epoch),
+        'step': int(step),
+        'model': to_jax_params(model),
+        'optimizer': None if velocity is None else {
+            'velocity': velocity, 'lr': float(lr)},
+        'lr': None if lr is None else float(lr),
+        'pooling_mode': pooling_mode,
+        'extra': dict(extra or {}),
+    }
+    tmp = f'{path}.{os.getpid()}.tmp'
+    with open(tmp, 'wb') as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    return path
+
+
+def optimizer_velocity(payload):
+    """The momentum velocity tree of a payload's 'optimizer', or None: this
+    module's dict, or the JAX package's pickled `SGDState(velocity, lr)`,
+    which the reader keeps as a `PickledObject` whose first argument is the
+    velocity.  A reference `.pth`'s torch optimizer state is not read (the
+    JAX package drops it too)."""
+    opt = payload.get('optimizer')
+    if opt is None or payload.get('format') == 'torch':
+        return None
+    if isinstance(opt, dict):
+        return opt['velocity']
+    if isinstance(opt, PickledObject) and opt.name == 'SGDState':
+        return opt.args[0]
+    raise ValueError(f'optimizer state {opt!r}: not an SGD velocity')
 
 
 def checkpoint_path(save_dir, epoch, step, suffix='dkpt'):

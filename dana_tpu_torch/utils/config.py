@@ -57,11 +57,18 @@ class AttrDict(dict):
 
 
 def default_cfg() -> AttrDict:
-    """A fresh config tree: the keys the dataset inference path reads, at
-    the JAX package's defaults with `cfgs/res50.yml` applied, except the
-    entries marked below."""
+    """A fresh config tree: the keys the dataset CLIs read, at the JAX
+    package's defaults with `cfgs/res50.yml` applied, except the entries
+    marked below.  The file sets TRAIN.WEIGHT_DECAY 1e-4 and DOUBLE_BIAS
+    False, where the module constants above keep the engine's defaults."""
     return AttrDict({
         'TRAIN': {
+            'LEARNING_RATE': 0.001,
+            'MOMENTUM': 0.9,
+            'WEIGHT_DECAY': 0.0001,
+            'DOUBLE_BIAS': False,
+            'BIAS_DECAY': False,
+            'USE_FLIPPED': True,
             'SCALES': (600,),
             'MAX_SIZE': 1000,
             'BATCH_SIZE': 128,
@@ -95,7 +102,10 @@ def default_cfg() -> AttrDict:
             # package defaults to True), and the CLI refuses True
             'STEM_S2D': False,
             'QUANT_INT8': False,
+            # decoded training support crops kept by the episodic loaders
+            'SUPPORT_CACHE': 2048,
         },
+        'RESNET': {'FIXED_BLOCKS': 1},
         'MAX_NUM_GT_BOXES': 20,
         'ANCHOR_SCALES': [8, 16, 32],
         'ANCHOR_RATIOS': [0.5, 1, 2],

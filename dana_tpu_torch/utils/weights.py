@@ -5,7 +5,9 @@ numpy arrays: HWIO convs, [in, out] linears) and `load_reference_state_dict`
 a reference-format state dict (`RCNN_base.*`, `RCNN_top.*`, OIHW convs,
 [out, in] linears), as a released `.pth` holds it.  Both fill a `DAnA`
 module with a strict load, so every weight is consumed and none missing.
-`to_jax_params` turns a module back into the JAX param tree.
+`to_jax_params` turns a module back into the JAX param tree, and
+`velocity_to_jax` / `velocity_from_jax` carry SGD momentum buffers to and
+from the JAX package's velocity tree, in the same layout.
 """
 
 from __future__ import annotations
@@ -41,35 +43,80 @@ def _load(config: DanaConfig, state: dict) -> DAnA:
     return model.eval().requires_grad_(False)
 
 
+def _from_jax_layout(v) -> torch.Tensor:
+    """A JAX leaf -> the port's layout: HWIO -> OIHW, [in, out] -> [out,
+    in], float32."""
+    v = np.asarray(v, np.float32)
+    if v.ndim == 4:
+        v = v.transpose(3, 2, 0, 1)
+    elif v.ndim == 2:
+        v = v.T
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def _to_jax_layout(t: torch.Tensor) -> np.ndarray:
+    """The port's tensor -> a JAX leaf: OIHW -> HWIO, [out, in] -> [in,
+    out], float32 numpy."""
+    v = t.detach().cpu().numpy()
+    if v.ndim == 4:
+        v = v.transpose(2, 3, 1, 0)
+    elif v.ndim == 2:
+        v = v.T
+    return np.ascontiguousarray(v, np.float32)
+
+
+def _unflatten(items) -> dict:
+    tree = {}
+    for name, v in items:
+        *path, leaf = name.split('.')
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
 def from_jax_params(tree: dict, config: DanaConfig) -> DAnA:
     """JAX param tree (numpy leaves) -> DAnA module on the CPU."""
-    state = {}
-    for name, v in _flatten(tree):
-        v = np.asarray(v, np.float32)
-        if v.ndim == 4:                          # HWIO -> OIHW
-            v = v.transpose(3, 2, 0, 1)
-        elif v.ndim == 2:                        # [in, out] -> [out, in]
-            v = v.T
-        state[name] = torch.from_numpy(np.ascontiguousarray(v))
-    return _load(config, state)
+    return _load(config, {name: _from_jax_layout(v)
+                          for name, v in _flatten(tree)})
 
 
 def to_jax_params(model: DAnA) -> dict:
     """DAnA module -> the JAX param tree (numpy float32 leaves, HWIO convs,
     [in, out] linears), every parameter and buffer."""
-    tree = {}
+    return _unflatten((name, _to_jax_layout(t))
+                      for name, t in model.state_dict().items())
+
+
+def velocity_to_jax(model: DAnA, optimizer: torch.optim.Optimizer) -> dict:
+    """The SGD momentum buffers as the JAX package's velocity tree: the
+    layout and every leaf of `to_jax_params`, zero where a parameter has no
+    buffer (frozen, or before its first step) and for the buffers, as the
+    JAX package's `sgd_init` makes them."""
+    params = dict(model.named_parameters())
+    items = []
     for name, t in model.state_dict().items():
-        v = t.detach().cpu().numpy()
-        if v.ndim == 4:                          # OIHW -> HWIO
-            v = v.transpose(2, 3, 1, 0)
-        elif v.ndim == 2:                        # [out, in] -> [in, out]
-            v = v.T
-        *path, leaf = name.split('.')
-        node = tree
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(v, np.float32)
-    return tree
+        p = params.get(name)
+        buf = optimizer.state.get(p, {}).get('momentum_buffer') \
+            if p is not None else None
+        if buf is None:
+            shape = tuple(t.shape)
+            shape = shape[2:] + shape[1::-1] if len(shape) == 4 \
+                else shape[::-1]
+            items.append((name, np.zeros(shape, np.float32)))
+        else:
+            items.append((name, _to_jax_layout(buf)))
+    return _unflatten(items)
+
+
+def velocity_from_jax(tree: dict, model: DAnA) -> dict:
+    """A JAX velocity tree -> {parameter of `model`: its momentum, a CPU
+    tensor in the parameter's layout}; the tree's leaves for buffers are
+    not read.  The tree must hold every parameter."""
+    flat = dict(_flatten(tree))
+    return {p: _from_jax_layout(flat[name])
+            for name, p in model.named_parameters()}
 
 
 def load_reference_state_dict(sd: dict, config: DanaConfig) -> DAnA:

@@ -15,8 +15,9 @@ record_function ranges of `models/dana.py` `forward` and
 ranges that were open on the host when it was launched (the trace's
 correlation ids), which also covers the hand-written kernels launched
 through ctypes; a stage's host time includes any wait on the card.  Also
-printed: the kernels with the most device time and the device's idle
-share.  The last line is one JSON object with the per-request numbers.
+printed: the kernels with the most device time, the device's idle share
+and the bytes of each kind of device copy.  The last line is one JSON
+object with the per-request numbers.
 """
 
 from __future__ import annotations
@@ -36,6 +37,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def copy_bytes(trace_path, iters):
+    """-> {copy kind (e.g. 'Memcpy HtoD (Pageable -> Device)'): bytes per
+    request} of the trace's device copies."""
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    out = collections.Counter()
+    for e in events:
+        if e.get('cat') == 'gpu_memcpy':
+            out[e['name']] += e.get('args', {}).get('bytes', 0) / iters
+    return dict(out)
 
 
 def stage_times(trace_path, iters):
@@ -130,7 +143,8 @@ def profile(run, iters, trace, card, unit='request'):
             'stage_host_ms': {k: h for k, (_, h) in stages.items()},
             'wall_ms': statistics.median(walls),
             'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
-            'idle_share': 1 - busy / traced_wall}
+            'idle_share': 1 - busy / traced_wall,
+            'copy_bytes': copy_bytes(trace, iters)}
 
 
 def main():

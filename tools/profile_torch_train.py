@@ -2,13 +2,21 @@
 """Where a training step's time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--seed 0] [--iters 5]
+        [--source episodes|cli|cli_fixed]
         [--trace .scratch/profile_torch_train.trace.json]
 
-Builds the trainer that chip_smoke.py drives (DAnA ResNet-50 2-way
-3-shot, random weights from --seed) and runs `Trainer.step` on one
-seeded episode batch of 4 uint8 608x1024 queries with 6 supports of
-320 px each: --iters steps untraced for the wall time per step, then
---iters under torch.profiler.  The stages are the `dana.*`
+--source episodes (the default) builds the trainer that chip_smoke.py
+phase 5 drives (DAnA ResNet-50 2-way 3-shot, 9 anchors, random weights
+from --seed) and runs `Trainer.step` on one seeded episode batch of 4
+uint8 608x1024 queries with 6 supports of 320 px each.  --source cli
+builds the trainer, loader and batcher as `python -m dana_tpu_torch.train
+--dataset synth --way 2 --shot 3 --bs 4` does (12 anchors, float32
+queries; synth_train written into a temporary DANA_SYNTH_ROOT) and steps
+on the batches of its prefetch stream while the eight assembly threads
+run, as in the CLI; --source cli_fixed steps that trainer on the stream's
+first batch again and again, with no thread running beside it.  Each
+takes --iters steps untraced for the wall time per step, then --iters
+under torch.profiler.  The stages are the `dana.*`
 record_function ranges of `models/dana.py` `forward` and of
 `engine/train.py` (`dana.backward`, `dana.update`); kernels are charged
 to the ranges open when they were launched, as in
@@ -23,6 +31,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 
 import torch
 
@@ -35,27 +44,57 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--iters', type=int, default=5)
+    ap.add_argument('--source', default='episodes',
+                    choices=('episodes', 'cli', 'cli_fixed'))
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_train.trace.json'))
     args = ap.parse_args()
     from profile_torch_predict import card_name, profile
     card = card_name()
 
-    import chip_smoke
-    from dana_tpu_torch.engine.train import Trainer
     from dana_tpu_torch.ops import build
-    from dana_tpu_torch.utils import config as cfg
     build.build_all()
-    config, params = cfg.get_model('res50', way=2, shot=3, seed=args.seed)
-    trainer = Trainer(params, config, seed=args.seed)
-    batch = chip_smoke.training_episodes(args.seed, 1, trainer.device)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ['DANA_SYNTH_ROOT'] = os.path.join(tmp, 'synth')
+        trainer, batch, stream = _source(args)
 
-    def step():
-        trainer.step(batch)
-        torch.cuda.synchronize()
+        def step():
+            trainer.step(batch if stream is None else next(stream))
+            torch.cuda.synchronize()
 
-    print(json.dumps(profile(step, args.iters, args.trace, card,
-                             unit='step')))
+        try:
+            out = profile(step, args.iters, args.trace, card, unit='step')
+        finally:
+            if stream is not None:
+                stream.close()
+    out['source'] = args.source
+    print(json.dumps(out))
+
+
+def _source(args):
+    """-> (trainer, batch or None, batch stream or None) for --source."""
+    if args.source == 'episodes':
+        import chip_smoke
+        from dana_tpu_torch.engine.train import Trainer
+        from dana_tpu_torch.utils import config as cfg
+        config, params = cfg.get_model('res50', way=2, shot=3,
+                                       seed=args.seed)
+        trainer = Trainer(params, config, seed=args.seed)
+        return (trainer,
+                chip_smoke.training_episodes(args.seed, 1, trainer.device)[0],
+                None)
+    from dana_tpu_torch import train as cli
+    from dana_tpu_torch.data.fs_loader import Prefetcher
+    _, batcher, trainer, _ = cli.setup(cli.parse_args(
+        ['--dataset', 'synth', '--way', '2', '--shot', '3', '--bs', '4',
+         '--dlog', '--seed', str(args.seed)]))
+    stream = iter(Prefetcher(({k: b[k] for k in cli.BATCH_KEYS}
+                              for b in batcher), trainer.device))
+    if args.source == 'cli':
+        return trainer, None, stream
+    batch = next(stream)
+    stream.close()
+    return trainer, batch, None
 
 
 if __name__ == '__main__':
