@@ -29,7 +29,7 @@ Run from the repository root.  Phases, each of which fails the run:
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
      encoded once.  The launch counters are zeroed just before and read
-     just after; every kernel of the path must have launched, and the
+     just after: 2 CISA and 1 RoIAlign launches a request, and the
      single-group CISA (no site on this path or the next) never.  The
      outputs must be finite and of the right shapes, and the first
      request, served again with the plain versions in place of the
@@ -73,7 +73,25 @@ Run from the repository root.  Phases, each of which fails the run:
      training kernels.  Every image's target-class cell of all_boxes must
      hold finite detections and COCOeval must return 12 finite stats;
      img/s, the host-side timing and the stats are printed (AP after two
-     epochs on 60 images is not judged).
+     epochs on 60 images is not judged);
+  8. the other frameworks (models/frameworks.py) and cisa, each the
+     2-way 3-shot ResNet-50 detector with random weights from --seed
+     (`get_model`): FW_REQUESTS requests of BATCH uint8 608x1024 queries
+     through `Predictor.predict` (cisa from its support cache, FSOD, Meta
+     R-CNN and FGN with each request's BATCH x 3 supports of 320 px;
+     Faster R-CNN, which has no serving path, through its eval forward),
+     and FW_STEPS Trainer steps of TRAIN_BATCH episodes (12000/2000
+     proposals; Meta R-CNN's with every class's gt beside the episode's).
+     The counters are zeroed just before each path and read just after:
+     RoIAlign once a request and RoIAlign-from-weights once a step for
+     every framework, CISA only for cisa (2 a request, 3 a step), the
+     single-group CISA never.  Request 0 and step 0 are run again on the
+     plain versions with the kernel path's proposals (and draws), held as
+     in phases 4 and 5 (Faster R-CNN: its RPN and head outputs only).
+     Then the two CLIs with --net meta: one epoch on synth_train, and its
+     checkpoint served over synth_test (eps/s, img/s, the timing line and
+     AP printed, AP not judged).  Each path's latency or step time and
+     peak memory are printed with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -101,6 +119,7 @@ TOL = 1e-4
 # differ only in the order each entry sums its samples
 K2_TOL = 1e-6
 ROI_ATOL = 2e-3               # px: a proposal counted as moved (ROADMAP)
+DEV = torch.device('cuda', 0)
 BOX_ATOL = 1e-3               # px, detections of a unique score
 QUERY_HW = (608, 1024)        # first query canvas bucket
 # the other query canvases the loaders emit (TPU.SIZE_BUCKETS)
@@ -167,6 +186,24 @@ def check_close(name, got, want, tol=TOL):
         fail(f'{name}: kernel disagrees with its plain version '
              f'(max |err| {err:.3e}, tolerance {tol:g})')
     return err
+
+
+def launch_counters():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from dana_tpu_torch.ops import cisa_attention, roi_align
+    return {'cisa_shots': cisa_attention.cisa_attention_shots,
+            'roi_align_fwd': roi_align.roi_align,
+            'roi_align_pw': roi_align.roi_align_pw,
+            'cisa_attention': cisa_attention.cisa_attention}
+
+
+def zero_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -573,47 +610,51 @@ def pinned_proposals(record, pinned=None):
         rpn.proposal_layer = real
 
 
-def compare_paths(pred, query, info, classes):
-    """Request 0 through the kernels and through the plain versions.  The
+def compare_paths(model, config, query, info, forward_kw, predict=None,
+                  label='main path'):
+    """One request through the kernels and through the plain versions:
+    `frameworks.forward` on (query, info, **forward_kw), and `predict()`,
+    the same request served (None where there is no serving path).  The
     RPN's scores and deltas, the R-CNN head's outputs and the served
     detections must agree.  The plain path is given the kernel path's
-    proposals: the proposal layer ranks 21888 anchors whose float32
-    scores differ in the last bits between the paths, so near-equal
-    neighbours swap places and NMS then keeps a few other boxes (the
-    count is printed)."""
-    from dana_tpu_torch.models import dana
+    proposals: the proposal layer ranks tens of thousands of anchors whose
+    float32 scores differ in the last bits between the paths, so
+    near-equal neighbours swap places and NMS then keeps a few other boxes
+    (the count is printed).  -> the max |diff| of each compared output."""
+    from dana_tpu_torch.models import frameworks
     runs = {}
     for path in ('kernel', 'plain'):
         record = []
         pinned = runs['kernel'][0][0][1] if path == 'plain' else None
         with plain_ops() if path == 'plain' else contextlib.nullcontext(), \
                 pinned_proposals(record, pinned), torch.inference_mode():
-            fwd = dana.forward(
-                pred.model, pred.config,
-                torch.as_tensor(query, device=pred.device),
-                torch.as_tensor(info, device=pred.device),
-                support_feats=pred.batch_support_feats(classes))
-            runs[path] = record, fwd, pred.predict(query, info, classes)
+            fwd = frameworks.forward(
+                model, config, torch.as_tensor(query, device=DEV),
+                torch.as_tensor(info, device=DEV), **forward_kw)
+            runs[path] = record, fwd, None if predict is None else predict()
     (rec_k, fk, kdets), (rec_p, fp, pdets) = runs['kernel'], runs['plain']
     (scores_k, deltas_k), (rois_k, _, mask_k) = rec_k[0]
     (scores_p, deltas_p), (rois_p, _, mask_p) = rec_p[0]
-    diffs = {'rpn_scores': check_close('main path rpn scores', scores_k,
+    diffs = {'rpn_scores': check_close(f'{label} rpn scores', scores_k,
                                        scores_p),
-             'rpn_deltas': check_close('main path rpn deltas', deltas_k,
+             'rpn_deltas': check_close(f'{label} rpn deltas', deltas_k,
                                        deltas_p)}
-    diffs.update({name: check_close(f'main path {name}', fk[name], fp[name])
+    diffs.update({name: check_close(f'{label} {name}', fk[name], fp[name])
                   for name in ('cls_prob', 'bbox_pred')})
     moved = ((mask_k != mask_p)
              | ((rois_k - rois_p).abs() > ROI_ATOL).any(-1)).sum().item()
-    print(f'kernel vs plain path on request 0: max |diff| {diffs}; the '
-          f'plain path\'s own proposals differ in {moved} of '
+    print(f'{label}: kernel vs plain path on request 0: max |diff| {diffs}; '
+          f'the plain path\'s own proposals differ in {moved} of '
           f'{mask_k.numel()} slots', flush=True)
+    if predict is None:
+        return diffs
     (dk, vk), (dp, vp) = ([x.cpu().numpy() for x in d]
                           for d in (kdets, pdets))
     for i in range(len(dk)):
         match_detections(dk[i][vk[i]], dp[i][vp[i]], coord_atol=BOX_ATOL)
-    print(f'detections (request 0): {vk.sum(1).tolist()} per image, '
-          'kernel path == plain path (tie-aware)', flush=True)
+    print(f'{label}: detections (request 0): {vk.sum(1).tolist()} per image,'
+          ' kernel path == plain path (tie-aware)', flush=True)
+    return diffs
 
 
 def serving_predictor(seed):
@@ -641,16 +682,14 @@ def serving_requests(seed, n):
 
 
 def serving_path(seed):
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    from dana_tpu_torch.ops import nms
 
     pred = serving_predictor(seed)
     requests = serving_requests(seed, REQUESTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    cisa_attention.cisa_attention_shots.launches = 0
-    cisa_attention.cisa_attention.launches = 0
-    roi_align.roi_align.launches = 0
+    zero_launches()
     nms.HOST_SYNCS = 0
     outs, req_ms = [], []
     for query, info, classes in requests:
@@ -659,20 +698,16 @@ def serving_path(seed):
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((dets, valid))
-    launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-                'roi_align_fwd': roi_align.roi_align.launches,
-                'cisa_attention': cisa_attention.cisa_attention.launches}
+    launches = read_launches()
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'main path: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
-    for name in ('cisa_shots', 'roi_align_fwd'):
-        if launches[name] == 0:
-            fail(f'kernel {name} was not launched on the main path')
-    if launches['cisa_attention']:
-        fail('cisa_attention launched on the serving path, which has no '
-             'single-group CISA site')
+    want = {'cisa_shots': 2 * REQUESTS, 'roi_align_fwd': REQUESTS,
+            'roi_align_pw': 0, 'cisa_attention': 0}   # no single-group site
+    if launches != want:
+        fail(f'main path launches {launches}, expected {want}')
 
     for dets, valid in outs:
         if dets.shape != (BATCH, 100, 5) or valid.shape != (BATCH, 100):
@@ -681,7 +716,10 @@ def serving_path(seed):
             fail('non-finite detections')
     n_det = [int(v.sum()) for _, v in outs]
 
-    compare_paths(pred, *requests[0])
+    query, info, classes = requests[0]
+    compare_paths(pred.model, pred.config, query, info,
+                  dict(support_feats=pred.batch_support_feats(classes)),
+                  lambda: pred.predict(query, info, classes))
     return launches, dict(req_ms=req_ms, peak_gib=peak, nms_syncs=syncs,
                           detections=n_det)
 
@@ -745,15 +783,52 @@ def recorded_step(record, pinned=None):
 # only by float32 rounding
 NO_GRAD = {f'{site}_{layer}_layer.bias' for site in ('rpn', 'rcnn')
            for layer in ('adapt_q', 'adapt_k', 'unary', 'channel_k')}
-COMPARED = ('rpn_', 'rcnn_', 'RCNN_rpn.', 'output_score_layer.',
-            'RCNN_bbox_pred.')         # attention, RPN and head layers
+
+
+def head_grads(model):
+    """Copies of the gradients of the trainable parameters outside the
+    trunk (the attention, RPN and head layers)."""
+    return {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.requires_grad and not n.startswith('backbone.')}
+
+
+def compare_step(params, config, seed, batch, record, metrics, grads,
+                 label):
+    """The step that `record` recorded, again on the plain versions from
+    the same weights, draws and proposals: the losses within LOSS_RTOL and
+    the head gradients within GRAD_RTOL of their norms of the kernel
+    path's `metrics` and `grads`.  -> (loss relative diffs, worst gradient
+    relative diff)."""
+    from dana_tpu_torch.engine.train import LOSSES, Trainer
+    plain = Trainer(params, config, seed=seed)
+    with plain_ops(), recorded_step({}, pinned=record):
+        pm = plain.step(batch, draws=record['draws'])
+    diffs = {}
+    for k in (*LOSSES, 'loss'):
+        a, b = metrics[k], float(pm[k])
+        diffs[k] = abs(a - b) / max(abs(b), 1e-12)
+        if diffs[k] > LOSS_RTOL:
+            fail(f'{label} step {k}: kernel path {a}, plain path {b}')
+    worst = 0.0
+    for n, p in plain.model.named_parameters():
+        if n not in grads or n in NO_GRAD:
+            continue
+        rel = ((grads[n] - p.grad).norm()
+               / p.grad.norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if not rel <= GRAD_RTOL:
+            fail(f'{label} step gradient of {n}: |kernel - plain| is '
+                 f'{rel:.3e} of its norm')
+    print(f'{label} step, kernel vs plain path: loss relative diffs {diffs};'
+          f' worst gradient relative diff {worst:.3e} over {len(grads)} '
+          'attention, RPN and head parameters', flush=True)
+    return diffs, worst
 
 
 def training_path(seed):
     """STEPS SGD steps of the Trainer, then step 0 again on the plain
     versions; -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
-    from dana_tpu_torch.ops import cisa_attention, roi_align
     from dana_tpu_torch.utils import config as cfg
 
     config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
@@ -763,9 +838,7 @@ def training_path(seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    cisa_attention.cisa_attention_shots.launches = 0
-    cisa_attention.cisa_attention.launches = 0
-    roi_align.roi_align_pw.launches = 0
+    zero_launches()
     metrics, step_ms, record = [], [], {}
     for i, batch in enumerate(episodes):
         t0 = time.perf_counter()
@@ -774,19 +847,15 @@ def training_path(seed):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            grads0 = {n: p.grad.clone() for n, p
-                      in trainer.model.named_parameters()
-                      if p.requires_grad and n.startswith(COMPARED)}
+            grads0 = head_grads(trainer.model)
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-                'roi_align_pw': roi_align.roi_align_pw.launches,
-                'cisa_attention': cisa_attention.cisa_attention.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'training path: {STEPS} steps of {TRAIN_BATCH} x {QUERY_HW} '
           f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
           f'GiB, launches {launches}, metrics {metrics}', flush=True)
-    want = {'cisa_shots': 3 * STEPS, 'roi_align_pw': STEPS,
-            'cisa_attention': 0}       # no single-group CISA site
+    want = {'cisa_shots': 3 * STEPS, 'roi_align_fwd': 0,
+            'roi_align_pw': STEPS, 'cisa_attention': 0}
     if launches != want:
         fail(f'training path launches {launches}, expected {want}')
     for m in metrics:
@@ -808,28 +877,8 @@ def training_path(seed):
     torch.cuda.empty_cache()
 
     # step 0 on the plain versions: same weights, draws and proposals
-    plain = Trainer(params, config, seed=seed)
-    with plain_ops(), recorded_step({}, pinned=record):
-        pm = plain.step(episodes[0], draws=record['draws'])
-    diffs = {}
-    for k in (*LOSSES, 'loss'):
-        a, b = metrics[0][k], float(pm[k])
-        diffs[k] = abs(a - b) / max(abs(b), 1e-12)
-        if diffs[k] > LOSS_RTOL:
-            fail(f'step 0 {k}: kernel path {a}, plain path {b}')
-    worst = 0.0
-    for n, p in plain.model.named_parameters():
-        if n not in grads0 or n in NO_GRAD:
-            continue
-        rel = ((grads0[n] - p.grad).norm()
-               / p.grad.norm().clamp(min=1e-30)).item()
-        worst = max(worst, rel)
-        if not rel <= GRAD_RTOL:
-            fail(f'step 0 gradient of {n}: |kernel - plain| is {rel:.3e} '
-                 'of its norm')
-    print(f'step 0, kernel vs plain path: loss relative diffs {diffs}; '
-          f'worst gradient relative diff {worst:.3e} over {len(grads0)} '
-          'attention, RPN and head parameters', flush=True)
+    diffs, worst = compare_step(params, config, seed, episodes[0], record,
+                                metrics[0], grads0, 'main path')
     return launches, dict(step_ms=step_ms,
                           steady_step_ms=float(np.mean(step_ms[1:])),
                           peak_gib=peak, metrics=metrics,
@@ -845,7 +894,7 @@ def cli_path(seed, checkpath):
     from dana_tpu_torch import inference
     from dana_tpu_torch.data.imdb import combined_roidb
     from dana_tpu_torch.data.synth import synth_fsod
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    from dana_tpu_torch.ops import nms
     t0 = time.perf_counter()
     synth_fsod('test', num_images=20)
     synth_fsod('train')
@@ -857,20 +906,13 @@ def cli_path(seed, checkpath):
                 '--bs', str(BATCH), '--seed', str(seed),
                 '--eval_dir', out_dir, '--checkpath', checkpath]
         torch.cuda.synchronize()
-        cisa_attention.cisa_attention_shots.launches = 0
-        cisa_attention.cisa_attention.launches = 0
-        roi_align.roi_align.launches = 0
-        roi_align.roi_align_pw.launches = 0
+        zero_launches()
         nms.HOST_SYNCS = 0
         t0 = time.perf_counter()
         result = inference.main(argv)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
-        launches = {
-            'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-            'roi_align_fwd': roi_align.roi_align.launches,
-            'roi_align_pw': roi_align.roi_align_pw.launches,
-            'cisa_attention': cisa_attention.cisa_attention.launches}
+        launches = read_launches()
         syncs = nms.HOST_SYNCS
         with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
             all_boxes = pickle.load(f)
@@ -978,7 +1020,6 @@ def train_cli_path(seed, trainer_step_ms):
     checkpoint)."""
     from dana_tpu_torch import train
     from dana_tpu_torch.data.synth import synth_fsod
-    from dana_tpu_torch.ops import cisa_attention, roi_align
     t0 = time.perf_counter()
     synth_fsod('train')
     synth_s = time.perf_counter() - t0
@@ -988,10 +1029,7 @@ def train_cli_path(seed, trainer_step_ms):
     record = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cisa_attention.cisa_attention_shots.launches = 0
-    cisa_attention.cisa_attention.launches = 0
-    roi_align.roi_align.launches = 0
-    roi_align.roi_align_pw.launches = 0
+    zero_launches()
     with boundary_snapshots(record) as resuming:
         t0 = time.perf_counter()
         straight = train.main(argv)
@@ -1004,10 +1042,7 @@ def train_cli_path(seed, trainer_step_ms):
         resumed = train.main(argv + ['--r', '--checkpath', epoch1])
         resumed_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-                'roi_align_fwd': roi_align.roi_align.launches,
-                'roi_align_pw': roi_align.roi_align_pw.launches,
-                'cisa_attention': cisa_attention.cisa_attention.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     epochs = straight['epochs'] + resumed['epochs']
     steps = sum(e['steps'] for e in epochs)
@@ -1064,6 +1099,250 @@ def train_cli_path(seed, trainer_step_ms):
     return launches, summary, straight['checkpoint']
 
 
+# ---------------------------------------------------------------- phase 8
+
+FRAMEWORKS = ('frcnn', 'fsod', 'meta', 'fgn', 'cisa')
+FW_REQUESTS = 2               # requests a detector serves in phase 8
+FW_STEPS = 2                  # training steps a detector takes in phase 8
+
+
+def support_stacks(seed, n):
+    """n requests' support stacks for the detectors without a support
+    cache: BATCH x 3 mean-subtracted 320 px supports, host arrays."""
+    from dana_tpu_torch.utils import config as cfg
+    rng = np.random.default_rng(seed + 3)
+    means = np.asarray(cfg.PIXEL_MEANS, np.float32)
+    return [rng.integers(0, 256, (BATCH, 3, SUPPORT_HW, SUPPORT_HW, 3))
+            .astype(np.float32) - means for _ in range(n)]
+
+
+def framework_serving(name, config, params, seed):
+    """FW_REQUESTS requests of BATCH uint8 608x1024 queries served by
+    `name`: through `Predictor.predict` (cisa from its support cache, the
+    siblings with each request's support stack), or for frcnn, which has
+    no serving path, its eval forward; then request 0 through the plain
+    versions.  -> (launches, summary)."""
+    from dana_tpu_torch.engine.predict import Predictor
+    from dana_tpu_torch.models import frameworks
+    from dana_tpu_torch.utils.device import use_full_f32
+    from dana_tpu_torch.utils.weights import from_jax_params
+    requests = serving_requests(seed, FW_REQUESTS)
+    sups = support_stacks(seed, FW_REQUESTS)
+    query0, info0, classes0 = requests[0]
+    if name == 'frcnn':
+        use_full_f32()                  # as Predictor does on the card
+        model = from_jax_params(params, config).to(DEV)
+        pred = predict0 = None
+
+        def serve(i):
+            q, info, _ = requests[i]
+            with torch.inference_mode():
+                return frameworks.forward(model, config,
+                                          torch.as_tensor(q, device=DEV),
+                                          torch.as_tensor(info, device=DEV))
+        forward_kw = {}
+    else:
+        pred = Predictor(params, config)              # device='cuda'
+        model = pred.model
+        if pred.caches_supports:
+            for cls in range(2):
+                pred.encode_supports(cls, sups[0][cls])
+
+            def serve(i):
+                return pred.predict(*requests[i])
+            forward_kw = dict(support_feats=pred.batch_support_feats(
+                classes0))
+            predict0 = lambda: pred.predict(*requests[0])     # noqa: E731
+        else:
+            def serve(i):
+                return pred.predict(*requests[i][:2], support_ims=sups[i])
+            forward_kw = dict(support_ims=torch.as_tensor(sups[0],
+                                                          device=DEV))
+            predict0 = lambda: pred.predict(                   # noqa: E731
+                query0, info0, support_ims=sups[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    req_ms, outs = [], []
+    for i in range(FW_REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(serve(i))
+        torch.cuda.synchronize()
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {'cisa_shots': 2 * FW_REQUESTS if name == 'cisa' else 0,
+            'roi_align_fwd': FW_REQUESTS, 'roi_align_pw': 0,
+            'cisa_attention': 0}
+    if launches != want:
+        fail(f'{name} serving launches {launches}, expected {want}')
+    for out in outs:
+        if name == 'frcnn':
+            shapes = (tuple(out['bbox_pred'].shape),
+                      tuple(out['cls_prob'].shape))
+            finite = all(torch.isfinite(out[k]).all()
+                         for k in ('bbox_pred', 'cls_prob', 'rois'))
+            if shapes != ((BATCH, config.test_post_nms, 8),
+                          (BATCH, config.test_post_nms, 2)) or not finite:
+                fail(f'frcnn eval outputs {shapes}, finite {finite}')
+        else:
+            dets, valid = out
+            if dets.shape != (BATCH, 100, 5) or not torch.isfinite(dets).all():
+                fail(f'{name} detections {tuple(dets.shape)} not finite '
+                     'or of the wrong shape')
+    del outs
+    diffs = compare_paths(model, config, query0, info0, forward_kw, predict0,
+                          label=name)
+    del pred, model, forward_kw
+    torch.cuda.empty_cache()
+    return launches, dict(req_ms=req_ms, peak_gib=peak, path_diffs=diffs)
+
+
+def all_class_gt(gt, seed):
+    """The episodes' gt with two more boxes of class 2 in the last two
+    slots: every class's gt, for Meta R-CNN's RPN targets."""
+    gen = torch.Generator(device=gt.device).manual_seed(seed + 4)
+    b = gt.shape[0]
+    h, w = QUERY_HW
+    wh = torch.rand(b, 2, 2, device=gt.device, generator=gen) \
+        * torch.tensor([300.0, 200.0], device=gt.device) + 64
+    xy = torch.rand(b, 2, 2, device=gt.device, generator=gen) \
+        * (torch.tensor([w, h], device=gt.device) - wh)
+    out = gt.clone()
+    out[:, -2:] = torch.cat([xy, xy + wh - 1,
+                             torch.full((b, 2, 1), 2.0, device=gt.device)],
+                            -1)
+    return out
+
+
+def framework_training(name, config, params, seed):
+    """FW_STEPS Trainer steps of `name` on seeded episodes (Meta R-CNN's
+    with every class's gt), then step 0 again on the plain versions.
+    -> (launches, summary)."""
+    from dana_tpu_torch.engine.train import LOSSES, Trainer
+    trainer = Trainer(params, config, seed=seed)        # device='cuda'
+    episodes = training_episodes(seed, FW_STEPS, trainer.device)
+    if name == 'meta':
+        for ep in episodes:
+            ep['all_gt_boxes'] = all_class_gt(ep['gt_boxes'], seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, step_ms, record = [], [], {}
+    for i, batch in enumerate(episodes):
+        t0 = time.perf_counter()
+        with recorded_step(record) if i == 0 else contextlib.nullcontext():
+            m = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads0 = head_grads(trainer.model)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {'cisa_shots': 3 * FW_STEPS if name == 'cisa' else 0,
+            'roi_align_fwd': 0, 'roi_align_pw': FW_STEPS,
+            'cisa_attention': 0}
+    if launches != want:
+        fail(f'{name} training launches {launches}, expected {want}')
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in (*LOSSES, 'loss')) \
+                or m['skipped'] != 0.0 or m['fg_cnt'] <= 0:
+            fail(f'{name} step: non-finite, skipped or no fg roi: {m}')
+    del trainer
+    torch.cuda.empty_cache()
+    diffs, worst = compare_step(params, config, seed, episodes[0], record,
+                                metrics[0], grads0, name)
+    return launches, dict(step_ms=step_ms, peak_gib=peak, metrics=metrics,
+                          loss_rel_diff=diffs, grad_rel_diff=worst)
+
+
+def frameworks_path(seed, card):
+    """Phase 8's serving and training paths of every framework; -> ({path:
+    launches}, {framework: summary})."""
+    from dana_tpu_torch.utils import config as cfg
+    by_path, summary = {}, {}
+    for name in FRAMEWORKS:
+        config, params = cfg.get_model(name, way=2, shot=3, seed=seed)
+        by_path[f'{name}_serving'], serving = framework_serving(
+            name, config, params, seed)
+        by_path[f'{name}_training'], training = framework_training(
+            name, config, params, seed)
+        summary[name] = dict(serving=serving, training=training)
+        print(f'{name} ({card}): serving {BATCH} x {QUERY_HW} uint8 queries, '
+              f'ms per request {serving["req_ms"]}, peak memory '
+              f'{serving["peak_gib"]:.2f} GiB; training {TRAIN_BATCH} '
+              f'episodes, ms per step {training["step_ms"]}, peak memory '
+              f'{training["peak_gib"]:.2f} GiB; launches '
+              f'{by_path[f"{name}_serving"]} serving, '
+              f'{by_path[f"{name}_training"]} training', flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return by_path, summary
+
+
+def meta_cli_path(seed, card):
+    """The two CLIs with --net meta: one epoch on synth_train, then that
+    checkpoint served over synth_test (both in the current
+    DANA_SYNTH_ROOT); -> ({path: launches}, summary)."""
+    from dana_tpu_torch import inference, train
+    from dana_tpu_torch.data.synth import synth_fsod
+    synth_fsod('test', num_images=20)
+    synth_fsod('train')
+    save_dir = os.path.join(os.path.dirname(os.environ['DANA_SYNTH_ROOT']),
+                            'run_meta')
+    argv = ['--dataset', 'synth', '--net', 'meta', '--way', '2', '--shot',
+            '3', '--seed', str(seed)]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    trained = train.main(argv + ['--bs', str(TRAIN_BATCH), '--epochs', '1',
+                                 '--nw', '8', '--dlog', '--disp_interval',
+                                 '5', '--save_dir', save_dir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    epoch = trained['epochs'][0]
+    want = {'cisa_shots': 0, 'roi_align_fwd': 0,
+            'roi_align_pw': epoch['steps'], 'cisa_attention': 0}
+    if train_launches != want:
+        fail(f'meta training CLI launches {train_launches}, expected {want}')
+    if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
+        fail(f'meta training CLI: {epoch["skipped"]} skipped steps, losses '
+             f'{epoch["loss_curve"]}')
+    steady = float(np.median(epoch['step_s'][2:]) * 1e3)
+    with tempfile.TemporaryDirectory() as out_dir:
+        zero_launches()
+        t0 = time.perf_counter()
+        result = inference.main(argv + ['--bs', str(BATCH), '--eval_dir',
+                                        out_dir, '--checkpath',
+                                        trained['checkpoint']])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    serve_launches = read_launches()
+    timing = result['timing']
+    want = {'cisa_shots': 0, 'roi_align_fwd': timing['chunks'],
+            'roi_align_pw': 0, 'cisa_attention': 0}
+    if serve_launches != want:
+        fail(f'meta dataset CLI launches {serve_launches}, expected {want}')
+    stats = [float(x) for x in result['stats']]
+    if len(stats) != 12 or not np.isfinite(stats).all():
+        fail(f'meta dataset CLI: COCOeval stats {stats}')
+    summary = dict(steps=epoch['steps'], eps_per_s=epoch['eps_per_s'],
+                   steady_step_ms=steady, train_s=train_s,
+                   wait_s=epoch['wait_s'], losses=epoch['losses'],
+                   img_per_s=timing['img_per_s'], timing=timing,
+                   serve_s=serve_s, stats=stats)
+    print(f'meta CLIs ({card}): training epoch 1 of synth_train, '
+          f'{epoch["steps"]} steps, {epoch["eps_per_s"]:.2f} eps/s, steady '
+          f'step {steady:.2f} ms, launches {train_launches}; dataset CLI '
+          f'over synth_test, {timing["img_per_s"]:.2f} img/s, launches '
+          f'{serve_launches}, timing {timing}, AP {stats[0]:.4f} (not '
+          'judged)', flush=True)
+    return {'meta_train_cli': train_launches,
+            'meta_cli': serve_launches}, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -1090,7 +1369,8 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)   # name, limit
+    card = smi.stdout.strip().splitlines()[0]                # name, limit
+    print(card, flush=True)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'device {torch.cuda.get_device_name(0)}, '
           f'count {torch.cuda.device_count()}', flush=True)
@@ -1135,9 +1415,14 @@ def main():
             args.seed, training['steady_step_ms'])
         torch.cuda.empty_cache()
         cli_launches, cli = cli_path(args.seed, ckpt)
+        torch.cuda.empty_cache()
+        # phase 8: the other frameworks, then the meta CLIs
+        fw_launches, frameworks = frameworks_path(args.seed, card)
+        meta_launches, meta_cli = meta_cli_path(args.seed, card)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
-               'cli': cli_launches, 'train_cli': train_cli_launches}
+               'cli': cli_launches, 'train_cli': train_cli_launches,
+               **fw_launches, **meta_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ('cisa_shots', 'roi_align_fwd', 'roi_align_pw',
                              'cisa_attention')}
@@ -1145,6 +1430,8 @@ def main():
                       'training_summary': training,
                       'cli_summary': cli,
                       'train_cli_summary': train_cli,
+                      'frameworks_summary': frameworks,
+                      'meta_cli_summary': meta_cli,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'kernel_sites': {'cisa_shots': k1_sites,

@@ -7,5 +7,8 @@ found by name, and keeps its tensor layout (NHWC images, features and
 supports) at every public function.  This package imports torch and
 numpy only.
 
-Entry point: `dana_tpu_torch.engine.predict.Predictor`.
+Entry points: `dana_tpu_torch.engine.predict.Predictor`,
+`dana_tpu_torch.engine.train.Trainer` and the two CLIs
+(`python -m dana_tpu_torch.inference`, `python -m dana_tpu_torch.train`),
+for DAnA and the frameworks of `models/frameworks.py`.
 """

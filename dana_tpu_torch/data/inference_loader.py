@@ -108,13 +108,15 @@ class InferenceLoader:
 
     `max_size` None scales by the shortest side alone, as the reference
     does (TPU.EXACT_QUERY_SCALE); `ship_uint8` emits raw uint8 canvases for
-    device-side mean subtraction (TPU.SHIP_UINT8).  Items carry no support
-    stack (the JAX loader's `support_ims`): the predictor encodes each
-    class's supports once, from `pool.get(target_cls)`."""
+    device-side mean subtraction (TPU.SHIP_UINT8).  Items carry their
+    class's support stack `support_ims` = `pool.get(target_cls)` [shot, S,
+    S, 3] only with `with_supports`, for the detectors that encode each
+    request's supports (the JAX loader's `skip_supports` False); DAnA and
+    cisa encode each class's supports once, from the pool."""
 
     def __init__(self, roidb, pool: SupportPool, pixel_means=PIXEL_MEANS,
                  max_num_box=20, buckets=blob.DEFAULT_BUCKETS, scale=600,
-                 max_size=None, ship_uint8=False):
+                 max_size=None, ship_uint8=False, with_supports=False):
         self.roidb = roidb
         self.pool = pool
         self.pixel_means = pixel_means
@@ -123,6 +125,7 @@ class InferenceLoader:
         self.scale = scale
         self.max_size = max_size
         self.ship_uint8 = ship_uint8
+        self.with_supports = with_supports
 
     def _query_blob(self, im):
         if self.ship_uint8:
@@ -153,8 +156,11 @@ class InferenceLoader:
         n = min(len(entry['boxes']), self.max_num_box)
         gt[:n, :4] = entry['boxes'][:n] * im_info[2]
         gt[:n, 4] = entry['gt_classes'][:n]
-        return {
+        item = {
             'im_data': im_data, 'im_info': im_info, 'gt_boxes': gt,
             'num_boxes': np.int32(n),
             'target_cls': np.int32(cls), 'index': np.int32(index),
         }
+        if self.with_supports:
+            item['support_ims'] = self.pool.get(cls)
+        return item

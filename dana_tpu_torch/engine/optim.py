@@ -19,8 +19,9 @@ import torch.nn as nn
 from dana_tpu_torch.utils import config as cfg
 
 # the heads that train in the finetune flow: the JAX package's
-# `finetune_mask` heads that DAnA has (it has no RCNN_cls_score)
-FINETUNE_HEADS = ('RCNN_bbox_pred', 'output_score_layer',
+# `finetune_mask` head keys (each detector has some of them: DAnA no
+# RCNN_cls_score, FSOD only RCNN_bbox_pred)
+FINETUNE_HEADS = ('RCNN_cls_score', 'RCNN_bbox_pred', 'output_score_layer',
                   'rcnn_transform_layer')
 
 
@@ -29,7 +30,9 @@ def freeze_fixed(model: nn.Module, fixed_blocks: int = cfg.FIXED_BLOCKS):
     layer1..layer{fixed_blocks}, which get requires_grad False: no
     gradient is recorded for them and their .grad stays None.  Every
     BatchNorm of the trunk is a frozen buffer already
-    (layers.FrozenBatchNorm2d).  -> the model."""
+    (layers.FrozenBatchNorm2d); a head's BatchNorm (FGN's) trains its
+    affine, and its running statistics are buffers, as the JAX package's
+    `trainable_mask` has them.  -> the model."""
     model.requires_grad_(True)
     model.backbone.conv1.requires_grad_(False)
     for i in range(1, fixed_blocks + 1):
@@ -40,7 +43,8 @@ def freeze_fixed(model: nn.Module, fixed_blocks: int = cfg.FIXED_BLOCKS):
 def freeze_to_heads(model: nn.Module):
     """The finetune flow's freeze (the JAX package's `finetune_mask`,
     reference FasterRCNN.finetune, faster_rcnn.py:192-204): only the
-    detection heads DAnA has keep requires_grad, where they had it.
+    detection heads (FINETUNE_HEADS) keep requires_grad, where they had
+    it.
     -> the model."""
     for name, child in model.named_children():
         if name not in FINETUNE_HEADS:

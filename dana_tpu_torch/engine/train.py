@@ -1,10 +1,13 @@
-"""The training entry point: one episodic SGD step of the DAnA detector
-(port of dana_tpu/engine/train.py `loss_fn` and `make_train_step`).
+"""The training entry point: one episodic SGD step of a detector, DAnA,
+cisa or a sibling of models/frameworks.py (port of
+dana_tpu/engine/train.py `loss_fn` and `make_train_step`).
 
 The step's loss is the sum of the four heads' losses; its gradient
 reaches every trainable parameter, never the frozen stem and layer1; a
 step whose loss or gradients are not finite changes neither the
-parameters nor the momentum and reports skipped = 1.
+parameters nor the momentum and reports skipped = 1.  FGN's head
+BatchNorms with config.bn_train update their running statistics in the
+forward, as the JAX step merges them after its update, skipped or not.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from torch.profiler import record_function
 
 from dana_tpu_torch.engine import optim
-from dana_tpu_torch.models import dana
+from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.utils import config as cfg
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import (from_jax_params, velocity_from_jax,
@@ -27,8 +30,9 @@ class Trainer:
     """Trainer(params, config, device='cuda', lr=..., seed=0, clip_norm=0.0,
     fixed_blocks=..., finetune=False, **sgd).
 
-    params: the JAX package's param tree (numpy leaves), or a DAnA module
-    (a checkpoint read by `utils.checkpoint.load_checkpoint`).  The device
+    params: the JAX package's param tree (numpy leaves) of
+    config.framework's detector, or its module (a checkpoint read by
+    `utils.checkpoint.load_checkpoint`).  The device
     defaults to the card and the constructor raises without CUDA unless
     device='cpu' is passed; float32 math runs without TF32
     (utils.device.use_full_f32).
@@ -92,7 +96,9 @@ class Trainer:
     def step(self, batch, draws=None):
         """One SGD step on `batch`: dict(im_data [B,H,W,3] uint8 or float,
         im_info [B,3], gt_boxes [B,G,5], support_ims [B, n_way*n_shot,
-        H, W, 3] float), numpy arrays or tensors.  `draws` (a dict keyed
+        H, W, 3] float (Faster R-CNN reads none), and for Meta R-CNN
+        all_gt_boxes [B,G',5], every class's gt, for its RPN targets), numpy
+        arrays or tensors.  `draws` (a dict keyed
         by rpn.DRAW_KEYS) replaces the generator's draws.  -> dict of
         0-dim tensors on the device: the four losses, loss, fg_cnt,
         bg_cnt and skipped (read on the host once, to decide the update)."""
@@ -100,10 +106,12 @@ class Trainer:
              for k, v in batch.items()}
         for p in self.params:
             p.grad = None
-        out = dana.forward(
+        sup, all_gt = b.get('support_ims'), b.get('all_gt_boxes')
+        out = frameworks.forward(
             self.model, self.config, b['im_data'], b['im_info'].float(),
-            support_ims=b['support_ims'].float(), training=True,
+            support_ims=None if sup is None else sup.float(), training=True,
             gt_boxes=b['gt_boxes'].float(),
+            all_gt_boxes=None if all_gt is None else all_gt.float(),
             draws=self.generator if draws is None else draws)
         total = sum(out[k] for k in LOSSES)
         with record_function('dana.backward'):

@@ -1,15 +1,18 @@
-"""Episodic evaluation of the DAnA detector on a COCO-format dataset, on the
-PyTorch port.
+"""Episodic evaluation of a few-shot detector on a COCO-format dataset, on
+the PyTorch port.
 
     python -m dana_tpu_torch.inference --dataset synth --way 2 --shot 3 \\
-        --bs 8 [--checkpath model.dkpt|model.pth] [--eval_dir DIR] \\
+        --bs 8 [--net DAnA|cisa|fsod|meta|fgn] \\
+        [--checkpath model.dkpt|model.pth] [--eval_dir DIR] \\
         [--device cpu] [--set KEY VALUE ...]
 
 The protocol of the repo's root `inference.py` (the JAX package's CLI),
 with the same flags: the roidb of the eval split; a fixed support pool per
 class (the directory pool `<DATA_DIR>/supports` when present, else seeded
 crops from the split named by a test -> train substitution, else, loudly,
-from the eval split itself), each class encoded once; the images grouped
+from the eval split itself), each class encoded once for DAnA and cisa,
+each chunk's stack of its images' class supports encoded with the chunk
+for FSOD, Meta R-CNN and FGN (as the JAX CLI does); the images grouped
 by query bucket into batches of --bs, the last item repeated to fill a
 batch; `Predictor.predict` with the detection postprocess;
 `detections.pkl` in the `all_boxes[class][image]` layout; and the numpy
@@ -22,8 +25,11 @@ and the loop keeps one chunk in flight, reading chunk i's detections back
 only after chunk i+1 has been handed to the card.
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, other networks, int8 serving and the space-to-depth stem
-are refused (utils/args.py).
+Multi-GPU flags, other backbones, int8 serving and the space-to-depth stem
+are refused (utils/args.py), and so is --net frcnn: Faster R-CNN's
+class-specific deltas [B, R, 8] meet the postprocess's 4 bbox stds, which
+the JAX package's postprocess cannot broadcast either, so the JAX CLI
+raises on it.
 """
 
 from __future__ import annotations
@@ -42,10 +48,10 @@ from dana_tpu_torch.data.blob import ImageCache
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.data.inference_loader import InferenceLoader, SupportPool
 from dana_tpu_torch.engine.predict import Predictor
-from dana_tpu_torch.models import dana
+from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
 from dana_tpu_torch.utils.args import load_cfg, parse_args
-from dana_tpu_torch.utils.config import dana_config, postprocess_kwargs
+from dana_tpu_torch.utils.config import NETS, dana_config, postprocess_kwargs
 from dana_tpu_torch.utils.device import resolve_device
 
 
@@ -93,6 +99,13 @@ def _support_pool(args, c, imdb_, roidb, cache):
 
 def main(argv=None):
     args = parse_args(argv)
+    if NETS[args.net] == 'frcnn':
+        raise SystemExit(
+            '--net frcnn: Faster R-CNN\'s class-specific deltas [B, R, 8] '
+            'meet the detection postprocess\'s 4 bbox stds, which the JAX '
+            'package\'s postprocess cannot broadcast either '
+            '(dana_tpu/engine/postprocess.py:38): its dataset CLI raises, so '
+            'there is no serving path to port')
     c = load_cfg(args)
     device = resolve_device(args.device)
 
@@ -101,15 +114,18 @@ def main(argv=None):
     num_images = len(roidb)
     print(f'{num_images} eval images')
 
-    config = dana_config(c, args.way, args.shot)
+    config = dana_config(c, args.way, args.shot, args.net)
     path = _checkpoint(args)
     if path:
         params, _ = ckpt_lib.load_checkpoint(path, config)
         print(f'loaded checkpoint {path}')
     else:
-        params = dana.init_params(config, seed=args.seed)
+        params = frameworks.init_params(config, seed=args.seed)
     pred = Predictor(params, config, device=device,
                      postprocess=postprocess_kwargs(c))
+    # the siblings encode each chunk's support stack with it
+    keys = ('im_data', 'im_info') if pred.caches_supports \
+        else ('im_data', 'im_info', 'support_ims')
 
     # several support crops may share an image; each query image is read
     # once, so the queries bypass the cache
@@ -121,7 +137,7 @@ def main(argv=None):
         max_num_box=c.MAX_NUM_GT_BOXES, buckets=c.TPU.SIZE_BUCKETS,
         scale=c.TEST.SCALES[0],
         max_size=None if c.TPU.EXACT_QUERY_SCALE else c.TEST.MAX_SIZE,
-        ship_uint8=c.TPU.SHIP_UINT8)
+        ship_uint8=c.TPU.SHIP_UINT8, with_supports='support_ims' in keys)
 
     eval_bs = max(1, args.batch_size)
     groups = {}
@@ -140,7 +156,7 @@ def main(argv=None):
         items = [loader[i] for i in chunk]
         items += [items[-1]] * (eval_bs - len(chunk))
         batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
-                 for k in ('im_data', 'im_info')}
+                 for k in keys}
         if pin:
             batch = {k: v.pin_memory() for k, v in batch.items()}
         classes = [int(it['target_cls']) for it in items]
@@ -155,7 +171,8 @@ def main(argv=None):
     # no floor of 2 threads: a one-core host gains nothing from a second
     workers = min(8, os.cpu_count() or 1)
     # each chunk in flight holds its batch on the host (~60 MB at bs 8,
-    # 608x1024, float32): a capped lookahead
+    # 608x1024, float32, and ~29.5 MB more with 3-shot supports): a capped
+    # lookahead
     lookahead = min(workers + 2, 8)
     timing = dict(assemble_s=0.0, wait_s=0.0, predict_s=0.0)
     n_done, in_flight = 0, None
@@ -173,11 +190,13 @@ def main(argv=None):
                     pending.append(ex.submit(assemble,
                                              chunks[ci + lookahead]))
                 t = time.perf_counter()
-                for cls in set(classes):
-                    if not pred.has_supports(cls):
-                        pred.encode_supports(cls, pool.get(cls))
-                dets, valid = pred.predict(batch['im_data'],
-                                           batch['im_info'], classes)
+                if pred.caches_supports:
+                    for cls in set(classes):
+                        if not pred.has_supports(cls):
+                            pred.encode_supports(cls, pool.get(cls))
+                dets, valid = pred.predict(
+                    batch['im_data'], batch['im_info'], classes,
+                    support_ims=batch.get('support_ims'))
                 if in_flight is not None:
                     flush(in_flight)
                 in_flight = (chunk, classes, dets, valid)

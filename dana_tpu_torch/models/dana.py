@@ -5,7 +5,11 @@ forward (port of dana_tpu/models/dana.py).
 modules (`backbone.layer1.0.conv1`, `rpn_adapt_q_layer`,
 `output_score_layer.linear1`, ...).  The functions mirror the JAX ones
 and take NHWC tensors: queries [B,H,W,3], support images [B,n,H,W,3],
-support features [B,n,h,w,1024].
+support features [B,n,h,w,1024].  `trunk` (the RPN, proposals, target
+layers and RoIAlign), `query_features`, `support_maps`, `roi_tail` and
+`rcnn_losses` are shared with the other frameworks (models/frameworks.py);
+`DanaConfig.framework` names the detector a config belongs to (`cisa` is
+DAnA without the BA block).
 
 Supports are 320 px: stride-16 features give 20x20 = 400 support tokens
 at the RPN site; RoIs and pooled supports give 7x7 = 49 tokens at the
@@ -33,6 +37,12 @@ from dana_tpu_torch.models.losses import (hard_mined_pair_ce,
                                           smooth_l1_loss)
 from dana_tpu_torch.ops.cisa_attention import cisa_attention_shots
 from dana_tpu_torch.ops.roi_align import roi_align, roi_align_train
+
+
+FRAMEWORKS = ('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn')
+# the detectors that encode each class's supports once and serve from
+# that cache; the others take each request's support images
+CACHED_SUPPORTS = ('DAnA', 'cisa')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +82,20 @@ class DanaConfig:
     bg_thresh_lo: float = 0.1
     bbox_normalize_means: tuple = (0.0, 0.0, 0.0, 0.0)
     bbox_normalize_stds: tuple = (0.1, 0.1, 0.2, 0.2)
+    # FGN's head BatchNorms normalise with batch statistics in training
+    # (cfg.TRAIN.BN_TRAIN)
+    bn_train: bool = False
+    # the detector these weights and this forward belong to: 'DAnA',
+    # 'cisa' (DAnA without the BA block), or a sibling of
+    # models/frameworks.py ('frcnn', 'fsod', 'meta', 'fgn')
+    framework: str = 'DAnA'
 
     def __post_init__(self):
         if self.arch not in resnet.ARCH_LAYERS:
             raise NotImplementedError(f'the port has no {self.arch} trunk')
+        if self.framework not in FRAMEWORKS:
+            raise ValueError(f'framework {self.framework!r} is not one of '
+                             f'{FRAMEWORKS}')
 
     @property
     def num_anchors(self):
@@ -137,11 +157,6 @@ def init_params(config: DanaConfig, seed: int = 0,
     def lin(cin, cout, std=0.01):
         return L.init_linear(rng, cin, cout, std=std)
 
-    def torch_default_lin(cin, cout):
-        bound = 1.0 / math.sqrt(cin)
-        return {'weight': rng.uniform(-bound, bound, (cin, cout)).astype(np.float32),
-                'bias': rng.uniform(-bound, bound, (cout,)).astype(np.float32)}
-
     if backbone_params is None:
         backbone_params = resnet.init_params(config.arch, seed=seed)
     p = {
@@ -154,11 +169,11 @@ def init_params(config: DanaConfig, seed: int = 0,
         'rcnn_adapt_k_layer': lin(d, config.rcnn_reduce_dim),
         'RCNN_rpn': rpn_lib.init_rpn_params(rng, config.rpn_din,
                                             config.num_anchors),
-        'rcnn_transform_layer': torch_default_lin(config.rpn_din, 64),
+        'rcnn_transform_layer': L.init_linear_uniform(rng, config.rpn_din, 64),
         'output_score_layer': {
-            'linear1': torch_default_lin(64 * config.pooling_size ** 2,
-                                         1024),
-            'linear2': torch_default_lin(1024, 2),
+            'linear1': L.init_linear_uniform(
+                rng, 64 * config.pooling_size ** 2, 1024),
+            'linear2': L.init_linear_uniform(rng, 1024, 2),
         },
         'RCNN_bbox_pred': lin(config.tail_dim, 4, std=0.001),
     }
@@ -207,14 +222,19 @@ def _support_tokens(feat, pe):
     return feat.reshape(b, s, h * w, c) + pe[:h * w]
 
 
-def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
-    """pooled_feat [B,R,7,7,1024], support_pooled [B,shot,7,7,1024] ->
-    (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2])."""
+def roi_tail(model, pooled_feat):
+    """layer4 and the spatial mean: [B,R,7,7,1024] -> [B,R,2048]."""
     b, r, ph, pw, c = pooled_feat.shape
     with record_function('dana.rcnn_head.layer4'):
         tail = resnet.top_forward(pooled_feat.reshape(b * r, ph, pw, c),
                                   model.backbone).mean(dim=(1, 2))
-    bbox_pred = model.RCNN_bbox_pred(tail.reshape(b, r, -1))
+    return tail.reshape(b, r, -1)
+
+
+def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
+    """pooled_feat [B,R,7,7,1024], support_pooled [B,shot,7,7,1024] ->
+    (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2])."""
+    bbox_pred = model.RCNN_bbox_pred(roi_tail(model, pooled_feat))
     return (bbox_pred, *rcnn_scores(model, config, pooled_feat,
                                      support_pooled))
 
@@ -241,18 +261,30 @@ def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
     return torch.softmax(cls_score, dim=-1), cls_score
 
 
-def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
-    """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,1024],
-    pooled [B,n,h-13,w-13,1024]): the trunk, then AvgPool2d(14, 1)."""
+def support_maps(model, support_ims):
+    """support_ims [B, n, H, W, 3] (H, W >= 224) -> the trunk's maps
+    [B, n, H/16, W/16, 1024]."""
     b, n, sh, sw, c = support_ims.shape
     if sh < 224 or sw < 224:
         raise ValueError(f'support images must be >= 224px (got {sh}x{sw}):'
                          ' the fixed AvgPool2d(14) needs a >= 14x14 map')
     feats = resnet.base_forward(
         support_ims.reshape(b * n, sh, sw, c).float(), model.backbone)
-    pooled = L.nchw_to_nhwc(L.avg_pool(L.nhwc_to_nchw(feats), 14, 1))
-    return (feats.reshape(b, n, *feats.shape[1:]),
-            pooled.reshape(b, n, *pooled.shape[1:]))
+    return feats.reshape(b, n, *feats.shape[1:])
+
+
+def pool14(x):
+    """AvgPool2d(14, 1) over an NHWC map [N, h, w, C]."""
+    return L.nchw_to_nhwc(L.avg_pool(L.nhwc_to_nchw(x), 14, 1))
+
+
+def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
+    """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,1024],
+    pooled [B,n,h-13,w-13,1024]): the trunk, then AvgPool2d(14, 1)."""
+    feats = support_maps(model, support_ims)
+    b, n = feats.shape[:2]
+    pooled = pool14(feats.reshape(b * n, *feats.shape[2:]))
+    return feats, pooled.reshape(b, n, *pooled.shape[1:])
 
 
 def rpn_attention(model: DAnA, config: DanaConfig, base_feat, support_feat):
@@ -276,6 +308,103 @@ def prep_query_images(config: DanaConfig, im_data):
                              device=im_data.device)
         return im_data.float() - means
     return im_data
+
+
+def query_features(model, config: DanaConfig, im_data):
+    """The queries' base features [B, H/16, W/16, 1024] (`dana.trunk`
+    range)."""
+    with record_function('dana.trunk'):
+        return resnet.base_forward(prep_query_images(config, im_data).float(),
+                                   model.backbone)
+
+
+def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
+          training=False, gt_boxes=None, draws=None, rpn_gt_boxes=None):
+    """The middle every detector shares (the JAX package's
+    `frameworks.trunk`): the RPN on the conditioned map `corr_feat`
+    [B,h',w',C'], its anchors on that map's grid, the proposals, at
+    training the target layers and the RPN losses, and the rois pooled
+    from `base_feat` [B,h,w,C] (K2 when serving, K3 in training).
+
+    Training takes gt_boxes [B,G,5] and the target layers' draws (a dict
+    keyed by `rpn.DRAW_KEYS`, or a torch.Generator to draw them from);
+    `rpn_gt_boxes` (Meta R-CNN's all-class gt) replaces gt_boxes for the
+    anchor targets only.  -> dict(rois, roi_mask, pooled [B,R,P,P,C]; at
+    training also rois_label, rois_target, rois_in_w, rois_out_w,
+    rpn_loss_cls, rpn_loss_box)."""
+    _, fh, fw, _ = corr_feat.shape
+    with record_function('dana.rpn_heads'):
+        logits, probs_fg, deltas = rpn_lib.rpn_forward(corr_feat,
+                                                       model.RCNN_rpn)
+
+    with record_function('dana.proposals'):
+        base_anchor = generate_anchors(ratios=config.anchor_ratios,
+                                       scales=np.array(config.anchor_scales))
+        anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
+                                  device=base_feat.device)
+        rois, _, roi_mask = rpn_lib.proposal_layer(
+            probs_fg.detach(), deltas.detach(), anchors, im_info.float(),
+            pre_nms_top_n=(config.train_pre_nms if training
+                           else config.test_pre_nms),
+            post_nms_top_n=(config.train_post_nms if training
+                            else config.test_post_nms),
+            nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
+
+    if not training:
+        with record_function('dana.roi_align'):
+            pooled = roi_align(base_feat, rois.contiguous(),
+                               config.pooling_size, 1.0 / config.feat_stride)
+        return dict(rois=rois, roi_mask=roi_mask, pooled=pooled)
+
+    with record_function('dana.targets'):
+        if isinstance(draws, torch.Generator):
+            draws = rpn_lib.uniform_draws(
+                draws, probs_fg.shape[0], probs_fg.shape[1],
+                rois.shape[1] + gt_boxes.shape[1], config.rois_per_image)
+        with torch.no_grad():
+            labels, at_targets, at_in_w, at_out_w = rpn_lib.anchor_target(
+                anchors, gt_boxes if rpn_gt_boxes is None else rpn_gt_boxes,
+                im_info, draws['anchor_fg'], draws['anchor_bg'],
+                batch_rois=config.rpn_batchsize,
+                fg_fraction=config.rpn_fg_fraction,
+                pos_overlap=config.rpn_pos_overlap,
+                neg_overlap=config.rpn_neg_overlap)
+            rois, rois_label, rois_target, rois_in_w, rois_out_w = \
+                rpn_lib.proposal_target(
+                    rois, gt_boxes, draws['roi_fg_rank'], draws['roi_fg'],
+                    draws['roi_bg'], rois_per_image=config.rois_per_image,
+                    fg_fraction=config.fg_fraction,
+                    fg_thresh=config.fg_thresh,
+                    bg_thresh_hi=config.bg_thresh_hi,
+                    bg_thresh_lo=config.bg_thresh_lo,
+                    bbox_normalize_means=config.bbox_normalize_means,
+                    bbox_normalize_stds=config.bbox_normalize_stds)
+
+    with record_function('dana.roi_align'):
+        pooled = roi_align_train(base_feat, rois, config.pooling_size,
+                                 1.0 / config.feat_stride)
+    with record_function('dana.losses'):
+        rpn_loss_cls = masked_cross_entropy(logits, labels, labels != -1)
+        rpn_loss_box = smooth_l1_loss(deltas, at_targets, at_in_w[..., None],
+                                      at_out_w[..., None], sigma=3.0)
+    return dict(rois=rois, roi_mask=roi_mask, pooled=pooled,
+                rois_label=rois_label, rois_target=rois_target,
+                rois_in_w=rois_in_w, rois_out_w=rois_out_w,
+                rpn_loss_cls=rpn_loss_cls, rpn_loss_box=rpn_loss_box)
+
+
+def rcnn_losses(out, bbox_pred, cls_score, neg_score):
+    """The episodic R-CNN losses every support-conditioned detector shares:
+    smooth L1 on the positive branch's boxes, flattened over all rois of
+    all images (the reference's default dim=[1] on [B*R, 4]), and the
+    hard-mined pair cross-entropy of the positive and negative scores."""
+    return dict(
+        rcnn_loss_bbox=smooth_l1_loss(
+            bbox_pred.reshape(-1, 4), out['rois_target'].reshape(-1, 4),
+            out['rois_in_w'].reshape(-1, 4), out['rois_out_w'].reshape(-1, 4),
+            sigma=1.0, reduce_dims=(1,)),
+        rcnn_loss_cls=hard_mined_pair_ce(cls_score, out['rois_label'],
+                                         neg_score))
 
 
 def forward(model: DAnA, config: DanaConfig, im_data, im_info,
@@ -312,11 +441,7 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
         raise ValueError('training needs n_way >= 2: a negative support way '
                          f'feeds the hard-mined loss (got n_way='
                          f'{config.n_way})')
-    with record_function('dana.trunk'):
-        im_data = prep_query_images(config, im_data).float()
-        base_feat = resnet.base_forward(im_data, model.backbone)
-    _, fh, fw, _ = base_feat.shape
-
+    base_feat = query_features(model, config, im_data)
     if support_feats is None:
         with record_function('dana.support_trunk'):
             support_feats = extract_support_feats(model, config, support_ims)
@@ -326,79 +451,24 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
 
     with record_function('dana.rpn_attention'):
         corr = rpn_attention(model, config, base_feat, pos_feat)
-    with record_function('dana.rpn_heads'):
-        logits, probs_fg, deltas = rpn_lib.rpn_forward(corr, model.RCNN_rpn)
+    out = trunk(model, config, base_feat, corr, im_info, training, gt_boxes,
+                draws)
 
-    with record_function('dana.proposals'):
-        base_anchor = generate_anchors(ratios=config.anchor_ratios,
-                                       scales=np.array(config.anchor_scales))
-        anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
-                                  device=base_feat.device)
-        rois, _, roi_mask = rpn_lib.proposal_layer(
-            probs_fg.detach(), deltas.detach(), anchors, im_info.float(),
-            pre_nms_top_n=(config.train_pre_nms if training
-                           else config.test_pre_nms),
-            post_nms_top_n=(config.train_post_nms if training
-                            else config.test_post_nms),
-            nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
-
-    if not training:
-        with record_function('dana.roi_align'):
-            pooled = roi_align(base_feat, rois.contiguous(),
-                               config.pooling_size, 1.0 / config.feat_stride)
-        with record_function('dana.rcnn_head'):
-            bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
-                                                       pos_pooled)
-        return dict(rois=rois, cls_prob=cls_prob, bbox_pred=bbox_pred,
-                    cls_score=cls_score, roi_mask=roi_mask)
-
-    with record_function('dana.targets'):
-        if isinstance(draws, torch.Generator):
-            draws = rpn_lib.uniform_draws(
-                draws, probs_fg.shape[0], probs_fg.shape[1],
-                rois.shape[1] + gt_boxes.shape[1], config.rois_per_image)
-        with torch.no_grad():
-            labels, at_targets, at_in_w, at_out_w = rpn_lib.anchor_target(
-                anchors, gt_boxes, im_info, draws['anchor_fg'],
-                draws['anchor_bg'], batch_rois=config.rpn_batchsize,
-                fg_fraction=config.rpn_fg_fraction,
-                pos_overlap=config.rpn_pos_overlap,
-                neg_overlap=config.rpn_neg_overlap)
-            rois, rois_label, rois_target, rois_in_w, rois_out_w = \
-                rpn_lib.proposal_target(
-                    rois, gt_boxes, draws['roi_fg_rank'], draws['roi_fg'],
-                    draws['roi_bg'], rois_per_image=config.rois_per_image,
-                    fg_fraction=config.fg_fraction,
-                    fg_thresh=config.fg_thresh,
-                    bg_thresh_hi=config.bg_thresh_hi,
-                    bg_thresh_lo=config.bg_thresh_lo,
-                    bbox_normalize_means=config.bbox_normalize_means,
-                    bbox_normalize_stds=config.bbox_normalize_stds)
-
-    with record_function('dana.roi_align'):
-        pooled = roi_align_train(base_feat, rois, config.pooling_size,
-                                 1.0 / config.feat_stride)
     with record_function('dana.rcnn_head'):
-        bbox_pred, cls_prob, cls_score = rcnn_head(model, config, pooled,
-                                                   pos_pooled)
+        bbox_pred, cls_prob, cls_score = rcnn_head(model, config,
+                                                   out['pooled'], pos_pooled)
+        if not training:
+            return dict(rois=out['rois'], cls_prob=cls_prob,
+                        bbox_pred=bbox_pred, cls_score=cls_score,
+                        roi_mask=out['roi_mask'])
         neg_pooled = sup_pooled[:, config.n_shot:
                                 config.n_way * config.n_shot]
-        _, neg_score = rcnn_scores(model, config, pooled, neg_pooled)
+        _, neg_score = rcnn_scores(model, config, out['pooled'], neg_pooled)
 
     with record_function('dana.losses'):
-        losses = dict(
-            rpn_loss_cls=masked_cross_entropy(logits, labels, labels != -1),
-            rpn_loss_box=smooth_l1_loss(deltas, at_targets,
-                                        at_in_w[..., None],
-                                        at_out_w[..., None], sigma=3.0),
-            # flattened over all rois of all images (the reference's
-            # default dim=[1] on [B*R, 4])
-            rcnn_loss_bbox=smooth_l1_loss(
-                bbox_pred.reshape(-1, 4), rois_target.reshape(-1, 4),
-                rois_in_w.reshape(-1, 4), rois_out_w.reshape(-1, 4),
-                sigma=1.0, reduce_dims=(1,)),
-            rcnn_loss_cls=hard_mined_pair_ce(cls_score, rois_label,
-                                             neg_score))
-    return dict(losses, rois=rois, rois_label=rois_label, cls_prob=cls_prob,
+        losses = rcnn_losses(out, bbox_pred, cls_score, neg_score)
+    return dict(losses, rpn_loss_cls=out['rpn_loss_cls'],
+                rpn_loss_box=out['rpn_loss_box'], rois=out['rois'],
+                rois_label=out['rois_label'], cls_prob=cls_prob,
                 bbox_pred=bbox_pred, cls_score=cls_score,
                 neg_cls_score=neg_score)

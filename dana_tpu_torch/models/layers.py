@@ -4,8 +4,9 @@ Convolutions, linears and activations are torch's own (nn.Conv2d,
 nn.Linear, F.relu; F.leaky_relu's default slope 0.01 is the JAX one).
 The trunk's modules work on NCHW tensors, which the public functions
 make from NHWC inputs with a permute (a channels_last view, so cuDNN
-keeps the NHWC memory order).  BatchNorm is always frozen: an affine
-transform with stored running statistics, as in the reference detector.
+keeps the NHWC memory order).  The trunk's BatchNorm is always frozen: an
+affine transform with stored running statistics, as in the reference
+detector; FGN's head has BatchNorms that train (`BatchNorm2d`).
 
 The numpy `init_*` helpers draw in the same order as the JAX package's,
 so one seed gives both packages the same weights.
@@ -36,6 +37,28 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x):
         return frozen_batchnorm(x, self.weight, self.bias, self.running_mean,
                                 self.running_var, self.eps)
+
+
+class BatchNorm2d(nn.Module):
+    """A head's BatchNorm2d over NCHW whose affine trains (FGN's bn1 and
+    bn2): weight and bias are parameters, the running statistics buffers.
+    forward(x, batch_stats): with batch statistics, which update the
+    running ones in place (momentum 0.1; the biased variance normalises,
+    the unbiased one enters the running variance, as torch's train-mode
+    BatchNorm2d does), else with the stored statistics."""
+
+    def __init__(self, c, eps=1e-5, momentum=0.1):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer('running_mean', torch.zeros(c))
+        self.register_buffer('running_var', torch.ones(c))
+
+    def forward(self, x, batch_stats=False):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=batch_stats,
+                            momentum=self.momentum, eps=self.eps)
 
 
 def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):
@@ -84,6 +107,15 @@ def init_bn(c):
             'bias': np.zeros((c,), np.float32),
             'running_mean': np.zeros((c,), np.float32),
             'running_var': np.ones((c,), np.float32)}
+
+
+def init_linear_uniform(rng: np.random.Generator, cin, cout):
+    """torch's default nn.Linear init: weight, then bias, uniform within
+    1 / sqrt(cin)."""
+    bound = 1.0 / math.sqrt(cin)
+    return {'weight': rng.uniform(-bound, bound, (cin, cout))
+            .astype(np.float32),
+            'bias': rng.uniform(-bound, bound, (cout,)).astype(np.float32)}
 
 
 def init_linear(rng: np.random.Generator, cin, cout, std=0.01, bias=True):

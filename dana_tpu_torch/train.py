@@ -1,8 +1,9 @@
-"""Episodic training of the DAnA detector on the PyTorch port.
+"""Episodic training of a few-shot detector on the PyTorch port.
 
     python -m dana_tpu_torch.train --dataset synth --way 2 --shot 3 \\
-        --bs 4 [--epochs 12] [--flip] [--fs --sup_dir DIR] \\
-        [--r --checkpath model.dkpt] [--device cpu] [--set KEY VALUE ...]
+        --bs 4 [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--epochs 12] \\
+        [--flip] [--fs --sup_dir DIR] [--r --checkpath model.dkpt] \\
+        [--device cpu] [--set KEY VALUE ...]
 
 The loop of the repo's root `train.py` (the JAX package's CLI), with the
 same flags: the roidb of the training split (doubled with flipped entries
@@ -13,8 +14,9 @@ card; SGD with the config tree's momentum, weight decay and bias rules
 (cfgs/res50.yml values); the lr times --lr_decay_gamma at every epoch
 divisible by --lr_decay_step + 1; loss lines every --disp_interval steps;
 a checkpoint `model_<epoch>_<steps - 1>.dkpt` after every epoch, in the
-JAX package's format; --r resume from --checkpath or --load_dir /
---checkepoch / --checkpoint (also found as `_preempt` or `.pth`),
+JAX package's format, with the detector's name in its 'extra'; --r
+resume from --checkpath or --load_dir / --checkepoch / --checkpoint
+(also found as `_preempt` or `.pth`),
 restoring the lr, the epoch, the momentum buffers and the target layers'
 generator.  --steps_per_call N runs its N steps one at a time: the same
 updates, draws and logging (the JAX package stages them only to save TPU
@@ -30,8 +32,12 @@ batcher starts at the resumed epoch's shuffle and the generator continues
 from its saved state (the JAX CLI replays epoch 1's shuffle and restarts
 its step keys).
 
+Every --net the port has trains: DAnA, cisa, and the siblings Faster
+R-CNN, FSOD, Meta R-CNN (whose batches carry every class's gt,
+`all_gt_boxes`, for its RPN targets) and FGN.
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, other networks, Orbax checkpoints and the space-to-depth
+Multi-GPU flags, other backbones, Orbax checkpoints and the space-to-depth
 stem are refused (utils/args.py).  `main` returns a summary: the last
 checkpoint, whether the run was preempted, and per epoch its steps,
 seconds, episodes per second, the seconds the loop waited for a batch,
@@ -52,13 +58,13 @@ from dana_tpu_torch.data.fs_loader import (EpisodicBatcher, FewShotLoader,
                                            FinetuneLoader, Prefetcher)
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.engine.train import Trainer
-from dana_tpu_torch.models import dana
+from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
 from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import dana_config
 from dana_tpu_torch.utils.device import resolve_device
 
-# what the trainer reads of a batch
+# what the trainer reads of a batch (Meta R-CNN also every class's gt)
 BATCH_KEYS = ('im_data', 'im_info', 'gt_boxes', 'support_ims')
 PROFILE_STEPS = (3, 8)
 
@@ -140,7 +146,7 @@ def resume_path(args):
 
 
 def restore(args, config):
-    """--r: the checkpoint `resume_path` names -> (DAnA module on the CPU,
+    """--r: the checkpoint `resume_path` names -> (the module on the CPU,
     lr, first epoch to train, momentum velocity tree or None, generator
     state or None)."""
     path = resume_path(args)
@@ -189,11 +195,11 @@ def setup(args):
         loader, args.batch_size, shuffle=True, seed=args.seed,
         num_workers=min(args.num_workers, os.cpu_count() or 1))
 
-    config = dana_config(c, args.way, args.shot)
+    config = dana_config(c, args.way, args.shot, args.net)
     if args.resume:
         params, lr, start_epoch, velocity, generator = restore(args, config)
     else:
-        params = dana.init_params(config, seed=args.seed)
+        params = frameworks.init_params(config, seed=args.seed)
         lr, start_epoch = args.lr, args.start_epoch
     trainer = make_trainer(args, c, config, params, lr, device)
     if args.resume:
@@ -215,6 +221,8 @@ def main(argv=None):
         logger = FSODLogger(os.path.join(args.save_dir, 'tb'),
                             pixel_means=c.PIXEL_MEANS)
 
+    keys = BATCH_KEYS + (('all_gt_boxes',)
+                         if trainer.config.framework == 'meta' else ())
     guard = PreemptionGuard().install()
     summary = dict(checkpoint=None, preempted=False, epochs=[])
     global_step, prof = 0, None
@@ -232,7 +240,7 @@ def main(argv=None):
                     if args.imlog:
                         last_raw.clear()
                         last_raw.update(b)
-                    yield {k: b[k] for k in BATCH_KEYS}
+                    yield {k: b[k] for k in keys}
             feed = Prefetcher(batches(), trainer.device)
             stream = iter(feed)
             steps, loss_acc, curve, skipped, step_s = 0, {}, [], 0, []
@@ -304,7 +312,8 @@ def main(argv=None):
             ckpt_lib.save_checkpoint(
                 path, trainer.model, state['velocity'], epoch=ckpt_epoch,
                 step=steps - 1, lr=trainer.lr, pooling_mode=c.POOLING_MODE,
-                extra={'generator': state['generator']})
+                extra={'generator': state['generator'],
+                       'framework': trainer.config.framework})
             eps = steps * args.batch_size / secs
             print(f'[epoch {epoch:2d}] saved {path} ({secs:.1f}s, {steps} '
                   f'iters, {eps:.2f} episodes/s, waited {feed.wait_s:.2f}s '

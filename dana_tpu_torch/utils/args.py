@@ -38,7 +38,8 @@ def parse_args(argv=None):
     a = p.add_argument
     a('--dataset', default='pascal_voc', type=str)
     a('--net', default='DAnA', type=str,
-      help='DAnA, or the backbone name res50 (DAnA on ResNet-50)')
+      help='DAnA, cisa (DAnA without the BA block), frcnn, fsod, meta, fgn, '
+           'or the backbone name res50 (DAnA on ResNet-50)')
     a('--backbone', default='res50', type=str)
     a('--flip', dest='use_flip', action='store_true', default=False)
     a('--o', dest='optimizer', default='sgd', type=str)
@@ -111,12 +112,15 @@ def _refuse_unported(args):
             or args.slices > 1:
         raise SystemExit('--mGPUs, --tp, --sp, --slices and --dist are not '
                          'ported yet (ROADMAP Queue A 8: multi-GPU)')
-    if args.net not in ('DAnA', 'res50') or args.backbone != 'res50':
+    if args.net not in config_lib.NETS or args.backbone != 'res50':
         raise SystemExit(f'--net {args.net} --backbone {args.backbone}: the '
-                         'port has DAnA on ResNet-50 only (ROADMAP Queue A 7)')
+                         f'port has {", ".join(config_lib.NETS)} on ResNet-50 '
+                         'only (ROADMAP Queue A 7: the ResNet-101/152 tables, '
+                         'then VGG16)')
     if args.large_scale:
         raise SystemExit('--ls selects the ResNet-101 config, which the port '
-                         'does not have (ROADMAP Queue A 7)')
+                         'does not have (ROADMAP Queue A 7: the '
+                         'ResNet-101/152 tables)')
     if args.ckpt_backend != 'pickle':
         raise SystemExit('--ckpt_backend orbax: the port reads and writes '
                          'the .dkpt pickle only')

@@ -13,7 +13,8 @@ the JAX package's (its `utils/checkpoint.py`).
     and nothing but numpy's array and dtype constructors is ever called.
 
 A checkpoint whose `pooling_mode` is not 'align' is refused: the port pools
-with RoIAlign only.
+with RoIAlign only; so is one whose `extra['framework']` (the port's writer
+records the detector there) names another detector than the config's.
 
 `save_checkpoint` writes the `.dkpt` pickle with plain dicts, floats, ints,
 strings and numpy arrays only, so that both the JAX package's
@@ -105,8 +106,9 @@ def read_pth(path):
 
 
 def load_checkpoint(path, config):
-    """`.pth` or `.dkpt` -> (DAnA module on the CPU, payload without its
-    'model' entry).  Refuses a pooling mode other than 'align'."""
+    """`.pth` or `.dkpt` -> (config.framework's module on the CPU, payload
+    without its 'model' entry).  Refuses a pooling mode other than 'align'
+    and a checkpoint that records another detector."""
     if path.endswith('.pth'):
         payload = read_pth(path)
         build = load_reference_state_dict
@@ -121,6 +123,10 @@ def load_checkpoint(path, config):
     if mode != 'align':
         raise ValueError(f'{path}: pooling_mode {mode!r}; the port pools '
                          'with RoIAlign only')
+    written = (payload.get('extra') or {}).get('framework')
+    if written not in (None, config.framework):
+        raise ValueError(f'{path}: a {written} checkpoint, not '
+                         f'{config.framework}')
     model = build(payload.pop('model'), config)
     return model, payload
 

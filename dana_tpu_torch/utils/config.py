@@ -13,11 +13,13 @@ Two layers:
 
 `postprocess_kwargs(tree)` is the detection postprocess policy.
 
-`dana_config(tree, way, shot)` builds the DAnA detector's config from a
-tree, as the root `utils.py model_config_kwargs` does: ResNet-50 trunk, BA
-block on, concat attention, RoIAlign pooling, float32 compute.
-`get_model('res50', way, shot)` mirrors the root `utils.get_model` on the
-default tree (9 anchors, before any `--ascale` preset).
+`dana_config(tree, way, shot, net)` builds a detector's config from a
+tree, as the root `utils.py model_config_kwargs` and `get_model` do:
+ResNet-50 trunk, RoIAlign pooling, float32 compute; for DAnA the BA block
+on and concat attention, for `cisa` the BA block off; `config.framework`
+names the detector.  `get_model(net, way, shot)` mirrors the root
+`utils.get_model` on the default tree (9 anchors, before any `--ascale`
+preset).
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ TRAIN_DOUBLE_BIAS = True
 TRAIN_BIAS_DECAY = False
 FIXED_BLOCKS = 1                  # conv1/bn1 and layer1 frozen (RESNET)
 
-_ARCHS = {'res50': 'resnet50'}
+# --net values -> the detector: a backbone name is DAnA on that backbone
+NETS = {'DAnA': 'DAnA', 'res50': 'DAnA', 'cisa': 'cisa', 'frcnn': 'frcnn',
+        'fsod': 'fsod', 'meta': 'meta', 'fgn': 'fgn'}
 
 
 class AttrDict(dict):
@@ -77,6 +81,7 @@ def default_cfg() -> AttrDict:
             'RPN_POST_NMS_TOP_N': 2000,
             'BBOX_NORMALIZE_MEANS': (0.0, 0.0, 0.0, 0.0),
             'BBOX_NORMALIZE_STDS': (0.1, 0.1, 0.2, 0.2),
+            'BN_TRAIN': False,
         },
         'TEST': {
             'SCALES': (600,),
@@ -165,18 +170,21 @@ def cfg_from_list(c: AttrDict, cfg_list) -> None:
         d[leaf] = value
 
 
-def dana_config(c: AttrDict, way: int, shot: int, name: str = 'res50'):
-    """The DAnA detector's DanaConfig from the tree `c` (root `utils.py`
-    `model_config_kwargs` for the fields the port has)."""
+def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA'):
+    """The config of the detector `net` (a key of NETS) on ResNet-50 from
+    the tree `c` (root `utils.py` `model_config_kwargs` and `get_model`
+    for the fields the port has)."""
     from dana_tpu_torch.models import dana
-    if name not in _ARCHS:
-        raise ValueError(f'network {name!r} is not part of the port '
-                         f'(have {sorted(_ARCHS)})')
+    if net not in NETS:
+        raise ValueError(f'network {net!r} is not part of the port '
+                         f'(have {sorted(NETS)})')
     if c.POOLING_MODE != 'align':
         raise ValueError(f'POOLING_MODE {c.POOLING_MODE!r}: the port pools '
                          'with RoIAlign only')
+    framework = NETS[net]
     return dana.DanaConfig(
-        n_way=way, n_shot=shot, arch=_ARCHS[name], semantic_enhance=True,
+        n_way=way, n_shot=shot, arch='resnet50', framework=framework,
+        semantic_enhance=framework == 'DAnA',
         anchor_scales=tuple(c.ANCHOR_SCALES),
         anchor_ratios=tuple(c.ANCHOR_RATIOS),
         pooling_size=c.POOLING_SIZE,
@@ -189,14 +197,17 @@ def dana_config(c: AttrDict, way: int, shot: int, name: str = 'res50'):
         rpn_batchsize=c.TRAIN.RPN_BATCHSIZE,
         bbox_normalize_means=tuple(c.TRAIN.BBOX_NORMALIZE_MEANS),
         bbox_normalize_stds=tuple(c.TRAIN.BBOX_NORMALIZE_STDS),
+        bn_train=c.TRAIN.BN_TRAIN,
         pixel_means=tuple(np.asarray(c.PIXEL_MEANS).ravel().tolist()))
 
 
 def get_model(name='res50', way=2, shot=3, seed=1996):
     """-> (DanaConfig, numpy param tree in the JAX layout), the `way`-way
-    `shot`-shot DAnA detector on the default tree with random weights from
-    `seed`.  The target-layer fields the tree does not set keep
-    DanaConfig's defaults, which are the JAX package's."""
-    from dana_tpu_torch.models import dana
+    `shot`-shot detector `name` (DAnA, res50, cisa, frcnn, fsod, meta or
+    fgn; `config.framework` names it) on the default tree with random
+    weights from `seed`, drawn as the JAX package draws them.  The
+    target-layer fields the tree does not set keep DanaConfig's defaults,
+    which are the JAX package's."""
+    from dana_tpu_torch.models import frameworks
     config = dana_config(default_cfg(), way, shot, name)
-    return config, dana.init_params(config, seed=seed)
+    return config, frameworks.init_params(config, seed=seed)

@@ -3,8 +3,9 @@
 `from_jax_params` takes the JAX package's param tree (nested dicts of
 numpy arrays: HWIO convs, [in, out] linears) and `load_reference_state_dict`
 a reference-format state dict (`RCNN_base.*`, `RCNN_top.*`, OIHW convs,
-[out, in] linears), as a released `.pth` holds it.  Both fill a `DAnA`
-module with a strict load, so every weight is consumed and none missing.
+[out, in] linears), as a released `.pth` holds it.  Both fill the module of
+`config.framework` (models/frameworks.py `build`) with a strict load, so
+every weight is consumed and none missing.
 `to_jax_params` turns a module back into the JAX param tree, and
 `velocity_to_jax` / `velocity_from_jax` carry SGD momentum buffers to and
 from the JAX package's velocity tree, in the same layout.
@@ -15,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dana_tpu_torch.models.dana import DAnA, DanaConfig
+from dana_tpu_torch.models.dana import DanaConfig
+from dana_tpu_torch.models.frameworks import build
 
 # reference module prefix -> the port's (and the JAX tree's) prefix
 _BASE_MAP = {
@@ -26,6 +28,10 @@ _BASE_MAP = {
     'RCNN_base.6': 'backbone.layer3',
     'RCNN_top.0': 'backbone.layer4',
 }
+# FGN's RCNN_cls_score takes the flattened [128, 3, 3] score map: the
+# reference flattens it in (c, h, w) order, the port (as the JAX package)
+# in (h, w, c) order
+_FGN_CLS_IN = (128, 3, 3)
 
 
 def _flatten(tree, prefix=''):
@@ -37,8 +43,8 @@ def _flatten(tree, prefix=''):
             yield name, v
 
 
-def _load(config: DanaConfig, state: dict) -> DAnA:
-    model = DAnA(config)
+def _load(config: DanaConfig, state: dict) -> torch.nn.Module:
+    model = build(config)
     model.load_state_dict(state, strict=True)
     return model.eval().requires_grad_(False)
 
@@ -76,20 +82,22 @@ def _unflatten(items) -> dict:
     return tree
 
 
-def from_jax_params(tree: dict, config: DanaConfig) -> DAnA:
-    """JAX param tree (numpy leaves) -> DAnA module on the CPU."""
+def from_jax_params(tree: dict, config: DanaConfig) -> torch.nn.Module:
+    """JAX param tree (numpy leaves) -> config.framework's module on the
+    CPU."""
     return _load(config, {name: _from_jax_layout(v)
                           for name, v in _flatten(tree)})
 
 
-def to_jax_params(model: DAnA) -> dict:
-    """DAnA module -> the JAX param tree (numpy float32 leaves, HWIO convs,
-    [in, out] linears), every parameter and buffer."""
+def to_jax_params(model: torch.nn.Module) -> dict:
+    """A detector module -> the JAX param tree (numpy float32 leaves, HWIO
+    convs, [in, out] linears), every parameter and buffer."""
     return _unflatten((name, _to_jax_layout(t))
                       for name, t in model.state_dict().items())
 
 
-def velocity_to_jax(model: DAnA, optimizer: torch.optim.Optimizer) -> dict:
+def velocity_to_jax(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> dict:
     """The SGD momentum buffers as the JAX package's velocity tree: the
     layout and every leaf of `to_jax_params`, zero where a parameter has no
     buffer (frozen, or before its first step) and for the buffers, as the
@@ -110,7 +118,7 @@ def velocity_to_jax(model: DAnA, optimizer: torch.optim.Optimizer) -> dict:
     return _unflatten(items)
 
 
-def velocity_from_jax(tree: dict, model: DAnA) -> dict:
+def velocity_from_jax(tree: dict, model: torch.nn.Module) -> dict:
     """A JAX velocity tree -> {parameter of `model`: its momentum, a CPU
     tensor in the parameter's layout}; the tree's leaves for buffers are
     not read.  The tree must hold every parameter."""
@@ -119,10 +127,13 @@ def velocity_from_jax(tree: dict, model: DAnA) -> dict:
             for name, p in model.named_parameters()}
 
 
-def load_reference_state_dict(sd: dict, config: DanaConfig) -> DAnA:
-    """Reference-format state dict (tensors or numpy arrays) -> DAnA
-    module on the CPU.  num_batches_tracked buffers and the positional
-    encoding tables (`pe*`) are skipped."""
+def load_reference_state_dict(sd: dict, config: DanaConfig
+                              ) -> torch.nn.Module:
+    """Reference-format state dict (tensors or numpy arrays) ->
+    config.framework's module on the CPU.  num_batches_tracked buffers and
+    the positional encoding tables (`pe*`) are skipped; FGN's
+    RCNN_cls_score weight is permuted from the reference's (c, h, w) input
+    order to the port's (h, w, c)."""
     state = {}
     for key, v in sd.items():
         if key.endswith('num_batches_tracked') or key.startswith('pe'):
@@ -131,6 +142,10 @@ def load_reference_state_dict(sd: dict, config: DanaConfig) -> DAnA:
             if key.startswith(src + '.'):
                 key = dst + key[len(src):]
                 break
-        state[key] = torch.as_tensor(np.asarray(v, np.float32))
+        v = np.asarray(v, np.float32)
+        if config.framework == 'fgn' and key == 'RCNN_cls_score.weight':
+            v = v.reshape(-1, *_FGN_CLS_IN).transpose(0, 2, 3, 1) \
+                .reshape(v.shape[0], -1)
+        state[key] = torch.from_numpy(np.ascontiguousarray(v))
     return _load(config, state)
 

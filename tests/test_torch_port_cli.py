@@ -3,8 +3,9 @@ JAX package's (`inference.py`) on the CPU.
 
 Both run `tests/test_inference_cli.py`'s shrunken BASE_ARGS (ResNet-50 at
 full width, 128 px queries, 12 anchors from the default `--ascale 4`) with
-`TPU.STEM_S2D False` over `synth_test`, written by the port's generator (PPM
-images, which cv2 reads too), from the same seed.  cv2 runs without IPP for
+`TPU.STEM_S2D False` over `synth_test`, with DAnA and with FSOD, written
+by the port's generator (PPM images, which cv2 reads too), from the same
+seed.  cv2 runs without IPP for
 the JAX run: IPP's float resize sits ~0.01 grey from cv2's own algorithm,
 which the port reproduces (tests/test_torch_port_data.py).
 
@@ -39,10 +40,11 @@ STATS_ATOL = 1e-3
 _SET = BASE_ARGS.index('--set')
 
 
-def _argv(out_dir, *flags):
-    return (BASE_ARGS[:_SET] + ['--bs', '4', '--eval_dir', str(out_dir),
-                                *flags]
-            + BASE_ARGS[_SET:] + ['TPU.STEM_S2D', 'False'])
+def _argv(out_dir, *flags, net='DAnA'):
+    base = list(BASE_ARGS)
+    base[base.index('--net') + 1] = net
+    return (base[:_SET] + ['--bs', '4', '--eval_dir', str(out_dir), *flags]
+            + base[_SET:] + ['TPU.STEM_S2D', 'False'])
 
 
 @pytest.fixture(scope='module')
@@ -57,17 +59,19 @@ def synth_root(tmp_path_factory):
     mp.undo()
 
 
-@pytest.fixture(scope='module')
-def jax_run(synth_root, tmp_path_factory):
+def _jax_cli(out, *flags, net='DAnA'):
     import inference as jax_cli
-    out = tmp_path_factory.mktemp('jax_eval')
     ipp = cv2.ipp.useIPP()
     cv2.ipp.setUseIPP(False)
     try:
-        result = jax_cli.main(_argv(out))
+        return out, jax_cli.main(_argv(out, *flags, net=net))
     finally:
         cv2.ipp.setUseIPP(ipp)
-    return out, result
+
+
+@pytest.fixture(scope='module')
+def jax_run(synth_root, tmp_path_factory):
+    return _jax_cli(tmp_path_factory.mktemp('jax_eval'))
 
 
 def _on_query_grid(src, dst):
@@ -107,6 +111,29 @@ def test_cli_matches_jax(jax_run, tmp_path):
     _check_against_jax(jax_run, tmp_path, result)
     t = result['timing']
     assert t['images'] == 20 and t['chunks'] == 5 and t['img_per_s'] > 0
+
+
+def test_cli_fsod_matches_jax(synth_root, tmp_path):
+    """--net fsod, each chunk's support stack encoded with it in both CLIs:
+    the same detections and COCOeval stats, serving the seed-5 weights
+    with the RPN conv scaled by 1e-2.  At random init FSOD correlates
+    un-normalised features (up to 1.9e4 here), so its RPN saturates: 41%
+    of a chunk's anchors score exactly 1.0 and which of those NMS keeps
+    follows the float32 last bits of each package (a kept proposal 127 px
+    apart in one chunk); scaled, the scores spread."""
+    from dana_tpu.utils import checkpoint as jckpt
+    c = targs.load_cfg(targs.parse_args(_argv(tmp_path, net='fsod')))
+    from dana_tpu_torch.models import frameworks
+    from dana_tpu_torch.utils.config import dana_config
+    params = frameworks.init_params(dana_config(c, 1, 1, 'fsod'), seed=5)
+    params['RCNN_rpn']['RPN_Conv']['weight'] *= np.float32(1e-2)
+    path = str(tmp_path / 'fsod.dkpt')
+    jckpt.save_checkpoint(path, params)
+    jax_run = _jax_cli(tmp_path / 'jax', '--checkpath', path, net='fsod')
+    result = port_cli.main(_argv(tmp_path / 'port', '--device', 'cpu',
+                                 '--checkpath', path, net='fsod'))
+    _check_against_jax(jax_run, tmp_path / 'port', result)
+    assert result['timing']['chunks'] == 5
 
 
 def _config():
@@ -152,11 +179,13 @@ def test_checkpoint_refuses_other_pooling(tmp_path):
 @pytest.mark.parametrize('flags, match', [
     (['--mGPUs'], 'Queue A 8'), (['--tp', '2'], 'Queue A 8'),
     (['--sp', '2'], 'Queue A 8'), (['--dist'], 'Queue A 8'),
-    (['--net', 'frcnn'], 'Queue A 7'), (['--backbone', 'res101'],
-                                        'Queue A 7'),
+    (['--net', 'frcnn'], 'postprocess'), (['--backbone', 'res101'],
+                                          'Queue A 7'),
     (['--ls'], 'Queue A 7'),
     (['--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 9'),
     (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
+    (['--net', 'vgg16'], 'Queue A 7'), (['--backbone', 'vgg16'],
+                                        'Queue A 7'),
 ])
 def test_cli_refuses_unported(tmp_path, flags, match):
     argv = ['--dataset', 'synth', '--eval_dir', str(tmp_path),

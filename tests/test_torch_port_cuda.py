@@ -235,3 +235,19 @@ def test_roi_align_train_grad_matches_plain_autograd(dev):
         grads.append(torch.autograd.grad(f(x, rois), x, cot)[0])
     torch.testing.assert_close(grads[0], grads[1], rtol=TOL, atol=TOL)
     assert ra.roi_align_pw.launches == before + 1
+
+
+@pytest.mark.parametrize('name', ['frcnn', 'fsod', 'meta', 'fgn', 'cisa'])
+def test_framework_paths_match_plain(dev, name):
+    """Each detector of models/frameworks.py, and cisa, at chip_smoke.py
+    phase 8's shapes: its serving requests (Faster R-CNN: its eval
+    forward) and training steps launch K2 once a request and K3 once a
+    step (K1 only for cisa), and request 0 and step 0 agree with the
+    plain versions on the kernel path's proposals and draws."""
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model(name, way=2, shot=3, seed=0)
+    serving, _ = chip_smoke.framework_serving(name, config, params, 0)
+    training, _ = chip_smoke.framework_training(name, config, params, 0)
+    assert serving['roi_align_fwd'] == chip_smoke.FW_REQUESTS
+    assert training['roi_align_pw'] == chip_smoke.FW_STEPS
+    assert (serving['cisa_shots'] > 0) == (name == 'cisa')

@@ -38,6 +38,7 @@ from dana_tpu_torch.data.fs_loader import (EpisodicBatcher, FewShotLoader,
                                            FinetuneLoader, Prefetcher)
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.models import dana as tdana
+from dana_tpu_torch.models import frameworks as tfw
 from dana_tpu_torch.utils import checkpoint as tckpt
 from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import dana_config
@@ -187,12 +188,12 @@ def test_batcher_refuses_process_slicing(roidbs):
 def _cli_config(tmp_path, *flags):
     args = parse_args(_train_argv(tmp_path, *flags))
     c = load_cfg(args)
-    return args, c, dana_config(c, args.way, args.shot)
+    return args, c, dana_config(c, args.way, args.shot, args.net)
 
 
 def _cli_trainer(tmp_path, *flags):
     args, c, config = _cli_config(tmp_path, *flags)
-    params = tdana.init_params(config, seed=args.seed)
+    params = tfw.init_params(config, seed=args.seed)
     return cli.make_trainer(args, c, config, params, args.lr, 'cpu'), params
 
 
@@ -206,19 +207,30 @@ def test_cli_sgd_settings_are_res50_yml(tmp_path):
     assert bias['lr'] == rest['lr'] == 1e-4
 
 
-def test_cli_finetune_trains_jax_heads(tmp_path):
+# the heads --fs trains, per --net (the JAX finetune_mask keys each has)
+FS_HEADS = {
+    'DAnA': {'RCNN_bbox_pred', 'output_score_layer', 'rcnn_transform_layer'},
+    'cisa': {'RCNN_bbox_pred', 'output_score_layer', 'rcnn_transform_layer'},
+    'frcnn': {'RCNN_bbox_pred', 'RCNN_cls_score'},
+    'fsod': {'RCNN_bbox_pred'},
+    'meta': {'RCNN_bbox_pred', 'RCNN_cls_score'},
+    'fgn': {'RCNN_bbox_pred', 'RCNN_cls_score'}}
+
+
+@pytest.mark.parametrize('net', list(FS_HEADS))
+def test_cli_finetune_trains_jax_heads(tmp_path, net):
     """--fs: the trainable set equals JAX's trainable_mask and
     finetune_mask, leaf for leaf."""
-    trainer, params = _cli_trainer(tmp_path, '--fs')
+    trainer, params = _cli_trainer(tmp_path, '--fs', '--net', net)
+    assert trainer.config.framework == net
     jp = jax.tree.map(np.asarray, params)
     mask = jax.tree.map(lambda a, b: a and b,
                         joptim.trainable_mask(jp, fixed_blocks=1),
                         joptim.finetune_mask(jp))
     want = {k for k, t in _leaves(mask) if t}
     got = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
-    assert got == want and len(got) >= 6
-    assert {n.split('.')[0] for n in got} == {
-        'RCNN_bbox_pred', 'output_score_layer', 'rcnn_transform_layer'}
+    assert got == want and len(got) >= 2
+    assert {n.split('.')[0] for n in got} == FS_HEADS[net]
 
 
 @pytest.mark.parametrize('step, gamma', [(1, 0.1), (3, 0.5), (1000, 0.1)])
@@ -347,6 +359,93 @@ def test_serving_the_checkpoint_matches_jax(runs, tmp_path):
     result = port_inference.main(_argv(out, '--device', 'cpu',
                                        '--checkpath', path))
     _check_against_jax((jout, jresult), out, result)
+
+
+@pytest.fixture(scope='module')
+def meta_runs(synth_root, tmp_path_factory):
+    """--net meta: --epochs 2 straight, recording the batches its trainer
+    steps on, and --epochs 1 then --r --epochs 2."""
+    from dana_tpu_torch.engine.train import Trainer
+    straight = tmp_path_factory.mktemp('meta_straight')
+    split = tmp_path_factory.mktemp('meta_split')
+    seen, real = [], Trainer.step
+
+    def step(self, batch, draws=None):
+        seen.append({k: np.array(v) for k, v in batch.items()})
+        return real(self, batch, draws)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(Trainer, 'step', step)
+    try:
+        s = cli.main(_train_argv(straight, '--net', 'meta', '--epochs', '2'))
+    finally:
+        mp.undo()
+    first = cli.main(_train_argv(split, '--net', 'meta', '--epochs', '1'))
+    resumed = cli.main(_train_argv(split, '--net', 'meta', '--epochs', '2',
+                                   '--r', '--checkpath', first['checkpoint']))
+    return s, resumed, seen
+
+
+def test_meta_batches_carry_jax_all_gt_boxes(meta_runs):
+    """Meta R-CNN's steps get the JAX batcher's every-class gt beside the
+    episode's gt, epoch 1 batch for batch."""
+    _, c, _ = _cli_config('run', '--net', 'meta')
+    jimdb, jroidb, _, _ = jcombined('synth_test', use_flipped=False)
+    jloader = JLoader(jroidb, jimdb.num_classes, num_way=2, num_shot=1,
+                      max_num_box=c.MAX_NUM_GT_BOXES, seed=3, buckets=BUCKETS,
+                      scale=128, max_size=None)
+    jbatcher = JBatcher(jloader, 2, seed=3)
+    jbatcher._epoch = 0
+    want = list(jbatcher)
+    seen = meta_runs[2][:len(want)]
+    assert len(want) == 2 and len(meta_runs[2]) == 4
+    for got, w in zip(seen, want):
+        assert set(got) == set(cli.BATCH_KEYS) | {'all_gt_boxes'}
+        np.testing.assert_array_equal(got['all_gt_boxes'], w['all_gt_boxes'])
+        np.testing.assert_array_equal(got['gt_boxes'], w['gt_boxes'])
+    assert any(not np.array_equal(g['all_gt_boxes'][..., :4],
+                                  g['gt_boxes'][..., :4]) for g in seen)
+
+
+def test_meta_resume_equals_straight(meta_runs):
+    straight, resumed, _ = meta_runs
+    assert straight['epochs'][1]['loss_curve'] == \
+        resumed['epochs'][0]['loss_curve']
+    a, b = _payload(straight['checkpoint']), _payload(resumed['checkpoint'])
+    la, lb = dict(_leaves(a['model'])), dict(_leaves(b['model']))
+    assert la.keys() == lb.keys()
+    for k in la:
+        np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+    assert all(e['skipped'] == 0 for e in straight['epochs'])
+
+
+def test_meta_checkpoint_loads_in_jax(meta_runs):
+    """The port's Meta R-CNN .dkpt is a JAX Meta R-CNN tree, with its
+    velocity for restore_optimizer and the detector's name; the port
+    refuses it as another detector's."""
+    from dana_tpu.models import frameworks as jfw
+    path = meta_runs[0]['checkpoint']
+    payload = jckpt.load_checkpoint(path)
+    params = payload['model']
+    assert payload['extra']['framework'] == 'meta'
+    _, want = jfw.get_model('meta', dict(n_way=2, n_shot=1), seed=0)
+    assert jax.tree.structure(params) == jax.tree.structure(want)
+    state = jtrain.restore_optimizer(
+        jtrain.create_train_state(params, payload['lr']),
+        payload['optimizer'])
+    assert jax.tree.structure(state.opt.velocity) == \
+        jax.tree.structure(params)
+    with pytest.raises(ValueError, match='a meta checkpoint'):
+        tckpt.load_checkpoint(path, _cli_config('run')[2])
+
+
+def test_serving_the_meta_checkpoint(meta_runs, tmp_path):
+    """The dataset CLI serves the trained Meta R-CNN with --net meta, each
+    chunk's support stack encoded with it."""
+    result = port_inference.main(_argv(
+        tmp_path, '--device', 'cpu', '--checkpath',
+        meta_runs[0]['checkpoint'], net='meta'))
+    assert len(result['stats']) == 12 and np.isfinite(result['stats']).all()
+    assert result['timing']['images'] == N_IMAGES
 
 
 class _AlwaysPreempted:

@@ -2,11 +2,14 @@
 """Where a serving request's time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_predict.py [--seed 0] [--iters 10]
+        [--net DAnA|cisa|frcnn|fsod|meta|fgn]
         [--trace .scratch/profile_torch_predict.trace.json]
 
 Builds the predictor that chip_smoke.py drives (DAnA ResNet-50 2-way
 3-shot, random weights from --seed, two classes' 320px supports encoded
-once) and sends requests of 8 uint8 608x1024 queries through
+once; with --net, the detector that chip_smoke.py phase 8 serves: the
+siblings with a request's 8 x 3 supports, frcnn through its eval
+forward) and sends requests of 8 uint8 608x1024 queries through
 `Predictor.predict`: --iters of them untraced for the wall time per
 request, then --iters under torch.profiler, whose trace is written to
 --trace (it opens in Perfetto).  The stages are the `dana.*`
@@ -147,10 +150,43 @@ def profile(run, iters, trace, card, unit='request'):
             'copy_bytes': copy_bytes(trace, iters)}
 
 
+def serving_call(chip_smoke, net, seed, query, info, classes):
+    """-> a function serving one request with the detector `net` as
+    chip_smoke.py does (frcnn, which has no serving path: its eval
+    forward)."""
+    if net == 'DAnA':
+        pred = chip_smoke.serving_predictor(seed)
+        return lambda: pred.predict(query, info, classes)
+    from dana_tpu_torch.engine.predict import Predictor
+    from dana_tpu_torch.models import frameworks
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model(net, way=2, shot=3, seed=seed)
+    sup = chip_smoke.support_stacks(seed, 1)[0]
+    if net == 'frcnn':
+        from dana_tpu_torch.utils.device import use_full_f32
+        from dana_tpu_torch.utils.weights import from_jax_params
+        use_full_f32()                  # as Predictor does on the card
+        model = from_jax_params(params, config).cuda()
+        q, i = (torch.as_tensor(x, device='cuda') for x in (query, info))
+
+        @torch.inference_mode()
+        def forward():
+            return frameworks.forward(model, config, q, i)
+        return forward
+    pred = Predictor(params, config)
+    if pred.caches_supports:
+        for cls in range(2):
+            pred.encode_supports(cls, sup[cls])
+        return lambda: pred.predict(query, info, classes)
+    return lambda: pred.predict(query, info, support_ims=sup)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--iters', type=int, default=10)
+    ap.add_argument('--net', default='DAnA',
+                    choices=('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn'))
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_predict.trace.json'))
     args = ap.parse_args()
@@ -159,11 +195,12 @@ def main():
     import chip_smoke
     from dana_tpu_torch.ops import build
     build.build_all()
-    pred = chip_smoke.serving_predictor(args.seed)
     query, info, classes = chip_smoke.serving_requests(args.seed, 1)[0]
+    serve = serving_call(chip_smoke, args.net, args.seed, query, info,
+                         classes)
 
     def request():
-        pred.predict(query, info, classes)
+        serve()
         torch.cuda.synchronize()
 
     print(json.dumps(profile(request, args.iters, args.trace, card)))
