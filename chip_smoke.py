@@ -24,7 +24,10 @@ Run from the repository root.  Phases, each of which fails the run:
      buckets' shapes (K1's RoI site has one shape at every bucket), and
      K2 against K3 on the same rois' axis weights at
      K2_TOL (the two share one pooling body and, since the plain weights
-     divide as the kernel does, their weights);
+     divide as the kernel does, their weights); K1's four sites, K2 and K3
+     are held and timed again on VGG16's 512 channels, and K1's serving
+     sites and training RPN site, K2 (1000 rois an image) and K3 on the
+     --ls canvas (LS_HW), which --ls gives both CLIs;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -91,13 +94,26 @@ Run from the repository root.  Phases, each of which fails the run:
      Then the two CLIs with --net meta: one epoch on synth_train, and its
      checkpoint served over synth_test (eps/s, img/s, the timing line and
      AP printed, AP not judged).  Each path's latency or step time and
-     peak memory are printed with the card's name and power limit.
+     peak memory are printed with the card's name and power limit;
+  9. the other trunks and pooling modes (SLICE9): the 2-way 3-shot DAnA
+     on ResNet-101 and on VGG16 serves REQUESTS requests and takes STEPS
+     steps, on ResNet-152 it serves, and on ResNet-50 with POOLING_MODE
+     pool and crop it does both, each as phases 4 and 5 drive the main
+     path (counters zeroed around each path: 2 K1 and 1 K2 a request, 3 K1
+     and 1 K3 a step in align mode, no K2 or K3 in pool and crop mode;
+     request 0 and step 0 against the plain versions; every trainable
+     parameter moved, VGG16's whole trunk included).  Then the two CLIs
+     (SLICE9_CLI): --backbone vgg16 --set POOLING_MODE pool trains one
+     epoch of synth_train, and the dataset CLI serves that checkpoint over
+     synth_test with no --set, pooling with RoIPool, the mode the
+     checkpoint records; --backbone res101 --ls does the same at 800 px.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -125,6 +141,11 @@ QUERY_HW = (608, 1024)        # first query canvas bucket
 # the other query canvases the loaders emit (TPU.SIZE_BUCKETS)
 OTHER_BUCKETS = ((1024, 608), (704, 704), (608, 1216), (1216, 608))
 SUPPORT_HW = 320
+# the --ls canvas: synth's 480x640 images at 800 px (800x1067), snapped up
+# to a multiple of 64; 1000 proposals an image (cfgs/res101_ls.yml)
+LS_HW = (832, 1088)
+LS_POST_NMS = 1000
+VGG_C = 512                   # VGG16's base channels
 BATCH = 8                     # queries per request
 REQUESTS = 3
 TRAIN_BATCH = 4               # episodes per training step
@@ -225,16 +246,27 @@ def check_cisa(dev, gen):
     library = cisa_library
 
     fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    lh, lw = (s // cfg.FEAT_STRIDE for s in LS_HW)
     ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
     bins = cfg.POOLING_SIZE ** 2
+    r_test, r_train = cfg.TEST_RPN_POST_NMS_TOP_N, cfg.TRAIN_BATCH_SIZE
     # (G, S, Nq, Ns, D, C): the two serving-path sites of a request, the
-    # training step's (its RoI site runs twice), then edge shapes
+    # training step's (its RoI site runs twice), the same on VGG16's 512
+    # channels, the serving sites and the training RPN site on the --ls
+    # canvas (the training RoI site's shape does not depend on the
+    # canvas), then edge shapes
     cases = {'rpn': (BATCH, 3, fh * fw, ns_rpn, 256, 1024),
-             'roi': (BATCH, 3, cfg.TEST_RPN_POST_NMS_TOP_N * bins, bins, 256,
-                     1024),
+             'roi': (BATCH, 3, r_test * bins, bins, 256, 1024),
              'train_rpn': (TRAIN_BATCH, 3, fh * fw, ns_rpn, 256, 1024),
-             'train_roi': (TRAIN_BATCH, 3, cfg.TRAIN_BATCH_SIZE * bins, bins,
-                           256, 1024),
+             'train_roi': (TRAIN_BATCH, 3, r_train * bins, bins, 256, 1024),
+             'rpn_c512': (BATCH, 3, fh * fw, ns_rpn, 256, VGG_C),
+             'roi_c512': (BATCH, 3, r_test * bins, bins, 256, VGG_C),
+             'train_rpn_c512': (TRAIN_BATCH, 3, fh * fw, ns_rpn, 256, VGG_C),
+             'train_roi_c512': (TRAIN_BATCH, 3, r_train * bins, bins, 256,
+                                VGG_C),
+             'rpn_ls': (BATCH, 3, lh * lw, ns_rpn, 256, 1024),
+             'roi_ls': (BATCH, 3, LS_POST_NMS * bins, bins, 256, 1024),
+             'train_rpn_ls': (TRAIN_BATCH, 3, lh * lw, ns_rpn, 256, 1024),
              'ns1': (2, 3, 1000, 1, 256, 1024),
              'ragged': (3, 2, 77, 57, 256, 1100)}
     err, sites = 0.0, {}
@@ -250,7 +282,7 @@ def check_cisa(dev, gen):
                                cisa_attention_shots(*args), want)
         err = max(err, case_err)
         lib_err = (library(*args) - want).abs().max().item()
-        if name in ('rpn', 'roi', 'train_rpn', 'train_roi'):
+        if name not in ('ns1', 'ragged'):
             nbytes = 4 * (q.numel() + k.numel() + v.numel() + u.numel()
                           + g * nq * c)
             flops = 2 * g * s * nq * ns * (d + c)
@@ -331,21 +363,23 @@ def serving_rois(b, r, gen, dev, hw=None):
                      -1).contiguous()
 
 
-def check_roi_align(dev, gen):
+def check_roi_align(dev, gen, c=1024, hw=QUERY_HW, r=None, label=''):
+    """K2 at the serving shapes: BATCH maps of the query bucket `hw` with
+    `c` channels and `r` rois an image (default the test proposals)."""
     from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
                                               roi_align_pw, roi_weights)
     from dana_tpu_torch.utils import config as cfg
-    b, r, c = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, 1024
+    b, r = BATCH, r or cfg.TEST_RPN_POST_NMS_TOP_N
     p = cfg.POOLING_SIZE
-    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    fh, fw = (s // cfg.FEAT_STRIDE for s in hw)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
-    rois = serving_rois(b, r, gen, dev)
+    rois = serving_rois(b, r, gen, dev, hw)
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
     got = roi_align(feat, rois, p, 1 / 16.0)
-    err = check_close('roi_align_fwd', got, want, K2_TOL)
+    err = check_close(f'roi_align_fwd{label}', got, want, K2_TOL)
     weights = roi_weights(rois, fh, fw, p, 1 / 16.0)
-    c3_err = check_close('roi_align_fwd against roi_align_pw on its rois\' '
-                         'weights', got, roi_align_pw(feat, *weights),
+    c3_err = check_close(f'roi_align_fwd{label} against roi_align_pw on its '
+                         "rois' weights", got, roi_align_pw(feat, *weights),
                          K2_TOL)
     nbytes = 4 * (feat.numel() + rois.numel() + want.numel())
     flops, gather = roi_taps(*weights, c)
@@ -360,9 +394,9 @@ def check_roi_align(dev, gen):
     site['bin_gather_bytes'] = 16 * c * p * p * (counts[..., 0]
                                                  * counts[..., 1]).sum().item()
     site['max_abs_err_vs_roi_align_pw'] = c3_err
-    print(f'roi_align_fwd feat={tuple(feat.shape)} rois={tuple(rois.shape)}:'
-          f' max|kernel-plain| {err:.3e}, max|K2-K3 on its weights| '
-          f'{c3_err:.3e}, {site}', flush=True)
+    print(f'roi_align_fwd{label} feat={tuple(feat.shape)} '
+          f'rois={tuple(rois.shape)}: max|kernel-plain| {err:.3e}, '
+          f'max|K2-K3 on its weights| {c3_err:.3e}, {site}', flush=True)
     return err, site
 
 
@@ -467,22 +501,24 @@ def pw_library(wy, feat, wx):
     return torch.einsum('brph,bhwc,brqw->brpqc', wy, feat, wx)
 
 
-def check_roi_align_pw(dev, gen):
+def check_roi_align_pw(dev, gen, c=1024, hw=QUERY_HW, label=''):
     """K3: RoIAlign from precomputed axis weights, at the training step's
-    shapes (TRAIN_BATCH images, 128 sampled rois, edge cases first)."""
+    shapes (TRAIN_BATCH images of the canvas `hw`, 128 sampled rois, edge
+    cases first) on maps of `c` channels."""
     from dana_tpu_torch.ops.roi_align import (roi_align_pw,
                                               roi_align_pw_plain,
                                               roi_weights)
     from dana_tpu_torch.utils import config as cfg
-    b, r, c, p = TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE, 1024, cfg.POOLING_SIZE
-    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    b, r, p = TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE, cfg.POOLING_SIZE
+    fh, fw = (s // cfg.FEAT_STRIDE for s in hw)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen)
-    rois = serving_rois(b, r, gen, dev)
+    rois = serving_rois(b, r, gen, dev, hw)
     wy, wx = roi_weights(rois, fh, fw, p, 1 / cfg.FEAT_STRIDE)
     wy_cut, wx_cut = roi_weights(without_whole_map(rois), fh, fw, p,
                                  1 / cfg.FEAT_STRIDE)
     want = roi_align_pw_plain(feat, wy, wx)
-    err = check_close('roi_align_pw', roi_align_pw(feat, wy, wx), want)
+    err = check_close(f'roi_align_pw{label}', roi_align_pw(feat, wy, wx),
+                      want)
     lib_err = (pw_library(wy, feat, wx) - want).abs().max().item()
     nbytes = 4 * (feat.numel() + wy.numel() + wx.numel() + want.numel())
     flops, gather = roi_taps(wy, wx, c)
@@ -491,9 +527,9 @@ def check_roi_align_pw(dev, gen):
                     gather, lambda: roi_align_pw(feat, wy_cut, wx_cut),
                     library=lambda: pw_library(wy, feat, wx))
     site['dense_flops'] = 2 * c * b * r * p * (fh * fw + p * fw)
-    print(f'roi_align_pw feat={tuple(feat.shape)} wy={tuple(wy.shape)} '
-          f'wx={tuple(wx.shape)}: max|kernel-plain| {err:.3e}, '
-          f'max|library-plain| {lib_err:.3e}, {site}', flush=True)
+    print(f'roi_align_pw{label} feat={tuple(feat.shape)} '
+          f'wy={tuple(wy.shape)} wx={tuple(wx.shape)}: max|kernel-plain| '
+          f'{err:.3e}, max|library-plain| {lib_err:.3e}, {site}', flush=True)
     return err, site
 
 
@@ -657,12 +693,14 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     return diffs
 
 
-def serving_predictor(seed):
-    """The served detector: DAnA res50 2-way 3-shot with random weights
-    from `seed`, on the card, the supports of classes 0 and 1 encoded."""
+def serving_predictor(seed, model=None):
+    """The served detector: `model`, a (config, params) pair, by default
+    DAnA res50 2-way 3-shot with random weights from `seed`, on the card,
+    the supports of classes 0 and 1 encoded."""
     from dana_tpu_torch.engine.predict import Predictor
     from dana_tpu_torch.utils import config as cfg
-    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    config, params = model or cfg.get_model('res50', way=2, shot=3,
+                                            seed=seed)
     rng = np.random.default_rng(seed)
     pred = Predictor(params, config)              # device='cuda'
     means = np.asarray(cfg.PIXEL_MEANS, np.float32)
@@ -681,10 +719,27 @@ def serving_requests(seed, n):
              info, [(i + j) % 2 for j in range(BATCH)]) for i in range(n)]
 
 
-def serving_path(seed):
+def want_launches(config, n, training):
+    """The kernel launches of n requests (or training steps) of `config`:
+    K1 at the two attention sites of DAnA and cisa (three in training: the
+    RoI site again for the negative supports), RoIAlign once in align mode
+    (K2 serving, K3 training), the single-group CISA never."""
+    from dana_tpu_torch.models.dana import CACHED_SUPPORTS
+    align = n if config.pooling_mode == 'align' else 0
+    sites = (3 if training else 2) \
+        if config.framework in CACHED_SUPPORTS else 0
+    return {'cisa_shots': sites * n,
+            'roi_align_fwd': 0 if training else align,
+            'roi_align_pw': align if training else 0, 'cisa_attention': 0}
+
+
+def serving_path(seed, model=None, label='main path'):
+    """REQUESTS requests of `model` (serving_predictor's default: the main
+    path), then request 0 again on the plain versions; -> (launches,
+    summary)."""
     from dana_tpu_torch.ops import nms
 
-    pred = serving_predictor(seed)
+    pred = serving_predictor(seed, model)
     requests = serving_requests(seed, REQUESTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -701,13 +756,12 @@ def serving_path(seed):
     launches = read_launches()
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'main path: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
+    print(f'{label}: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
-    want = {'cisa_shots': 2 * REQUESTS, 'roi_align_fwd': REQUESTS,
-            'roi_align_pw': 0, 'cisa_attention': 0}   # no single-group site
+    want = want_launches(pred.config, REQUESTS, training=False)
     if launches != want:
-        fail(f'main path launches {launches}, expected {want}')
+        fail(f'{label} launches {launches}, expected {want}')
 
     for dets, valid in outs:
         if dets.shape != (BATCH, 100, 5) or valid.shape != (BATCH, 100):
@@ -717,11 +771,12 @@ def serving_path(seed):
     n_det = [int(v.sum()) for _, v in outs]
 
     query, info, classes = requests[0]
-    compare_paths(pred.model, pred.config, query, info,
-                  dict(support_feats=pred.batch_support_feats(classes)),
-                  lambda: pred.predict(query, info, classes))
+    diffs = compare_paths(
+        pred.model, pred.config, query, info,
+        dict(support_feats=pred.batch_support_feats(classes)),
+        lambda: pred.predict(query, info, classes), label=label)
     return launches, dict(req_ms=req_ms, peak_gib=peak, nms_syncs=syncs,
-                          detections=n_det)
+                          detections=n_det, path_diffs=diffs)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -825,13 +880,15 @@ def compare_step(params, config, seed, batch, record, metrics, grads,
     return diffs, worst
 
 
-def training_path(seed):
-    """STEPS SGD steps of the Trainer, then step 0 again on the plain
+def training_path(seed, model=None, label='main path'):
+    """STEPS SGD steps of the Trainer on `model`, a (config, params) pair
+    (by default the main path's detector), then step 0 again on the plain
     versions; -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
     from dana_tpu_torch.utils import config as cfg
 
-    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    config, params = model or cfg.get_model('res50', way=2, shot=3,
+                                            seed=seed)
     trainer = Trainer(params, config, seed=seed)        # device='cuda'
     episodes = training_episodes(seed, STEPS, trainer.device)
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
@@ -851,34 +908,42 @@ def training_path(seed):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'training path: {STEPS} steps of {TRAIN_BATCH} x {QUERY_HW} '
+    print(f'{label} training: {STEPS} steps of {TRAIN_BATCH} x {QUERY_HW} '
           f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
           f'GiB, launches {launches}, metrics {metrics}', flush=True)
-    want = {'cisa_shots': 3 * STEPS, 'roi_align_fwd': 0,
-            'roi_align_pw': STEPS, 'cisa_attention': 0}
+    want = want_launches(config, STEPS, training=True)
     if launches != want:
-        fail(f'training path launches {launches}, expected {want}')
+        fail(f'{label} training launches {launches}, expected {want}')
     for m in metrics:
         if not all(np.isfinite(m[k]) for k in (*LOSSES, 'loss')):
-            fail(f'non-finite training loss: {m}')
+            fail(f'{label}: non-finite training loss: {m}')
         if m['skipped'] != 0.0 or m['fg_cnt'] <= 0:
-            fail(f'a step was skipped or sampled no fg roi: {m}')
+            fail(f'{label}: a step was skipped or sampled no fg roi: {m}')
     end = trainer.model.state_dict()
     trainable = {n for n, p in trainer.model.named_parameters()
                  if p.requires_grad}
     still = {n for n in trainable if torch.equal(end[n], start[n])}
     if not still <= NO_GRAD:
-        fail(f'trainable parameters did not move: {sorted(still - NO_GRAD)}')
+        fail(f'{label}: trainable parameters did not move: '
+             f'{sorted(still - NO_GRAD)}')
     moved = [n for n in start
              if n not in trainable and not torch.equal(end[n], start[n])]
-    if moved or len(start) == len(trainable):
-        fail(f'frozen parameters and buffers moved: {moved}')
+    # the JAX package's trainable_mask fixes a trunk's stem and layer1
+    # (cfg.FIXED_BLOCKS), which a VGG16 trunk does not have: it trains whole
+    fixed = ('backbone.conv1.', *(f'backbone.layer{i}.'
+                                  for i in range(1, cfg.FIXED_BLOCKS + 1)))
+    want = {n for n, _ in trainer.model.named_parameters()
+            if not n.startswith(fixed)}
+    if moved or trainable != want:
+        fail(f'{label}: frozen parameters and buffers moved ({moved}), or '
+             f'the trainable set differs from trainable_mask\'s by '
+             f'{sorted(trainable ^ want)}')
     del trainer, start, end
     torch.cuda.empty_cache()
 
     # step 0 on the plain versions: same weights, draws and proposals
     diffs, worst = compare_step(params, config, seed, episodes[0], record,
-                                metrics[0], grads0, 'main path')
+                                metrics[0], grads0, label)
     return launches, dict(step_ms=step_ms,
                           steady_step_ms=float(np.mean(step_ms[1:])),
                           peak_gib=peak, metrics=metrics,
@@ -1171,9 +1236,7 @@ def framework_serving(name, config, params, seed):
         req_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {'cisa_shots': 2 * FW_REQUESTS if name == 'cisa' else 0,
-            'roi_align_fwd': FW_REQUESTS, 'roi_align_pw': 0,
-            'cisa_attention': 0}
+    want = want_launches(config, FW_REQUESTS, training=False)
     if launches != want:
         fail(f'{name} serving launches {launches}, expected {want}')
     for out in outs:
@@ -1240,9 +1303,7 @@ def framework_training(name, config, params, seed):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {'cisa_shots': 3 * FW_STEPS if name == 'cisa' else 0,
-            'roi_align_fwd': 0, 'roi_align_pw': FW_STEPS,
-            'cisa_attention': 0}
+    want = want_launches(config, FW_STEPS, training=True)
     if launches != want:
         fail(f'{name} training launches {launches}, expected {want}')
     for m in metrics:
@@ -1343,6 +1404,159 @@ def meta_cli_path(seed, card):
             'meta_cli': serve_launches}, summary
 
 
+# ---------------------------------------------------------------- phase 9
+
+# (label, get_model's name, DanaConfig fields replaced, whether it trains)
+SLICE9 = (('res101', 'res101', {}, True), ('vgg16', 'vgg16', {}, True),
+          ('res152', 'res50', {'arch': 'resnet152'}, False),
+          ('pool', 'res50', {'pooling_mode': 'pool'}, True),
+          ('crop', 'res50', {'pooling_mode': 'crop'}, True))
+
+
+def slice9_model(name, fields, seed):
+    """-> (config, params): get_model's 2-way 3-shot DAnA `name` with
+    `fields` replaced; a replaced trunk gets its own random weights from
+    `seed`."""
+    from dana_tpu_torch.models import frameworks
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model(name, way=2, shot=3, seed=seed)
+    config = dataclasses.replace(config, **fields)
+    if 'arch' in fields:
+        params = frameworks.init_params(config, seed=seed)
+    return config, params
+
+
+def slice9_path(seed, card):
+    """Phase 9's serving (and training) paths of each SLICE9 case, as
+    phases 4 and 5 drive the main path; -> ({path: launches}, {case:
+    summary})."""
+    by_path, summary = {}, {}
+    for label, name, fields, trains in SLICE9:
+        model = slice9_model(name, fields, seed)
+        config = model[0]
+        by_path[f'{label}_serving'], serving = serving_path(seed, model,
+                                                            label)
+        torch.cuda.empty_cache()
+        summary[label] = dict(arch=config.arch,
+                              pooling_mode=config.pooling_mode,
+                              serving=serving)
+        line = (f'{label} ({card}; {config.arch}, {config.pooling_mode}): '
+                f'ms per request {serving["req_ms"]}, peak memory '
+                f'{serving["peak_gib"]:.2f} GiB')
+        if trains:
+            by_path[f'{label}_training'], training = training_path(
+                seed, model, label)
+            torch.cuda.empty_cache()
+            summary[label]['training'] = training
+            line += (f'; ms per step {training["step_ms"]}, peak memory '
+                     f'{training["peak_gib"]:.2f} GiB')
+        print(line, flush=True)
+        del model
+    return by_path, summary
+
+
+@contextlib.contextmanager
+def call_count(module, name):
+    """Count the calls of `module.name` in the yielded list's one entry."""
+    real, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+# label -> (flags of both CLIs, the training CLI's --set, pooling mode)
+SLICE9_CLI = {
+    'vgg16_pool': (['--backbone', 'vgg16'], ['--set', 'POOLING_MODE', 'pool'],
+                   'pool'),
+    'res101_ls': (['--backbone', 'res101', '--ls'], [], 'align'),
+}
+
+
+def slice9_cli_path(seed, card):
+    """The two CLIs on the new trunks (synth sets in the current
+    DANA_SYNTH_ROOT): for each SLICE9_CLI run, one training epoch of
+    synth_train, then its checkpoint served over synth_test with the same
+    flags and no --set, so the pooling mode comes from the checkpoint.
+    The counters are zeroed around each CLI: 3 K1 a step and 2 a chunk,
+    RoIAlign once a step or chunk in align mode and never in pool mode,
+    where RoIPool runs instead.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch import inference, train
+    from dana_tpu_torch.data.synth import synth_fsod
+    from dana_tpu_torch.models import dana
+    synth_fsod('test', num_images=20)
+    synth_fsod('train')
+    base = ['--dataset', 'synth', '--way', '2', '--shot', '3', '--seed',
+            str(seed)]
+    by_path, summary = {}, {}
+    for label, (flags, train_set, mode) in SLICE9_CLI.items():
+        config = dana.DanaConfig(pooling_mode=mode)
+        save_dir = os.path.join(
+            os.path.dirname(os.environ['DANA_SYNTH_ROOT']), f'run_{label}')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        with call_count(dana, 'roi_pool') as pools:
+            trained = train.main(base + flags + [
+                '--bs', str(TRAIN_BATCH), '--epochs', '1', '--nw', '8',
+                '--dlog', '--disp_interval', '5', '--save_dir', save_dir]
+                + train_set)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_launches()
+        epoch = trained['epochs'][0]
+        want = want_launches(config, epoch['steps'], training=True)
+        if launches != want or pools[0] != (epoch['steps'] * (mode == 'pool')):
+            fail(f'{label} training CLI launches {launches}, RoIPool calls '
+                 f'{pools[0]}, expected {want} in {mode} mode')
+        if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
+            fail(f'{label} training CLI: {epoch["skipped"]} skipped steps, '
+                 f'losses {epoch["loss_curve"]}')
+        by_path[f'{label}_train_cli'] = launches
+        with tempfile.TemporaryDirectory() as out_dir, \
+                call_count(dana, 'roi_pool') as pools:
+            zero_launches()
+            t0 = time.perf_counter()
+            result = inference.main(base + flags + [
+                '--bs', str(BATCH), '--eval_dir', out_dir, '--checkpath',
+                trained['checkpoint']])
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        launches = read_launches()
+        timing = result['timing']
+        want = want_launches(config, timing['chunks'], training=False)
+        if launches != want or \
+                pools[0] != (timing['chunks'] * (mode == 'pool')):
+            fail(f'{label} dataset CLI launches {launches}, RoIPool calls '
+                 f'{pools[0]}, expected {want} in the checkpoint\'s {mode} '
+                 'mode')
+        stats = [float(x) for x in result['stats']]
+        if len(stats) != 12 or not np.isfinite(stats).all():
+            fail(f'{label} dataset CLI: COCOeval stats {stats}')
+        by_path[f'{label}_cli'] = launches
+        steady = float(np.median(epoch['step_s'][2:]) * 1e3)
+        summary[label] = dict(
+            steps=epoch['steps'], eps_per_s=epoch['eps_per_s'],
+            steady_step_ms=steady, train_s=train_s, train_peak_gib=train_peak,
+            wait_s=epoch['wait_s'], losses=epoch['losses'],
+            img_per_s=timing['img_per_s'], timing=timing, serve_s=serve_s,
+            stats=stats, pooling_mode=mode)
+        print(f'{label} CLIs ({card}): training epoch 1 of synth_train, '
+              f'{epoch["steps"]} steps, {epoch["eps_per_s"]:.2f} eps/s, '
+              f'steady step {steady:.2f} ms, peak {train_peak:.2f} GiB; '
+              f'dataset CLI over synth_test in the checkpoint\'s {mode} mode,'
+              f' {timing["img_per_s"]:.2f} img/s, launches {launches}, AP '
+              f'{stats[0]:.4f} (not judged)', flush=True)
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -1397,8 +1611,21 @@ def main():
         k3_err, k3 = check_roi_align_pw(dev, gen)
         k4_err, k4 = check_cisa_single(dev, gen)
         bucket_errs, buckets = check_buckets(dev, gen)
+        # K2 and K3 on VGG16's 512-channel maps and on the --ls canvas
+        # (K1's sites at both: check_cisa)
+        widths = {'roi_align_fwd': {}, 'roi_align_pw': {}}
+        k2_c512_err, widths['roi_align_fwd']['c512'] = check_roi_align(
+            dev, gen, c=VGG_C, label='[c512]')
+        k2_ls_err, widths['roi_align_fwd']['ls'] = check_roi_align(
+            dev, gen, hw=LS_HW, r=LS_POST_NMS, label='[ls]')
+        k3_c512_err, widths['roi_align_pw']['c512'] = check_roi_align_pw(
+            dev, gen, c=VGG_C, label='[c512]')
+        k3_ls_err, widths['roi_align_pw']['ls'] = check_roi_align_pw(
+            dev, gen, hw=LS_HW, label='[ls]')
     k1_err = max(k1_err, bucket_errs['cisa_shots'])
-    k2_err = max(k2_err, bucket_errs['roi_align_fwd'])
+    k2_err = max(k2_err, bucket_errs['roi_align_fwd'], k2_c512_err,
+                 k2_ls_err)
+    k3_err = max(k3_err, k3_c512_err, k3_ls_err)
     backward = check_backward(dev, gen)
     torch.cuda.empty_cache()
 
@@ -1419,10 +1646,15 @@ def main():
         # phase 8: the other frameworks, then the meta CLIs
         fw_launches, frameworks = frameworks_path(args.seed, card)
         meta_launches, meta_cli = meta_cli_path(args.seed, card)
+        torch.cuda.empty_cache()
+        # phase 9: the other trunks and pooling modes, then their CLIs
+        slice9_launches, slice9 = slice9_path(args.seed, card)
+        slice9_cli_launches, slice9_cli = slice9_cli_path(args.seed, card)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
-               **fw_launches, **meta_launches}
+               **fw_launches, **meta_launches, **slice9_launches,
+               **slice9_cli_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ('cisa_shots', 'roi_align_fwd', 'roi_align_pw',
                              'cisa_attention')}
@@ -1432,13 +1664,16 @@ def main():
                       'train_cli_summary': train_cli,
                       'frameworks_summary': frameworks,
                       'meta_cli_summary': meta_cli,
+                      'slice9_summary': slice9,
+                      'slice9_cli_summary': slice9_cli,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'kernel_sites': {'cisa_shots': k1_sites,
                                        'roi_align_fwd': {'roi': k2},
                                        'roi_align_pw': {'train_roi': k3},
                                        'cisa_attention': {'main': k4},
-                                       'buckets': buckets}}),
+                                       'buckets': buckets,
+                                       'widths': widths}}),
           flush=True)
 
     def row(name, source, replaces, err, sites):

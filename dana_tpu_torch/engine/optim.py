@@ -26,17 +26,18 @@ FINETUNE_HEADS = ('RCNN_cls_score', 'RCNN_bbox_pred', 'output_score_layer',
 
 
 def freeze_fixed(model: nn.Module, fixed_blocks: int = cfg.FIXED_BLOCKS):
-    """Make the detector trainable except the trunk's stem (conv1) and
-    layer1..layer{fixed_blocks}, which get requires_grad False: no
-    gradient is recorded for them and their .grad stays None.  Every
-    BatchNorm of the trunk is a frozen buffer already
+    """Make the detector trainable except what its trunk fixes
+    (`freeze`: a ResNet's stem (conv1) and layer1..layer{fixed_blocks}),
+    which gets requires_grad False: no gradient is recorded for it and
+    its .grad stays None.
+    Every BatchNorm of the trunk is a frozen buffer already
     (layers.FrozenBatchNorm2d); a head's BatchNorm (FGN's) trains its
     affine, and its running statistics are buffers, as the JAX package's
-    `trainable_mask` has them.  -> the model."""
+    `trainable_mask` has them.  A VGG16 trunk trains whole, as
+    `trainable_mask` leaves it (it names no VGG layer; py-faster-rcnn
+    would freeze conv1-conv2).  -> the model."""
     model.requires_grad_(True)
-    model.backbone.conv1.requires_grad_(False)
-    for i in range(1, fixed_blocks + 1):
-        getattr(model.backbone, f'layer{i}').requires_grad_(False)
+    model.backbone.freeze(fixed_blocks)
     return model
 
 

@@ -3,9 +3,10 @@ cisa or a sibling of models/frameworks.py (port of
 dana_tpu/engine/train.py `loss_fn` and `make_train_step`).
 
 The step's loss is the sum of the four heads' losses; its gradient
-reaches every trainable parameter, never the frozen stem and layer1; a
-step whose loss or gradients are not finite changes neither the
-parameters nor the momentum and reports skipped = 1.  FGN's head
+reaches every trainable parameter, never a ResNet's frozen stem and
+layer1 (a VGG16 trunk trains whole); a step whose loss or gradients are
+not finite changes neither the parameters nor the momentum and reports
+skipped = 1.  FGN's head
 BatchNorms with config.bn_train update their running statistics in the
 forward, as the JAX step merges them after its update, skipped or not.
 """
@@ -36,7 +37,8 @@ class Trainer:
     defaults to the card and the constructor raises without CUDA unless
     device='cpu' is passed; float32 math runs without TF32
     (utils.device.use_full_f32).
-    Trainable: everything but the trunk's stem and layer1..fixed_blocks;
+    Trainable: everything but a ResNet trunk's stem and
+    layer1..fixed_blocks (optim.freeze_fixed; a VGG16 trunk trains whole);
     with `finetune`, only the detection heads of that set
     (optim.freeze_to_heads).  `sgd`: momentum, weight_decay, double_bias,
     bias_decay for `optim.make_sgd`, at the engine's defaults.

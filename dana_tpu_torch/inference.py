@@ -2,7 +2,8 @@
 the PyTorch port.
 
     python -m dana_tpu_torch.inference --dataset synth --way 2 --shot 3 \\
-        --bs 8 [--net DAnA|cisa|fsod|meta|fgn] \\
+        --bs 8 [--net DAnA|cisa|fsod|meta|fgn|res101|vgg16] \\
+        [--backbone res50|res101|vgg16] [--ls] \\
         [--checkpath model.dkpt|model.pth] [--eval_dir DIR] \\
         [--device cpu] [--set KEY VALUE ...]
 
@@ -24,9 +25,14 @@ Host and device overlap: a thread pool of min(8, cores) assembles chunks
 and the loop keeps one chunk in flight, reading chunk i's detections back
 only after chunk i+1 has been handed to the card.
 
+The detector runs on the trunk --backbone names (or --net, where that is
+a backbone name), with the config tree's POOLING_MODE, which a checkpoint
+overrides with the mode it was trained with; --ls serves at
+cfgs/res101_ls.yml's values (800 px queries, 1000 proposals an image).
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, other backbones, int8 serving and the space-to-depth stem
-are refused (utils/args.py), and so is --net frcnn: Faster R-CNN's
+Multi-GPU flags, int8 serving and the space-to-depth stem are refused
+(utils/args.py), and so is --net frcnn: Faster R-CNN's
 class-specific deltas [B, R, 8] meet the postprocess's 4 bbox stds, which
 the JAX package's postprocess cannot broadcast either, so the JAX CLI
 raises on it.
@@ -114,11 +120,12 @@ def main(argv=None):
     num_images = len(roidb)
     print(f'{num_images} eval images')
 
-    config = dana_config(c, args.way, args.shot, args.net)
+    config = dana_config(c, args.way, args.shot, args.net, args.backbone)
     path = _checkpoint(args)
     if path:
-        params, _ = ckpt_lib.load_checkpoint(path, config)
-        print(f'loaded checkpoint {path}')
+        params, payload = ckpt_lib.load_checkpoint(path, config)
+        config = ckpt_lib.take_pooling_mode(payload, c, config)
+        print(f'loaded checkpoint {path} (pooling {config.pooling_mode})')
     else:
         params = frameworks.init_params(config, seed=args.seed)
     pred = Predictor(params, config, device=device,

@@ -5,11 +5,18 @@ forward (port of dana_tpu/models/dana.py).
 modules (`backbone.layer1.0.conv1`, `rpn_adapt_q_layer`,
 `output_score_layer.linear1`, ...).  The functions mirror the JAX ones
 and take NHWC tensors: queries [B,H,W,3], support images [B,n,H,W,3],
-support features [B,n,h,w,1024].  `trunk` (the RPN, proposals, target
-layers and RoIAlign), `query_features`, `support_maps`, `roi_tail` and
+support features [B,n,h,w,C], C = `DanaConfig.feat_dim` (1024 on a
+bottleneck ResNet, 512 on VGG16).  `trunk` (the RPN, proposals, target
+layers and RoI pooling), `query_features`, `support_maps`, `roi_tail` and
 `rcnn_losses` are shared with the other frameworks (models/frameworks.py);
 `DanaConfig.framework` names the detector a config belongs to (`cisa` is
 DAnA without the BA block).
+
+The trunk is a bottleneck ResNet (50, 101, 152) or VGG16 (`arch`, a key
+of TRUNKS): its module's `base` gives the stride-16 base features, its
+`tail` the RoI tail (layer4 and its spatial mean, or fc6 / fc7).  The rois are
+pooled by `pooling_mode`: RoIAlign (K2 when serving, K3 in training),
+RoIPool (ops/roi_pool.py) or the affine crop (ops/grid_sample.py).
 
 Supports are 320 px: stride-16 features give 20x20 = 400 support tokens
 at the RPN site; RoIs and pooled supports give 7x7 = 49 tokens at the
@@ -21,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -30,13 +38,15 @@ from torch.profiler import record_function
 
 from dana_tpu_torch.core.anchors import generate_anchors, shifted_anchors
 from dana_tpu_torch.models import layers as L
-from dana_tpu_torch.models import resnet
+from dana_tpu_torch.models import resnet, vgg
 from dana_tpu_torch.models import rpn as rpn_lib
 from dana_tpu_torch.models.losses import (hard_mined_pair_ce,
                                           masked_cross_entropy,
                                           smooth_l1_loss)
 from dana_tpu_torch.ops.cisa_attention import cisa_attention_shots
+from dana_tpu_torch.ops.grid_sample import roi_crop_pool
 from dana_tpu_torch.ops.roi_align import roi_align, roi_align_train
+from dana_tpu_torch.ops.roi_pool import roi_pool
 
 
 FRAMEWORKS = ('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn')
@@ -45,12 +55,35 @@ FRAMEWORKS = ('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn')
 CACHED_SUPPORTS = ('DAnA', 'cisa')
 
 
+class Trunk(NamedTuple):
+    """A trunk of the detector: its module (members `base(x)`,
+    `tail(pooled)`, `feat_dim`, `tail_dim`, `tail_range` and
+    `freeze(fixed_blocks)`), its numpy tree from a seed drawn as the JAX
+    package draws it, and its base and RoI-tail channels."""
+    module: Callable[[], nn.Module]
+    init_params: Callable[[int], dict]
+    feat_dim: int
+    tail_dim: int
+
+
+# the detector's trunks: the bottleneck ResNets (the heads take 1024 base
+# channels, which a basic-block ResNet's layer3 does not give) and VGG16
+TRUNKS = {a: Trunk(functools.partial(resnet.ResNet, a),
+                   functools.partial(resnet.init_params, a), *resnet.dims(a))
+          for a, (kind, _) in resnet.ARCH_LAYERS.items()
+          if kind == 'bottleneck'}
+TRUNKS['vgg16'] = Trunk(vgg.VGG16, vgg.init_params, vgg.FEAT_DIM,
+                        vgg.TAIL_DIM)
+ARCHES = tuple(TRUNKS)
+POOLING_MODES = ('align', 'pool', 'crop')
+
+
 @dataclasses.dataclass(frozen=True)
 class DanaConfig:
     """Model configuration (field names and defaults of the JAX
-    DanaConfig).  The port runs float32, concat attention, positional
-    encoding on both attention sites and RoIAlign pooling on a bottleneck
-    ResNet: the JAX fields that select otherwise are not ported."""
+    DanaConfig).  The port runs float32, concat attention and positional
+    encoding on both attention sites: the JAX fields that select otherwise
+    are not ported."""
     n_way: int = 2
     n_shot: int = 3
     rpn_reduce_dim: int = 256
@@ -58,8 +91,9 @@ class DanaConfig:
     gamma: float = 0.1                      # channel_gamma (BA block)
     unary_gamma: float = 0.1
     semantic_enhance: bool = False          # use_BA_block
-    arch: str = 'resnet50'
+    arch: str = 'resnet50'                  # one of ARCHES
     pooling_size: int = 7
+    pooling_mode: str = 'align'             # one of POOLING_MODES
     anchor_scales: tuple = (4, 8, 16, 32)
     anchor_ratios: tuple = (0.5, 1.0, 2.0)
     feat_stride: int = 16
@@ -91,18 +125,38 @@ class DanaConfig:
     framework: str = 'DAnA'
 
     def __post_init__(self):
-        if self.arch not in resnet.ARCH_LAYERS:
-            raise NotImplementedError(f'the port has no {self.arch} trunk')
+        if self.arch not in ARCHES:
+            raise NotImplementedError(
+                f'the detector has no {self.arch} trunk (have {ARCHES}; a '
+                'basic-block ResNet\'s layer3 gives 256 channels, the heads '
+                'take 1024)')
         if self.framework not in FRAMEWORKS:
             raise ValueError(f'framework {self.framework!r} is not one of '
                              f'{FRAMEWORKS}')
+        if self.pooling_mode not in POOLING_MODES:
+            raise ValueError(f'pooling_mode {self.pooling_mode!r} is not one '
+                             f'of {POOLING_MODES}')
+        if self.arch == 'vgg16' and self.framework not in CACHED_SUPPORTS:
+            raise ValueError(
+                f'{self.framework} on vgg16: the siblings are ResNet-only, as '
+                'in the JAX package, whose sibling inits draw '
+                'resnet.init_params(config.arch) with 1024 channels '
+                '(dana_tpu/models/frameworks.py) and raise KeyError for '
+                'vgg16')
 
     @property
     def num_anchors(self):
         return len(self.anchor_scales) * len(self.anchor_ratios)
 
-    feat_dim = 1024     # stride-16 base features of a bottleneck ResNet
-    tail_dim = 2048     # layer4
+    @property
+    def feat_dim(self):
+        """Base-feature channels: 512 for VGG16, 1024 for the ResNets."""
+        return TRUNKS[self.arch].feat_dim
+
+    @property
+    def tail_dim(self):
+        """RoI-tail features: fc7's 4096 for VGG16, layer4's 2048 else."""
+        return TRUNKS[self.arch].tail_dim
 
     @property
     def rpn_din(self):
@@ -115,7 +169,7 @@ class DAnA(nn.Module):
     def __init__(self, config: DanaConfig):
         super().__init__()
         d = config.feat_dim
-        self.backbone = resnet.ResNet(config.arch)
+        self.backbone = TRUNKS[config.arch].module()
         self.rpn_unary_layer = nn.Linear(d, 1)
         self.rcnn_unary_layer = nn.Linear(d, 1)
         self.rpn_adapt_q_layer = nn.Linear(d, config.rpn_reduce_dim)
@@ -158,7 +212,7 @@ def init_params(config: DanaConfig, seed: int = 0,
         return L.init_linear(rng, cin, cout, std=std)
 
     if backbone_params is None:
-        backbone_params = resnet.init_params(config.arch, seed=seed)
+        backbone_params = TRUNKS[config.arch].init_params(seed)
     p = {
         'backbone': backbone_params,
         'rpn_unary_layer': lin(d, 1),
@@ -183,8 +237,9 @@ def init_params(config: DanaConfig, seed: int = 0,
 
 
 def _pe(length, like):
-    return torch.tensor(positional_encoding(length), device=like.device,
-                        dtype=like.dtype)
+    """The positional table [length, C] of like's channels C."""
+    return torch.tensor(positional_encoding(length, like.shape[-1]),
+                        device=like.device, dtype=like.dtype)
 
 
 def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
@@ -223,16 +278,16 @@ def _support_tokens(feat, pe):
 
 
 def roi_tail(model, pooled_feat):
-    """layer4 and the spatial mean: [B,R,7,7,1024] -> [B,R,2048]."""
+    """The trunk's RoI tail: [B,R,7,7,C] -> [B,R,tail_dim] (range
+    `dana.rcnn_head.layer4`, or `dana.rcnn_head.fc` on VGG16)."""
     b, r, ph, pw, c = pooled_feat.shape
-    with record_function('dana.rcnn_head.layer4'):
-        tail = resnet.top_forward(pooled_feat.reshape(b * r, ph, pw, c),
-                                  model.backbone).mean(dim=(1, 2))
+    with record_function(f'dana.rcnn_head.{model.backbone.tail_range}'):
+        tail = model.backbone.tail(pooled_feat.reshape(b * r, ph, pw, c))
     return tail.reshape(b, r, -1)
 
 
 def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
-    """pooled_feat [B,R,7,7,1024], support_pooled [B,shot,7,7,1024] ->
+    """pooled_feat [B,R,7,7,C], support_pooled [B,shot,7,7,C] ->
     (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2])."""
     bbox_pred = model.RCNN_bbox_pred(roi_tail(model, pooled_feat))
     return (bbox_pred, *rcnn_scores(model, config, pooled_feat,
@@ -242,7 +297,7 @@ def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
 def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
                 support_pooled):
     """The R-CNN head's attention and score part: pooled_feat
-    [B,R,7,7,1024] attends support_pooled [B,shot,7,7,1024] -> (cls_prob
+    [B,R,7,7,C] attends support_pooled [B,shot,7,7,C] -> (cls_prob
     [B,R,2], cls_score [B,R,2])."""
     b, r, ph, pw, c = pooled_feat.shape
     pe = _pe(config.pooling_size ** 2, pooled_feat)
@@ -263,13 +318,13 @@ def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
 
 def support_maps(model, support_ims):
     """support_ims [B, n, H, W, 3] (H, W >= 224) -> the trunk's maps
-    [B, n, H/16, W/16, 1024]."""
+    [B, n, H/16, W/16, C]."""
     b, n, sh, sw, c = support_ims.shape
     if sh < 224 or sw < 224:
         raise ValueError(f'support images must be >= 224px (got {sh}x{sw}):'
                          ' the fixed AvgPool2d(14) needs a >= 14x14 map')
-    feats = resnet.base_forward(
-        support_ims.reshape(b * n, sh, sw, c).float(), model.backbone)
+    feats = model.backbone.base(support_ims.reshape(b * n, sh, sw,
+                                                    c).float())
     return feats.reshape(b, n, *feats.shape[1:])
 
 
@@ -279,8 +334,8 @@ def pool14(x):
 
 
 def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
-    """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,1024],
-    pooled [B,n,h-13,w-13,1024]): the trunk, then AvgPool2d(14, 1)."""
+    """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,C],
+    pooled [B,n,h-13,w-13,C]): the trunk, then AvgPool2d(14, 1)."""
     feats = support_maps(model, support_ims)
     b, n = feats.shape[:2]
     pooled = pool14(feats.reshape(b * n, *feats.shape[2:]))
@@ -288,8 +343,8 @@ def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
 
 
 def rpn_attention(model: DAnA, config: DanaConfig, base_feat, support_feat):
-    """base_feat [B,h,w,1024] attends support_feat [B,shot,hs,ws,1024]
-    -> concat correlation feature [B,h,w,2048]."""
+    """base_feat [B,h,w,C] attends support_feat [B,shot,hs,ws,C]
+    -> concat correlation feature [B,h,w,2C]."""
     b, h, w, c = base_feat.shape
     hs, ws = support_feat.shape[2:4]
     s_tokens = _support_tokens(support_feat, _pe(20 * 20, base_feat))
@@ -311,11 +366,11 @@ def prep_query_images(config: DanaConfig, im_data):
 
 
 def query_features(model, config: DanaConfig, im_data):
-    """The queries' base features [B, H/16, W/16, 1024] (`dana.trunk`
+    """The queries' base features [B, H/16, W/16, C] (`dana.trunk`
     range)."""
     with record_function('dana.trunk'):
-        return resnet.base_forward(prep_query_images(config, im_data).float(),
-                                   model.backbone)
+        return model.backbone.base(
+            prep_query_images(config, im_data).float())
 
 
 def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
@@ -324,7 +379,7 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
     `frameworks.trunk`): the RPN on the conditioned map `corr_feat`
     [B,h',w',C'], its anchors on that map's grid, the proposals, at
     training the target layers and the RPN losses, and the rois pooled
-    from `base_feat` [B,h,w,C] (K2 when serving, K3 in training).
+    from `base_feat` [B,h,w,C] (`pool_rois`).
 
     Training takes gt_boxes [B,G,5] and the target layers' draws (a dict
     keyed by `rpn.DRAW_KEYS`, or a torch.Generator to draw them from);
@@ -351,10 +406,8 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
             nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
 
     if not training:
-        with record_function('dana.roi_align'):
-            pooled = roi_align(base_feat, rois.contiguous(),
-                               config.pooling_size, 1.0 / config.feat_stride)
-        return dict(rois=rois, roi_mask=roi_mask, pooled=pooled)
+        return dict(rois=rois, roi_mask=roi_mask,
+                    pooled=pool_rois(config, base_feat, rois))
 
     with record_function('dana.targets'):
         if isinstance(draws, torch.Generator):
@@ -380,9 +433,7 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
                     bbox_normalize_means=config.bbox_normalize_means,
                     bbox_normalize_stds=config.bbox_normalize_stds)
 
-    with record_function('dana.roi_align'):
-        pooled = roi_align_train(base_feat, rois, config.pooling_size,
-                                 1.0 / config.feat_stride)
+    pooled = pool_rois(config, base_feat, rois, training=True)
     with record_function('dana.losses'):
         rpn_loss_cls = masked_cross_entropy(logits, labels, labels != -1)
         rpn_loss_box = smooth_l1_loss(deltas, at_targets, at_in_w[..., None],
@@ -391,6 +442,22 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
                 rois_label=rois_label, rois_target=rois_target,
                 rois_in_w=rois_in_w, rois_out_w=rois_out_w,
                 rpn_loss_cls=rpn_loss_cls, rpn_loss_box=rpn_loss_box)
+
+
+def pool_rois(config: DanaConfig, base_feat, rois, training=False):
+    """base_feat [B,h,w,C], rois [B,R,5] -> [B,R,P,P,C] by
+    config.pooling_mode, each in its own range: RoIAlign (`dana.roi_align`;
+    K2 when serving, K3 from the axis weights in training), RoIPool
+    (`dana.roi_pool`) or the affine crop (`dana.roi_crop`)."""
+    p, scale = config.pooling_size, 1.0 / config.feat_stride
+    with record_function(f'dana.roi_{config.pooling_mode}'):
+        if config.pooling_mode == 'pool':
+            return roi_pool(base_feat, rois, p, scale)
+        if config.pooling_mode == 'crop':
+            return roi_crop_pool(base_feat, rois, p, scale)
+        if training:
+            return roi_align_train(base_feat, rois, p, scale)
+        return roi_align(base_feat, rois.contiguous(), p, scale)
 
 
 def rcnn_losses(out, bbox_pred, cls_score, neg_score):
@@ -429,9 +496,9 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
     rois_label [B,S], the positive branch's cls_prob / bbox_pred /
     cls_score, the negative branch's neg_cls_score and rpn_loss_cls,
     rpn_loss_box, rcnn_loss_cls, rcnn_loss_bbox.  The RoIs are pooled by
-    `roi_align_train` (K3 on the card), and the negative supports run
-    only the head's attention and score part: their box branch would
-    feed no loss.
+    `pool_rois` (in align mode `roi_align_train`, K3 on the card), and the
+    negative supports run only the head's attention and score part: their
+    box branch would feed no loss.
 
     Each stage runs inside a `torch.profiler.record_function` range named
     `dana.<stage>`, so one profiled request gives the time of every stage

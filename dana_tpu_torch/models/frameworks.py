@@ -3,10 +3,12 @@ dana_tpu/models/frameworks.py): Faster R-CNN, FSOD (attention RPN and
 multi-relation head), Meta R-CNN (PRN channel reweighting) and FGN
 (support-gated RPN and convolutional score head).
 
-Each shares DAnA's skeleton through `dana.trunk`: the ResNet-50 trunk, a
-detector-specific conditioning of the RPN's input, the RPN, the proposals
-and target layers, RoIAlign of the rois from the query's base features (K2
-when serving, K3 in training), and a detector-specific head.  The episodic
+Each shares DAnA's skeleton through `dana.trunk`: a bottleneck ResNet trunk
+(50, 101 or 152; VGG16 is refused, as the JAX package's siblings are
+ResNet-only), a detector-specific conditioning of the RPN's input, the
+RPN, the proposals and target layers, the rois pooled from the query's
+base features by the config's pooling mode (RoIAlign: K2 when serving, K3
+in training), and a detector-specific head.  The episodic
 siblings run their score head on the positive supports and, in training,
 on the negative ones, with DAnA's smooth-L1 and hard-mined pair losses.
 Their convolutions and linears are torch's own (cuDNN and cuBLAS on the

@@ -68,9 +68,10 @@ def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):
     return x * scale[:, None, None] + offset[:, None, None]
 
 
-def max_pool(x):
-    """The stem's 3x3 / stride 2 / pad 0 ceil-mode max pool (NCHW)."""
-    return F.max_pool2d(x, 3, 2, 0, ceil_mode=True)
+def max_pool(x, window=3, stride=2, ceil_mode=True):
+    """Max pool without padding (NCHW); the defaults are the ResNet stem's
+    3x3 / stride 2 ceil-mode pool, VGG's pools are 2 / 2 floor."""
+    return F.max_pool2d(x, window, stride, 0, ceil_mode=ceil_mode)
 
 
 def avg_pool(x, window, stride):

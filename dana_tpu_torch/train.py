@@ -1,7 +1,8 @@
 """Episodic training of a few-shot detector on the PyTorch port.
 
     python -m dana_tpu_torch.train --dataset synth --way 2 --shot 3 \\
-        --bs 4 [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--epochs 12] \\
+        --bs 4 [--net DAnA|cisa|frcnn|fsod|meta|fgn|res101|vgg16] \\
+        [--backbone res50|res101|vgg16] [--ls] [--epochs 12] \\
         [--flip] [--fs --sup_dir DIR] [--r --checkpath model.dkpt] \\
         [--device cpu] [--set KEY VALUE ...]
 
@@ -34,11 +35,16 @@ its step keys).
 
 Every --net the port has trains: DAnA, cisa, and the siblings Faster
 R-CNN, FSOD, Meta R-CNN (whose batches carry every class's gt,
-`all_gt_boxes`, for its RPN targets) and FGN.
+`all_gt_boxes`, for its RPN targets) and FGN, on the trunk --backbone
+names (DAnA and cisa also on vgg16, whose trunk trains whole; with
+--backbone vgg16 the gradient norm is clipped at 10 unless --clip_norm
+says otherwise, as in the JAX CLI), with the config tree's POOLING_MODE,
+which every checkpoint records and --r takes back; --ls trains at
+cfgs/res101_ls.yml's values (800 px queries).
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, other backbones, Orbax checkpoints and the space-to-depth
-stem are refused (utils/args.py).  `main` returns a summary: the last
+Multi-GPU flags, Orbax checkpoints and the space-to-depth stem are refused
+(utils/args.py).  `main` returns a summary: the last
 checkpoint, whether the run was preempted, and per epoch its steps,
 seconds, episodes per second, the seconds the loop waited for a batch,
 mean losses, the loss of every step and the skipped steps.
@@ -123,7 +129,8 @@ def make_trainer(args, c, config, params, lr, device):
     """The Trainer with the tree's SGD settings and trainable selection
     (root train.py:151-164)."""
     return Trainer(params, config, device=device, lr=lr, seed=args.seed,
-                   clip_norm=args.clip_norm,
+                   clip_norm=args.clip_norm
+                   or (10.0 if args.backbone == 'vgg16' else 0.0),
                    fixed_blocks=c.RESNET.FIXED_BLOCKS,
                    finetune=args.fewshot, momentum=c.TRAIN.MOMENTUM,
                    weight_decay=c.TRAIN.WEIGHT_DECAY,
@@ -145,14 +152,17 @@ def resume_path(args):
     return path
 
 
-def restore(args, config):
+def restore(args, c, config):
     """--r: the checkpoint `resume_path` names -> (the module on the CPU,
-    lr, first epoch to train, momentum velocity tree or None, generator
-    state or None)."""
+    the config with the checkpoint's pooling mode, which also goes into
+    the tree `c`, lr, first epoch to train, momentum velocity tree or None,
+    generator state or None)."""
     path = resume_path(args)
     model, payload = ckpt_lib.load_checkpoint(path, config)
-    print(f'resumed from {path} (epoch {payload.get("epoch")})')
-    return (model, payload.get('lr') or args.lr,
+    config = ckpt_lib.take_pooling_mode(payload, c, config)
+    print(f'resumed from {path} (epoch {payload.get("epoch")}, pooling '
+          f'{config.pooling_mode})')
+    return (model, config, payload.get('lr') or args.lr,
             int(payload.get('epoch', 0)) + 1,
             ckpt_lib.optimizer_velocity(payload),
             (payload.get('extra') or {}).get('generator'))
@@ -195,9 +205,10 @@ def setup(args):
         loader, args.batch_size, shuffle=True, seed=args.seed,
         num_workers=min(args.num_workers, os.cpu_count() or 1))
 
-    config = dana_config(c, args.way, args.shot, args.net)
+    config = dana_config(c, args.way, args.shot, args.net, args.backbone)
     if args.resume:
-        params, lr, start_epoch, velocity, generator = restore(args, config)
+        params, config, lr, start_epoch, velocity, generator = restore(
+            args, c, config)
     else:
         params = frameworks.init_params(config, seed=args.seed)
         lr, start_epoch = args.lr, args.start_epoch

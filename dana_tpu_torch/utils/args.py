@@ -1,6 +1,7 @@
 """The dataset CLIs' arguments: the flags of the repo's root `utils.py`
-`parse_args`, with its `--ascale` presets and dataset-name mapping, plus
-`--device`.
+`parse_args`, with its `--ascale` presets, its choice of config values
+(`--ls`: cfgs/res101_ls.yml's, whatever the backbone; else cfgs/res50.yml's)
+and dataset-name mapping, plus `--device`.
 
 Flags that ask for what the port does not have yet are refused with the
 ROADMAP item that ports it, instead of being ignored.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 
+from dana_tpu_torch.models.dana import POOLING_MODES
 from dana_tpu_torch.utils import config as config_lib
 
 # the --ascale presets (reference utils.py:68-73)
@@ -39,15 +41,17 @@ def parse_args(argv=None):
     a('--dataset', default='pascal_voc', type=str)
     a('--net', default='DAnA', type=str,
       help='DAnA, cisa (DAnA without the BA block), frcnn, fsod, meta, fgn, '
-           'or the backbone name res50 (DAnA on ResNet-50)')
-    a('--backbone', default='res50', type=str)
+           'or a backbone name res50, res101, vgg16 (DAnA on that trunk)')
+    a('--backbone', default='res50', type=str,
+      help='res50, res101 or vgg16 (the siblings: the ResNets only)')
     a('--flip', dest='use_flip', action='store_true', default=False)
     a('--o', dest='optimizer', default='sgd', type=str)
     a('--lr', default=0.001, type=float)
     a('--lr_decay_step', default=1000, type=int)
     a('--lr_decay_gamma', default=0.1, type=float)
     a('--nw', dest='num_workers', default=8, type=int)
-    a('--ls', dest='large_scale', action='store_true')
+    a('--ls', dest='large_scale', action='store_true',
+      help="cfgs/res101_ls.yml's values: 800 px queries, 1000 proposals")
     a('--mGPUs', dest='mGPUs', action='store_true')
     a('--tp', dest='tp', default=0, type=int)
     a('--sp', dest='sp', default=0, type=int)
@@ -112,24 +116,29 @@ def _refuse_unported(args):
             or args.slices > 1:
         raise SystemExit('--mGPUs, --tp, --sp, --slices and --dist are not '
                          'ported yet (ROADMAP Queue A 8: multi-GPU)')
-    if args.net not in config_lib.NETS or args.backbone != 'res50':
-        raise SystemExit(f'--net {args.net} --backbone {args.backbone}: the '
-                         f'port has {", ".join(config_lib.NETS)} on ResNet-50 '
-                         'only (ROADMAP Queue A 7: the ResNet-101/152 tables, '
-                         'then VGG16)')
-    if args.large_scale:
-        raise SystemExit('--ls selects the ResNet-101 config, which the port '
-                         'does not have (ROADMAP Queue A 7: the '
-                         'ResNet-101/152 tables)')
+    if args.net not in config_lib.NETS:
+        raise SystemExit(f'--net {args.net}: the port has '
+                         f'{", ".join(config_lib.NETS)}')
+    if args.backbone not in config_lib.BACKBONES:
+        raise SystemExit(f'--backbone {args.backbone}: the trunks are '
+                         f'{", ".join(config_lib.BACKBONES)}')
+    framework = config_lib.NETS[args.net]
+    if args.backbone == 'vgg16' and framework not in ('DAnA', 'cisa'):
+        raise SystemExit(f'--net {args.net} --backbone vgg16: the siblings '
+                         'are ResNet-only, as in the JAX package, whose '
+                         'sibling inits raise KeyError for vgg16')
     if args.ckpt_backend != 'pickle':
         raise SystemExit('--ckpt_backend orbax: the port reads and writes '
                          'the .dkpt pickle only')
 
 
 def load_cfg(args):
-    """-> the config tree: the built-in res50 values, then the --ascale
-    preset, then --set.  Refuses settings the port has no code for."""
+    """-> the config tree: the built-in res50 values (with --ls, those of
+    res101_ls.yml), then the --ascale preset, then --set.  Refuses settings
+    the port has no code for."""
     c = config_lib.default_cfg()
+    if args.large_scale:
+        config_lib.cfg_from_list(c, config_lib.LARGE_SCALE)
     config_lib.cfg_from_list(c, args.set_cfgs)
     if args.set_cfgs_extra:
         config_lib.cfg_from_list(c, args.set_cfgs_extra)
@@ -140,7 +149,7 @@ def load_cfg(args):
     if c.TPU.STEM_S2D:
         raise SystemExit('TPU.STEM_S2D: the port has no space-to-depth stem; '
                          'set TPU.STEM_S2D False')
-    if c.POOLING_MODE != 'align':
-        raise SystemExit(f'POOLING_MODE {c.POOLING_MODE}: the port pools with '
-                         'RoIAlign only (ROADMAP Queue A 7)')
+    if c.POOLING_MODE not in POOLING_MODES:
+        raise SystemExit(f'POOLING_MODE {c.POOLING_MODE}: the modes are '
+                         f'{", ".join(POOLING_MODES)}')
     return c

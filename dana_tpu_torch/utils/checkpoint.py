@@ -12,9 +12,10 @@ the JAX package's (its `utils/checkpoint.py`).
     are read as opaque `PickledObject`s, so neither package is imported,
     and nothing but numpy's array and dtype constructors is ever called.
 
-A checkpoint whose `pooling_mode` is not 'align' is refused: the port pools
-with RoIAlign only; so is one whose `extra['framework']` (the port's writer
-records the detector there) names another detector than the config's.
+Both formats carry the `pooling_mode` the detector trained with; the
+CLIs take it from the payload into their config, as the JAX CLIs do.  A
+checkpoint whose `extra['framework']` (the port's writer records the
+detector there) names another detector than the config's is refused.
 
 `save_checkpoint` writes the `.dkpt` pickle with plain dicts, floats, ints,
 strings and numpy arrays only, so that both the JAX package's
@@ -26,6 +27,7 @@ either writer's payload.  Orbax directories are neither read nor written.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import os.path as osp
 import pickle
@@ -107,8 +109,8 @@ def read_pth(path):
 
 def load_checkpoint(path, config):
     """`.pth` or `.dkpt` -> (config.framework's module on the CPU, payload
-    without its 'model' entry).  Refuses a pooling mode other than 'align'
-    and a checkpoint that records another detector."""
+    without its 'model' entry).  Refuses a checkpoint that records another
+    detector."""
     if path.endswith('.pth'):
         payload = read_pth(path)
         build = load_reference_state_dict
@@ -119,16 +121,22 @@ def load_checkpoint(path, config):
         raise FileNotFoundError(
             f'{path}: no checkpoint (an Orbax directory is not read by the '
             'port)')
-    mode = payload.get('pooling_mode') or 'align'
-    if mode != 'align':
-        raise ValueError(f'{path}: pooling_mode {mode!r}; the port pools '
-                         'with RoIAlign only')
     written = (payload.get('extra') or {}).get('framework')
     if written not in (None, config.framework):
         raise ValueError(f'{path}: a {written} checkpoint, not '
                          f'{config.framework}')
     model = build(payload.pop('model'), config)
     return model, payload
+
+
+def take_pooling_mode(payload, c, config):
+    """A checkpoint's pooling mode (when it records one) into the config
+    tree `c` and the detector's `config`, as the root `inference.py`
+    does.  -> the config to run."""
+    c.POOLING_MODE = payload.get('pooling_mode') or c.POOLING_MODE
+    if config.pooling_mode != c.POOLING_MODE:
+        config = dataclasses.replace(config, pooling_mode=c.POOLING_MODE)
+    return config
 
 
 def save_checkpoint(path, model, velocity=None, epoch=0, step=0, lr=None,

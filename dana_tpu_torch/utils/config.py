@@ -4,20 +4,24 @@ Two layers:
   * `default_cfg()`, the config tree the dataset CLI reads, with the key
     names of the JAX package's `cfg` and `cfg_from_list` to override its
     entries from `--set KEY VALUE` pairs.  The card machine has no YAML
-    reader, so the values of `cfgs/res50.yml` are built in (`--ls`, the
-    ResNet-101 file, is refused by the CLI); tests hold the tree to the JAX
-    package's `cfg` after it loads that file;
+    reader, so the values of `cfgs/res50.yml` are built in, and
+    `LARGE_SCALE` holds what `cfgs/res101_ls.yml` (the CLIs' `--ls`)
+    changes on top of them; tests hold both to the JAX package's `cfg`
+    after it loads each file.  The JAX CLIs read no other file: `--ls`
+    picks res101_ls.yml whatever the backbone, and everything else
+    res50.yml (vgg16.yml and res101.yml are never read);
   * module constants, read by the predictor, the trainer and the scripts:
     the tree's defaults (derived from it), and the constants the tree does
     not hold, at the JAX package's defaults.
 
 `postprocess_kwargs(tree)` is the detection postprocess policy.
 
-`dana_config(tree, way, shot, net)` builds a detector's config from a
-tree, as the root `utils.py model_config_kwargs` and `get_model` do:
-ResNet-50 trunk, RoIAlign pooling, float32 compute; for DAnA the BA block
-on and concat attention, for `cisa` the BA block off; `config.framework`
-names the detector.  `get_model(net, way, shot)` mirrors the root
+`dana_config(tree, way, shot, net, backbone)` builds a detector's config
+from a tree, as the root `utils.py model_config_kwargs` and `get_model`
+do: the trunk of `backbone` (or of `net` where that names one), the
+tree's POOLING_MODE, float32 compute; for DAnA the BA block on and concat
+attention, for `cisa` the BA block off; `config.framework` names the
+detector.  `get_model(name, way, shot, seed, net)` mirrors the root
 `utils.get_model` on the default tree (9 anchors, before any `--ascale`
 preset).
 """
@@ -37,9 +41,11 @@ TRAIN_DOUBLE_BIAS = True
 TRAIN_BIAS_DECAY = False
 FIXED_BLOCKS = 1                  # conv1/bn1 and layer1 frozen (RESNET)
 
+# --backbone values -> the trunk
+BACKBONES = {'res50': 'resnet50', 'res101': 'resnet101', 'vgg16': 'vgg16'}
 # --net values -> the detector: a backbone name is DAnA on that backbone
-NETS = {'DAnA': 'DAnA', 'res50': 'DAnA', 'cisa': 'cisa', 'frcnn': 'frcnn',
-        'fsod': 'fsod', 'meta': 'meta', 'fgn': 'fgn'}
+NETS = {'DAnA': 'DAnA', 'cisa': 'cisa', 'frcnn': 'frcnn', 'fsod': 'fsod',
+        'meta': 'meta', 'fgn': 'fgn', **{b: 'DAnA' for b in BACKBONES}}
 
 
 class AttrDict(dict):
@@ -121,6 +127,11 @@ def default_cfg() -> AttrDict:
     })
 
 
+# what cfgs/res101_ls.yml sets beyond cfgs/res50.yml's values (--ls)
+LARGE_SCALE = ['TRAIN.SCALES', '(800,)', 'TEST.SCALES', '(800,)',
+               'TEST.MAX_SIZE', '1200', 'TEST.RPN_POST_NMS_TOP_N', '1000']
+
+
 # The tree's defaults as the constants the predictor, the trainer and the
 # scripts read: derived, so that the tree is the one place they are set.
 _DEFAULTS = default_cfg()
@@ -170,21 +181,26 @@ def cfg_from_list(c: AttrDict, cfg_list) -> None:
         d[leaf] = value
 
 
-def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA'):
-    """The config of the detector `net` (a key of NETS) on ResNet-50 from
-    the tree `c` (root `utils.py` `model_config_kwargs` and `get_model`
-    for the fields the port has)."""
+def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA',
+                backbone: str = 'res50'):
+    """The config of the detector `net` (a key of NETS) on the trunk
+    `backbone` (a key of BACKBONES; a backbone name as `net` overrides it)
+    from the tree `c` (root `utils.py` `model_config_kwargs` and
+    `get_model` for the fields the port has)."""
     from dana_tpu_torch.models import dana
     if net not in NETS:
         raise ValueError(f'network {net!r} is not part of the port '
                          f'(have {sorted(NETS)})')
-    if c.POOLING_MODE != 'align':
-        raise ValueError(f'POOLING_MODE {c.POOLING_MODE!r}: the port pools '
-                         'with RoIAlign only')
+    if net in BACKBONES:
+        backbone = net
+    if backbone not in BACKBONES:
+        raise ValueError(f'backbone {backbone!r} is not one of '
+                         f'{sorted(BACKBONES)}')
     framework = NETS[net]
     return dana.DanaConfig(
-        n_way=way, n_shot=shot, arch='resnet50', framework=framework,
-        semantic_enhance=framework == 'DAnA',
+        n_way=way, n_shot=shot, arch=BACKBONES[backbone],
+        framework=framework, semantic_enhance=framework == 'DAnA',
+        pooling_mode=c.POOLING_MODE,
         anchor_scales=tuple(c.ANCHOR_SCALES),
         anchor_ratios=tuple(c.ANCHOR_RATIOS),
         pooling_size=c.POOLING_SIZE,
@@ -203,11 +219,11 @@ def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA'):
 
 def get_model(name='res50', way=2, shot=3, seed=1996):
     """-> (DanaConfig, numpy param tree in the JAX layout), the `way`-way
-    `shot`-shot detector `name` (DAnA, res50, cisa, frcnn, fsod, meta or
-    fgn; `config.framework` names it) on the default tree with random
-    weights from `seed`, drawn as the JAX package draws them.  The
-    target-layer fields the tree does not set keep DanaConfig's defaults,
-    which are the JAX package's."""
+    `shot`-shot detector `name` (a key of NETS; `config.framework` names
+    it, and a backbone name such as 'res101' or 'vgg16' picks DAnA on that
+    trunk) on the default tree with random weights from `seed`, drawn as
+    the JAX package draws them.  The target-layer fields the tree does not
+    set keep DanaConfig's defaults, which are the JAX package's."""
     from dana_tpu_torch.models import frameworks
     config = dana_config(default_cfg(), way, shot, name)
     return config, frameworks.init_params(config, seed=seed)

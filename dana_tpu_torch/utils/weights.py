@@ -8,7 +8,12 @@ a reference-format state dict (`RCNN_base.*`, `RCNN_top.*`, OIHW convs,
 every weight is consumed and none missing.
 `to_jax_params` turns a module back into the JAX param tree, and
 `velocity_to_jax` / `velocity_from_jax` carry SGD momentum buffers to and
-from the JAX package's velocity tree, in the same layout.
+from the JAX package's velocity tree, in the same layout.  Every trunk
+crosses by name: a ResNet's `backbone.layerN.*` (any depth; the reference's
+`RCNN_base.*` / `RCNN_top.*` prefixes map onto them) and VGG16's
+`backbone.features.N.*` / `backbone.classifier.{0,3}.*`.
+`torchvision_vgg16_params` takes a torchvision VGG16 state dict to the
+JAX-layout trunk tree that `init_params(..., backbone_params=)` takes.
 """
 
 from __future__ import annotations
@@ -125,6 +130,16 @@ def velocity_from_jax(tree: dict, model: torch.nn.Module) -> dict:
     flat = dict(_flatten(tree))
     return {p: _from_jax_layout(flat[name])
             for name, p in model.named_parameters()}
+
+
+def torchvision_vgg16_params(state_dict: dict) -> dict:
+    """A torchvision vgg16 state dict (tensors or numpy arrays) -> the
+    VGG16 trunk's tree in the JAX layout (HWIO convs, [in, out] linears);
+    the 1000-way classifier.6 is dropped."""
+    return _unflatten(
+        (key, _to_jax_layout(torch.as_tensor(np.asarray(v, np.float32))))
+        for key, v in state_dict.items()
+        if not key.startswith('classifier.6.'))
 
 
 def load_reference_state_dict(sd: dict, config: DanaConfig

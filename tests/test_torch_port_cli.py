@@ -166,26 +166,14 @@ def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
     _check_against_jax(jax_run, out, result)
 
 
-def test_checkpoint_refuses_other_pooling(tmp_path):
-    from dana_tpu.utils import checkpoint as jckpt
-    config = _config()
-    path = str(tmp_path / 'model_1_0.dkpt')
-    jckpt.save_checkpoint(path, tdana.init_params(config, seed=5),
-                          pooling_mode='pool')
-    with pytest.raises(ValueError, match='RoIAlign only'):
-        tckpt.load_checkpoint(path, config)
-
-
 @pytest.mark.parametrize('flags, match', [
     (['--mGPUs'], 'Queue A 8'), (['--tp', '2'], 'Queue A 8'),
     (['--sp', '2'], 'Queue A 8'), (['--dist'], 'Queue A 8'),
-    (['--net', 'frcnn'], 'postprocess'), (['--backbone', 'res101'],
-                                          'Queue A 7'),
-    (['--ls'], 'Queue A 7'),
+    (['--net', 'frcnn'], 'postprocess'),
     (['--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 9'),
     (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
-    (['--net', 'vgg16'], 'Queue A 7'), (['--backbone', 'vgg16'],
-                                        'Queue A 7'),
+    (['--net', 'fsod', '--backbone', 'vgg16'], 'ResNet-only'),
+    (['--backbone', 'res152'], 'the trunks are'),
 ])
 def test_cli_refuses_unported(tmp_path, flags, match):
     argv = ['--dataset', 'synth', '--eval_dir', str(tmp_path),

@@ -251,3 +251,50 @@ def test_framework_paths_match_plain(dev, name):
     assert serving['roi_align_fwd'] == chip_smoke.FW_REQUESTS
     assert training['roi_align_pw'] == chip_smoke.FW_STEPS
     assert (serving['cisa_shots'] > 0) == (name == 'cisa')
+
+
+@pytest.mark.parametrize('case', ['c512', 'ls'])
+def test_kernels_at_the_new_widths(dev, case):
+    """K1's serving sites, K2 and K3 on VGG16's 512-channel maps and on
+    the --ls canvas (832x1088, 1000 rois an image), and K1's training RPN
+    site there (4 episodes), at chip_smoke.py phase 3's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hw, c, r = ((608, 1024), 512, 300) if case == 'c512' \
+        else (chip_smoke.LS_HW, 1024, chip_smoke.LS_POST_NMS)
+    fh, fw = hw[0] // 16, hw[1] // 16
+    for g, nq, ns in ((8, fh * fw, 400), (8, r * 49, 49), (4, fh * fw, 400)):
+        q = torch.randn(g, nq, 256, device=dev, generator=gen)
+        k = torch.randn(g, 3, ns, 256, device=dev, generator=gen)
+        v = torch.randn(g, 3, ns, c, device=dev, generator=gen)
+        u = torch.softmax(torch.randn(g, 3, ns, device=dev, generator=gen),
+                          -1)
+        torch.testing.assert_close(
+            ca.cisa_attention_shots(q, k, v, u, 1 / 16, 0.1),
+            ca.cisa_attention_shots_plain(q, k, v, u, 1 / 16, 0.1),
+            rtol=TOL, atol=TOL)
+        del q, k, v, u
+    feat = torch.randn(8, fh, fw, c, device=dev, generator=gen)
+    rois = chip_smoke.serving_rois(8, r, gen, dev, hw)
+    torch.testing.assert_close(ra.roi_align(feat, rois),
+                               ra.roi_align_plain(feat, rois),
+                               rtol=K2_TOL, atol=K2_TOL)
+    wy, wx = ra.roi_weights(rois[:4, :128], fh, fw, 7)
+    torch.testing.assert_close(ra.roi_align_pw(feat[:4], wy, wx),
+                               ra.roi_align_pw_plain(feat[:4], wy, wx),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize('label', ['res101', 'vgg16', 'pool', 'crop'])
+def test_trunk_and_mode_paths_match_plain(dev, label):
+    """chip_smoke.py phase 9's cases: their requests and steps launch K1
+    at every attention site, and K2 (serving) or K3 (training) in align
+    mode only; request 0 and step 0 agree with the plain versions."""
+    _, name, fields, _ = next(c for c in chip_smoke.SLICE9
+                              if c[0] == label)
+    model = chip_smoke.slice9_model(name, fields, 0)
+    serving, _ = chip_smoke.serving_path(0, model, label)
+    training, _ = chip_smoke.training_path(0, model, label)
+    align = fields.get('pooling_mode', 'align') == 'align'
+    assert serving['cisa_shots'] == 2 * chip_smoke.REQUESTS
+    assert serving['roi_align_fwd'] == chip_smoke.REQUESTS * align
+    assert training['roi_align_pw'] == chip_smoke.STEPS * align

@@ -112,3 +112,42 @@ def test_train_step_opens_every_stage_range():
     assert names == (STAGES - {'dana.upload', 'dana.postprocess'}) | {
         'dana.support_trunk', 'dana.targets', 'dana.losses',
         'dana.backward', 'dana.update'}
+
+
+@pytest.mark.parametrize('case', ['pool', 'crop', 'vgg16'])
+def test_predict_opens_the_pooling_and_tail_ranges(case):
+    """POOLING_MODE pool and crop pool in their own ranges (dana.roi_pool,
+    dana.roi_crop) and launch no RoIAlign; VGG16's RoI tail runs in
+    dana.rcnn_head.fc."""
+    kw = dict(arch='vgg16') if case == 'vgg16' else dict(pooling_mode=case)
+    conf = tdana.DanaConfig(n_way=2, n_shot=2, test_pre_nms=200,
+                            test_post_nms=16, **kw)
+    pred = Predictor(tdana.init_params(conf, seed=1), conf, device='cpu')
+    rng = np.random.default_rng(1)
+    pred.encode_supports(0, rng.normal(0, 50, (2, 224, 224, 3))
+                         .astype(np.float32))
+    q = rng.integers(0, 256, (1, 96, 128, 3)).astype(np.uint8)
+    info = np.array([[96, 128, 1.0]], np.float32)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.predict(q, info, [0])
+    names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
+    if case == 'vgg16':
+        want = STAGES - {'dana.rcnn_head.layer4'} | {'dana.rcnn_head.fc'}
+    else:
+        want = STAGES - {'dana.roi_align'} | {f'dana.roi_{case}'}
+    assert names == want
+
+
+def test_tools_build_the_asked_trunk_and_mode():
+    """The profile tools' --net, --backbone and --set: the detector of
+    get_model's draw on the asked trunk, with the tree's overrides."""
+    from dana_tpu_torch.utils import config as tcfg
+    config, params = _tool().model_for('DAnA', 'res101',
+                                       ['POOLING_MODE', 'crop'], 3)
+    assert (config.arch, config.pooling_mode) == ('resnet101', 'crop')
+    assert config.num_anchors == 9 and config.semantic_enhance
+    want = tcfg.get_model('res101', seed=3)[1]
+    assert len(params['backbone']['layer3']) == 23
+    np.testing.assert_array_equal(params['RCNN_rpn']['RPN_Conv']['weight'],
+                                  want['RCNN_rpn']['RPN_Conv']['weight'])

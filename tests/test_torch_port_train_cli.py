@@ -331,8 +331,9 @@ def test_jax_checkpoint_momentum_resumes(synth_root, tmp_path):
     jckpt.save_checkpoint(path, params, joptim.SGDState(
         velocity=velocity, lr=np.float32(0.02)), epoch=3, step=7, lr=0.02)
     args = parse_args(_train_argv(tmp_path, '--r', '--checkpath', path))
-    model, lr, start, vel, gen = cli.restore(args, config)
+    model, config, lr, start, vel, gen = cli.restore(args, c, config)
     assert (lr, start, gen) == (0.02, 4, None)
+    assert config.pooling_mode == c.POOLING_MODE == 'align'
     trainer = cli.make_trainer(args, c, config, model, lr, 'cpu')
     trainer.load_state(vel, gen)
     got = dict(_leaves(trainer.state()['velocity']))

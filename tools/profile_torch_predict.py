@@ -2,14 +2,17 @@
 """Where a serving request's time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_predict.py [--seed 0] [--iters 10]
-        [--net DAnA|cisa|frcnn|fsod|meta|fgn]
+        [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--backbone res50|res101|vgg16]
+        [--set POOLING_MODE pool|crop ...]
         [--trace .scratch/profile_torch_predict.trace.json]
 
 Builds the predictor that chip_smoke.py drives (DAnA ResNet-50 2-way
 3-shot, random weights from --seed, two classes' 320px supports encoded
 once; with --net, the detector that chip_smoke.py phase 8 serves: the
 siblings with a request's 8 x 3 supports, frcnn through its eval
-forward) and sends requests of 8 uint8 608x1024 queries through
+forward; with --backbone, on that trunk; --set overrides the built-in
+config tree, e.g. its POOLING_MODE) and sends requests of 8 uint8 608x1024
+queries through
 `Predictor.predict`: --iters of them untraced for the wall time per
 request, then --iters under torch.profiler, whose trace is written to
 --trace (it opens in Perfetto).  The stages are the `dana.*`
@@ -150,19 +153,30 @@ def profile(run, iters, trace, card, unit='request'):
             'copy_bytes': copy_bytes(trace, iters)}
 
 
-def serving_call(chip_smoke, net, seed, query, info, classes):
-    """-> a function serving one request with the detector `net` as
-    chip_smoke.py does (frcnn, which has no serving path: its eval
-    forward)."""
-    if net == 'DAnA':
-        pred = chip_smoke.serving_predictor(seed)
-        return lambda: pred.predict(query, info, classes)
-    from dana_tpu_torch.engine.predict import Predictor
+def model_for(net, backbone, overrides, seed):
+    """-> (config, params): the 2-way 3-shot detector `net` on `backbone`
+    from the built-in config tree with the KEY VALUE `overrides`, random
+    weights from `seed` (get_model's, without overrides)."""
     from dana_tpu_torch.models import frameworks
     from dana_tpu_torch.utils import config as cfg
-    config, params = cfg.get_model(net, way=2, shot=3, seed=seed)
+    tree = cfg.default_cfg()
+    cfg.cfg_from_list(tree, overrides or [])
+    config = cfg.dana_config(tree, 2, 3, net, backbone)
+    return config, frameworks.init_params(config, seed=seed)
+
+
+def serving_call(chip_smoke, model, seed, query, info, classes):
+    """-> a function serving one request with `model`, a (config, params)
+    pair, as chip_smoke.py does (frcnn, which has no serving path: its eval
+    forward)."""
+    from dana_tpu_torch.engine.predict import Predictor
+    from dana_tpu_torch.models import dana, frameworks
+    config, params = model
+    if config.framework in dana.CACHED_SUPPORTS:
+        pred = chip_smoke.serving_predictor(seed, model)
+        return lambda: pred.predict(query, info, classes)
     sup = chip_smoke.support_stacks(seed, 1)[0]
-    if net == 'frcnn':
+    if config.framework == 'frcnn':
         from dana_tpu_torch.utils.device import use_full_f32
         from dana_tpu_torch.utils.weights import from_jax_params
         use_full_f32()                  # as Predictor does on the card
@@ -174,19 +188,23 @@ def serving_call(chip_smoke, net, seed, query, info, classes):
             return frameworks.forward(model, config, q, i)
         return forward
     pred = Predictor(params, config)
-    if pred.caches_supports:
-        for cls in range(2):
-            pred.encode_supports(cls, sup[cls])
-        return lambda: pred.predict(query, info, classes)
     return lambda: pred.predict(query, info, support_ims=sup)
+
+
+def add_model_args(ap):
+    ap.add_argument('--net', default='DAnA',
+                    choices=('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn'))
+    ap.add_argument('--backbone', default='res50',
+                    choices=('res50', 'res101', 'vgg16'))
+    ap.add_argument('--set', nargs='*', default=[],
+                    help='config tree overrides: KEY VALUE ...')
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--iters', type=int, default=10)
-    ap.add_argument('--net', default='DAnA',
-                    choices=('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn'))
+    add_model_args(ap)
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_predict.trace.json'))
     args = ap.parse_args()
@@ -196,14 +214,17 @@ def main():
     from dana_tpu_torch.ops import build
     build.build_all()
     query, info, classes = chip_smoke.serving_requests(args.seed, 1)[0]
-    serve = serving_call(chip_smoke, args.net, args.seed, query, info,
-                         classes)
+    model = model_for(args.net, args.backbone, args.set, args.seed)
+    serve = serving_call(chip_smoke, model, args.seed, query, info, classes)
 
     def request():
         serve()
         torch.cuda.synchronize()
 
-    print(json.dumps(profile(request, args.iters, args.trace, card)))
+    out = profile(request, args.iters, args.trace, card)
+    out.update(framework=model[0].framework, arch=model[0].arch,
+               pooling_mode=model[0].pooling_mode)
+    print(json.dumps(out))
 
 
 if __name__ == '__main__':

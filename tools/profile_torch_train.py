@@ -3,15 +3,20 @@
 
     python3 tools/profile_torch_train.py [--seed 0] [--iters 5]
         [--source episodes|cli|cli_fixed]
+        [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--backbone res50|res101|vgg16]
+        [--set POOLING_MODE pool|crop ...]
         [--trace .scratch/profile_torch_train.trace.json]
 
 --source episodes (the default) builds the trainer that chip_smoke.py
 phase 5 drives (DAnA ResNet-50 2-way 3-shot, 9 anchors, random weights
-from --seed) and runs `Trainer.step` on one seeded episode batch of 4
+from --seed; --net, --backbone and --set as in
+tools/profile_torch_predict.py) and runs `Trainer.step` on one seeded
+episode batch of 4
 uint8 608x1024 queries with 6 supports of 320 px each.  --source cli
 builds the trainer, loader and batcher as `python -m dana_tpu_torch.train
 --dataset synth --way 2 --shot 3 --bs 4` does (12 anchors, float32
-queries; synth_train written into a temporary DANA_SYNTH_ROOT) and steps
+queries; synth_train written into a temporary DANA_SYNTH_ROOT; --net,
+--backbone and --set passed on to it) and steps
 on the batches of its prefetch stream while the eight assembly threads
 run, as in the CLI; --source cli_fixed steps that trainer on the stream's
 first batch again and again, with no thread running beside it.  Each
@@ -46,10 +51,11 @@ def main():
     ap.add_argument('--iters', type=int, default=5)
     ap.add_argument('--source', default='episodes',
                     choices=('episodes', 'cli', 'cli_fixed'))
+    from profile_torch_predict import add_model_args, card_name, profile
+    add_model_args(ap)
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_train.trace.json'))
     args = ap.parse_args()
-    from profile_torch_predict import card_name, profile
     card = card_name()
 
     from dana_tpu_torch.ops import build
@@ -67,7 +73,9 @@ def main():
         finally:
             if stream is not None:
                 stream.close()
-    out['source'] = args.source
+    out.update(source=args.source, framework=trainer.config.framework,
+               arch=trainer.config.arch,
+               pooling_mode=trainer.config.pooling_mode)
     print(json.dumps(out))
 
 
@@ -76,20 +84,26 @@ def _source(args):
     if args.source == 'episodes':
         import chip_smoke
         from dana_tpu_torch.engine.train import Trainer
-        from dana_tpu_torch.utils import config as cfg
-        config, params = cfg.get_model('res50', way=2, shot=3,
-                                       seed=args.seed)
+        from profile_torch_predict import model_for
+        config, params = model_for(args.net, args.backbone, args.set,
+                                   args.seed)
         trainer = Trainer(params, config, seed=args.seed)
-        return (trainer,
-                chip_smoke.training_episodes(args.seed, 1, trainer.device)[0],
-                None)
+        batch = chip_smoke.training_episodes(args.seed, 1, trainer.device)[0]
+        if config.framework == 'meta':          # as chip_smoke.py phase 8
+            batch['all_gt_boxes'] = chip_smoke.all_class_gt(
+                batch['gt_boxes'], args.seed)
+        return trainer, batch, None
     from dana_tpu_torch import train as cli
     from dana_tpu_torch.data.fs_loader import Prefetcher
     _, batcher, trainer, _ = cli.setup(cli.parse_args(
         ['--dataset', 'synth', '--way', '2', '--shot', '3', '--bs', '4',
-         '--dlog', '--seed', str(args.seed)]))
-    stream = iter(Prefetcher(({k: b[k] for k in cli.BATCH_KEYS}
-                              for b in batcher), trainer.device))
+         '--dlog', '--seed', str(args.seed), '--net', args.net,
+         '--backbone', args.backbone]
+        + (['--set', *args.set] if args.set else [])))
+    keys = cli.BATCH_KEYS + (('all_gt_boxes',)
+                             if trainer.config.framework == 'meta' else ())
+    stream = iter(Prefetcher(({k: b[k] for k in keys} for b in batcher),
+                             trainer.device))
     if args.source == 'cli':
         return trainer, None, stream
     batch = next(stream)
