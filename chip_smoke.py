@@ -27,7 +27,14 @@ Run from the repository root.  Phases, each of which fails the run:
      divide as the kernel does, their weights); K1's four sites, K2 and K3
      are held and timed again on VGG16's 512 channels, and K1's serving
      sites and training RPN site, K2 (1000 rois an image) and K3 on the
-     --ls canvas (LS_HW), which --ls gives both CLIs;
+     --ls canvas (LS_HW), which --ls gives both CLIs.  The bf16 kernels of
+     the precision recipe (phase 10) on bf16 inputs: K1 at its two serving
+     sites on 1024 and 512 channels and at edge shapes, K4 (K1's bf16
+     kernel at S = 1) and K2 on 1024 and 512 channels (the rois rounded to
+     bf16 as the model rounds them), each held against its plain version
+     at |kernel - plain| <= BF16_ULP * max|plain| (one bf16 ulp at the
+     output's scale) and timed beside it, SDPA in bf16 for K1 and K4, and
+     the bound (K1 and K4 at the bf16 tensor-core rate, K2 its bytes);
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -106,7 +113,20 @@ Run from the repository root.  Phases, each of which fails the run:
      (SLICE9_CLI): --backbone vgg16 --set POOLING_MODE pool trains one
      epoch of synth_train, and the dataset CLI serves that checkpoint over
      synth_test with no --set, pooling with RoIPool, the mode the
-     checkpoint records; --backbone res101 --ls does the same at 800 px.
+     checkpoint records; --backbone res101 --ls does the same at 800 px;
+ 10. precision (PRECISION): phase 4's detector with TPU.COMPUTE_DTYPE
+     bfloat16 in three settings, the default recipe (bf16 attention,
+     float32 head), pure bf16 and a float32 attention island, serves
+     REQUESTS requests each as phase 4 does (counters zeroed around each
+     path: 2 K1 a request in the attention dtype, 1 K2 in bf16; request 0
+     against the plain versions on the kernel path's proposals, its RPN
+     scores and deltas, head outputs and detection scores within
+     PATH_TOL_BF16, boxes at phase 4's tolerance), with its steady times
+     and peak memory beside phase 4's float32; the bf16 trunk is timed in
+     channels_last and in contiguous NCHW; then the dataset CLI serves
+     phase 7's checkpoint over synth_test in the default recipe (--set
+     TPU.COMPUTE_DTYPE bfloat16: 2 bf16 K1 and 1 bf16 K2 a chunk), its AP
+     printed beside phase 6's float32 AP, not judged.
 """
 
 from __future__ import annotations
@@ -130,7 +150,15 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_TC_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 # K1 and K4 take each float32 product as three TF32 products (3xTF32)
 CISA_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4
+# a bf16 kernel against its plain version on the same bf16 inputs: one bf16
+# ulp at the output's scale, BF16_ULP * max|plain| (float32 sums in another
+# order can move a value across a rounding boundary)
+BF16_ULP = 2.0 ** -7
+# phase 10: the bf16 kernel path against the plain path (RPN scores and
+# deltas, head outputs, detection scores), absolute
+PATH_TOL_BF16 = 1e-2
 # K2 against K3 on the same rois' weights: one pooling body, weights that
 # differ only in the order each entry sums its samples
 K2_TOL = 1e-6
@@ -200,6 +228,7 @@ def cisa_site(fn, plain, library, nbytes, flops):
 
 def check_close(name, got, want, tol=TOL):
     torch.cuda.synchronize()
+    got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     if not torch.isfinite(got).all():
         fail(f'{name}: kernel output is not finite')
@@ -210,21 +239,34 @@ def check_close(name, got, want, tol=TOL):
 
 
 def launch_counters():
-    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    """{kernel name: (its wrapper, the attribute that counts its launches)}:
+    a wrapper counts its float32 kernel's launches in `launches` and its
+    bf16 kernel's in `launches_bf16`."""
     from dana_tpu_torch.ops import cisa_attention, roi_align
-    return {'cisa_shots': cisa_attention.cisa_attention_shots,
-            'roi_align_fwd': roi_align.roi_align,
-            'roi_align_pw': roi_align.roi_align_pw,
-            'cisa_attention': cisa_attention.cisa_attention}
+    shots, single = cisa_attention.cisa_attention_shots, \
+        cisa_attention.cisa_attention
+    return {'cisa_shots': (shots, 'launches'),
+            'roi_align_fwd': (roi_align.roi_align, 'launches'),
+            'roi_align_pw': (roi_align.roi_align_pw, 'launches'),
+            'cisa_attention': (single, 'launches'),
+            'cisa_shots_bf16': (shots, 'launches_bf16'),
+            'roi_align_fwd_bf16': (roi_align.roi_align, 'launches_bf16'),
+            'cisa_attention_bf16': (single, 'launches_bf16')}
 
 
 def zero_launches():
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
+
+
+def launch_counts(**counts):
+    """Every kernel's launches: `counts`, and 0 for the kernels not named."""
+    return {name: counts.get(name, 0) for name in launch_counters()}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -453,15 +495,19 @@ def check_buckets(dev, gen):
     return errs, out
 
 
+def cisa_single_library(q, k, v, u, scale, gamma):
+    """K4's yardstick: SDPA plus the unary term (timed here; the port never
+    calls it)."""
+    import torch.nn.functional as F
+    return (F.scaled_dot_product_attention(q, k, v, scale=scale)
+            + gamma * (u @ v))
+
+
 def check_cisa_single(dev, gen):
     """K4: single-group CISA, the cisa_shots kernel entered at S = 1."""
     from dana_tpu_torch.ops.cisa_attention import (cisa_attention,
                                                    cisa_attention_plain)
-    import torch.nn.functional as F
-
-    def library(q, k, v, u, scale, gamma):
-        return (F.scaled_dot_product_attention(q, k, v, scale=scale)
-                + gamma * (u @ v))
+    library = cisa_single_library
 
     fh, fw = (s // 16 for s in QUERY_HW)
     cases = {'main': (BATCH, fh * fw, (SUPPORT_HW // 16) ** 2, 256, 1024),
@@ -492,6 +538,118 @@ def check_cisa_single(dev, gen):
               f'{lib_err:.3e}' + (f', {site}' if name == 'main' else ''),
               flush=True)
         del q, k, v, u, want, args
+    return err, site
+
+
+def check_bf16(name, got, want):
+    """A bf16 kernel's output against its plain version's on the same bf16
+    inputs: finite bf16, max |diff| <= BF16_ULP * max|plain|; -> (max
+    |diff|, the tolerance)."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.isfinite(got).all():
+        fail(f'{name}: kernel output is not finite bf16 ({got.dtype})')
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_ULP * want.float().abs().max().item()
+    if not err <= tol:
+        fail(f'{name}: kernel disagrees with its plain version (max |err| '
+             f'{err:.3e}, tolerance {tol:.3e})')
+    return err, tol
+
+
+def check_cisa_bf16(dev, gen):
+    """K1 in bf16 at the serving path's two sites on ResNet's 1024 and
+    VGG16's 512 channels, then edge shapes, and K4 in bf16 (the single-group
+    CISA, K1's bf16 kernel at S = 1) at its main shape: against the plain
+    versions, timed beside the plain versions, SDPA in bf16 plus the unary
+    term, and the bound at the bf16 tensor-core rate; -> ({'shots': K1's
+    max |error|, 'single': K4's}, {site: numbers})."""
+    from dana_tpu_torch.ops.cisa_attention import (
+        cisa_attention, cisa_attention_plain, cisa_attention_shots,
+        cisa_attention_shots_plain)
+    from dana_tpu_torch.utils import config as cfg
+    bf16 = torch.bfloat16
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
+    bins = cfg.POOLING_SIZE ** 2
+    r_test = cfg.TEST_RPN_POST_NMS_TOP_N
+    # (G, S, Nq, Ns, D, C); S = 0 marks K4 (single group, S = 1)
+    cases = {'rpn': (BATCH, 3, fh * fw, ns_rpn, 256, 1024),
+             'roi': (BATCH, 3, r_test * bins, bins, 256, 1024),
+             'rpn_c512': (BATCH, 3, fh * fw, ns_rpn, 256, VGG_C),
+             'roi_c512': (BATCH, 3, r_test * bins, bins, 256, VGG_C),
+             'single': (BATCH, 0, fh * fw, ns_rpn, 256, 1024),
+             'ns1': (2, 3, 1000, 1, 256, 1024),
+             'ragged': (3, 2, 77, 57, 256, 1096)}
+
+    errs, sites = {'shots': 0.0, 'single': 0.0}, {}
+    for name, (g, s, nq, ns, d, c) in cases.items():
+        single = s == 0
+        lead = (g,) if single else (g, s)
+        q = torch.randn(g, nq, d, device=dev, generator=gen).to(bf16)
+        k = torch.randn(*lead, ns, d, device=dev, generator=gen).to(bf16)
+        v = torch.randn(*lead, ns, c, device=dev, generator=gen).to(bf16)
+        u = torch.softmax(torch.randn(g, max(s, 1), ns, device=dev,
+                                      generator=gen), -1).to(bf16)
+        args = (q, k, v, u, 1.0 / 16.0, 0.1)
+        fn, plain, library = (
+            (cisa_attention, cisa_attention_plain, cisa_single_library)
+            if single
+            else (cisa_attention_shots, cisa_attention_shots_plain,
+                  cisa_library))
+        case_err, tol = check_bf16(f'cisa bf16[{name}]', fn(*args),
+                                   plain(*args))
+        family = 'single' if single else 'shots'
+        errs[family] = max(errs[family], case_err)
+        if name not in ('ns1', 'ragged'):
+            nbytes = 2 * (q.numel() + k.numel() + v.numel() + u.numel()
+                          + g * nq * c)
+            flops = 2 * g * max(s, 1) * nq * ns * (d + c)
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+            ms = cuda_ms(lambda: fn(*args), 10)
+            sites[name] = dict(
+                ms=ms, plain_ms=cuda_ms(lambda: plain(*args), 3),
+                library_ms=cuda_ms(lambda: library(*args), 5), bound_ms=b_ms,
+                bound_by=b_by, bound_rate='bf16 tensor cores',
+                tflop_per_s=flops / ms / 1e9, flops=flops, bytes=nbytes,
+                max_abs_err=case_err, tol=tol)
+        print(f'cisa bf16[{name}] G={g} S={s or 1} Nq={nq} Ns={ns} D={d} '
+              f'C={c}: max|kernel-plain| {case_err:.3e} (tolerance '
+              f'{tol:.3e})' + (f', {sites[name]}' if name in sites else ''),
+              flush=True)
+        del q, k, v, u, args
+    return errs, sites
+
+
+def check_roi_align_bf16(dev, gen, c=1024, label=''):
+    """K2 in bf16 at the serving shapes (BATCH maps of the first query
+    bucket with `c` channels, the test proposals rounded to bf16 as the
+    model hands them), against its plain version (the JAX package's bf16
+    path), timed; -> (max |error|, numbers)."""
+    from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
+                                              roi_weights)
+    from dana_tpu_torch.utils import config as cfg
+    b, r, p = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, cfg.POOLING_SIZE
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    feat = torch.randn(b, fh, fw, c, device=dev, generator=gen).to(
+        torch.bfloat16)
+    rois = serving_rois(b, r, gen, dev).to(torch.bfloat16)
+    want = roi_align_plain(feat, rois, p, 1 / 16.0)
+    err, tol = check_bf16(f'roi_align_fwd bf16{label}',
+                          roi_align(feat, rois, p, 1 / 16.0), want)
+    wy, wx = roi_weights(rois, fh, fw, p, 1 / 16.0)
+    taps = ((wy != 0).sum(-1) * (wx != 0).any(-2).sum(-1)[..., None]).sum()
+    nbytes = 2 * feat.numel() + 4 * rois.numel() + 2 * want.numel()
+    flops = 2 * c * p * taps.item()           # P bins a tap, a channel
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    ms = cuda_ms(lambda: roi_align(feat, rois, p, 1 / 16.0), 10)
+    site = dict(ms=ms, plain_ms=cuda_ms(
+        lambda: roi_align_plain(feat, rois, p, 1 / 16.0), 3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
+        bytes=nbytes, gb_per_s=nbytes / ms / 1e6,
+        gather_bytes=2 * c * taps.item(), max_abs_err=err, tol=tol)
+    print(f'roi_align_fwd bf16{label} feat={tuple(feat.shape)} '
+          f'rois={tuple(rois.shape)}: max|kernel-plain| {err:.3e} '
+          f'(tolerance {tol:.3e}), {site}', flush=True)
     return err, site
 
 
@@ -611,13 +769,14 @@ def plain_ops():
          dana.roi_align_train) = saved
 
 
-def match_detections(da, db, coord_atol):
-    """Same count, same score multiset, equal boxes for every score unique
-    within the image (equal scores may keep different boxes)."""
+def match_detections(da, db, coord_atol, score_tol=1e-4):
+    """Same count, same score multiset (within score_tol), equal boxes for
+    every score unique within the image (equal scores may keep different
+    boxes)."""
     if da.shape != db.shape:
         fail(f'detection counts differ: {da.shape} vs {db.shape}')
-    if not np.allclose(np.sort(da[:, 4]), np.sort(db[:, 4]), rtol=1e-4,
-                       atol=1e-4):
+    if not np.allclose(np.sort(da[:, 4]), np.sort(db[:, 4]), rtol=score_tol,
+                       atol=score_tol):
         fail('detection scores differ between kernel and plain paths')
     qa, qb = np.round(da[:, 4], 3), np.round(db[:, 4], 3)
     uniq, cnt = np.unique(qa, return_counts=True)
@@ -647,7 +806,7 @@ def pinned_proposals(record, pinned=None):
 
 
 def compare_paths(model, config, query, info, forward_kw, predict=None,
-                  label='main path'):
+                  label='main path', tol=TOL):
     """One request through the kernels and through the plain versions:
     `frameworks.forward` on (query, info, **forward_kw), and `predict()`,
     the same request served (None where there is no serving path).  The
@@ -656,7 +815,8 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     proposals: the proposal layer ranks tens of thousands of anchors whose
     float32 scores differ in the last bits between the paths, so
     near-equal neighbours swap places and NMS then keeps a few other boxes
-    (the count is printed).  -> the max |diff| of each compared output."""
+    (the count is printed).  `tol` bounds each output's difference and
+    the detections' scores.  -> the max |diff| of each compared output."""
     from dana_tpu_torch.models import frameworks
     runs = {}
     for path in ('kernel', 'plain'):
@@ -672,10 +832,11 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     (scores_k, deltas_k), (rois_k, _, mask_k) = rec_k[0]
     (scores_p, deltas_p), (rois_p, _, mask_p) = rec_p[0]
     diffs = {'rpn_scores': check_close(f'{label} rpn scores', scores_k,
-                                       scores_p),
+                                       scores_p, tol),
              'rpn_deltas': check_close(f'{label} rpn deltas', deltas_k,
-                                       deltas_p)}
-    diffs.update({name: check_close(f'{label} {name}', fk[name], fp[name])
+                                       deltas_p, tol)}
+    diffs.update({name: check_close(f'{label} {name}', fk[name], fp[name],
+                                    tol)
                   for name in ('cls_prob', 'bbox_pred')})
     moved = ((mask_k != mask_p)
              | ((rois_k - rois_p).abs() > ROI_ATOL).any(-1)).sum().item()
@@ -687,7 +848,8 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     (dk, vk), (dp, vp) = ([x.cpu().numpy() for x in d]
                           for d in (kdets, pdets))
     for i in range(len(dk)):
-        match_detections(dk[i][vk[i]], dp[i][vp[i]], coord_atol=BOX_ATOL)
+        match_detections(dk[i][vk[i]], dp[i][vp[i]], coord_atol=BOX_ATOL,
+                         score_tol=max(tol, 1e-4))
     print(f'{label}: detections (request 0): {vk.sum(1).tolist()} per image,'
           ' kernel path == plain path (tie-aware)', flush=True)
     return diffs
@@ -722,21 +884,29 @@ def serving_requests(seed, n):
 def want_launches(config, n, training):
     """The kernel launches of n requests (or training steps) of `config`:
     K1 at the two attention sites of DAnA and cisa (three in training: the
-    RoI site again for the negative supports), RoIAlign once in align mode
-    (K2 serving, K3 training), the single-group CISA never."""
+    RoI site again for the negative supports), in the attention dtype;
+    RoIAlign once in align mode (K2 serving, in the compute dtype; K3
+    training), the single-group CISA never."""
     from dana_tpu_torch.models.dana import CACHED_SUPPORTS
     align = n if config.pooling_mode == 'align' else 0
     sites = (3 if training else 2) \
         if config.framework in CACHED_SUPPORTS else 0
-    return {'cisa_shots': sites * n,
-            'roi_align_fwd': 0 if training else align,
-            'roi_align_pw': align if training else 0, 'cisa_attention': 0}
+    k1 = 'cisa_shots' + _suffix(config.attention_dt)
+    if training:
+        return launch_counts(**{k1: sites * n, 'roi_align_pw': align})
+    return launch_counts(**{k1: sites * n, 'roi_align_fwd'
+                            + _suffix(config.compute_dtype): align})
 
 
-def serving_path(seed, model=None, label='main path'):
+def _suffix(dtype):
+    """The launch counter's suffix of a kernel run in `dtype`."""
+    return '_bf16' if dtype == torch.bfloat16 else ''
+
+
+def serving_path(seed, model=None, label='main path', tol=TOL):
     """REQUESTS requests of `model` (serving_predictor's default: the main
-    path), then request 0 again on the plain versions; -> (launches,
-    summary)."""
+    path), then request 0 again on the plain versions, held at `tol`
+    (compare_paths); -> (launches, summary)."""
     from dana_tpu_torch.ops import nms
 
     pred = serving_predictor(seed, model)
@@ -774,7 +944,7 @@ def serving_path(seed, model=None, label='main path'):
     diffs = compare_paths(
         pred.model, pred.config, query, info,
         dict(support_feats=pred.batch_support_feats(classes)),
-        lambda: pred.predict(query, info, classes), label=label)
+        lambda: pred.predict(query, info, classes), label=label, tol=tol)
     return launches, dict(req_ms=req_ms, peak_gib=peak, nms_syncs=syncs,
                           detections=n_det, path_diffs=diffs)
 
@@ -952,14 +1122,16 @@ def training_path(seed, model=None, label='main path'):
 
 # ---------------------------------------------------------------- phase 6
 
-def cli_path(seed, checkpath):
+def cli_path(seed, checkpath, overrides=(), label='CLI path'):
     """The dataset CLI over synth_test (written beside synth_train in the
     current DANA_SYNTH_ROOT) on the card, serving the checkpoint phase 7
-    wrote; -> (launches, summary)."""
+    wrote, with the config `overrides` (KEY VALUE ... for --set); ->
+    (launches, summary)."""
     from dana_tpu_torch import inference
     from dana_tpu_torch.data.imdb import combined_roidb
     from dana_tpu_torch.data.synth import synth_fsod
     from dana_tpu_torch.ops import nms
+    from dana_tpu_torch.utils import config as cfg
     t0 = time.perf_counter()
     synth_fsod('test', num_images=20)
     synth_fsod('train')
@@ -970,6 +1142,8 @@ def cli_path(seed, checkpath):
         argv = ['--dataset', 'synth', '--way', '2', '--shot', '3',
                 '--bs', str(BATCH), '--seed', str(seed),
                 '--eval_dir', out_dir, '--checkpath', checkpath]
+        if overrides:
+            argv += ['--set', *overrides]
         torch.cuda.synchronize()
         zero_launches()
         nms.HOST_SYNCS = 0
@@ -983,26 +1157,28 @@ def cli_path(seed, checkpath):
             all_boxes = pickle.load(f)
     timing = result['timing']
     chunks = timing['chunks']
-    want = {'cisa_shots': 2 * chunks, 'roi_align_fwd': chunks,
-            'roi_align_pw': 0, 'cisa_attention': 0}
+    tree = cfg.default_cfg()
+    cfg.cfg_from_list(tree, list(overrides))
+    want = want_launches(cfg.dana_config(tree, 2, 3), chunks, training=False)
     if launches != want:
-        fail(f'CLI path launches {launches}, expected {want} for {chunks} '
+        fail(f'{label} launches {launches}, expected {want} for {chunks} '
              'chunks')
     n_det = []
     for i, entry in enumerate(roidb):
         d = all_boxes[int(entry['gt_classes'][0])][i]
         if not (isinstance(d, np.ndarray) and d.ndim == 2
                 and d.shape[1] == 5 and np.isfinite(d).all()):
-            fail(f'CLI path: image {i}\'s target-class cell holds {d!r}')
+            fail(f'{label}: image {i}\'s target-class cell holds {d!r}')
         n_det.append(len(d))
     stats = [float(x) for x in result['stats']]
     if len(stats) != 12 or not np.isfinite(stats).all():
-        fail(f'CLI path: COCOeval stats {stats}')
+        fail(f'{label}: COCOeval stats {stats}')
     summary = dict(images=timing['images'], chunks=chunks,
                    img_per_s=timing['img_per_s'], timing=timing,
                    main_s=main_s, synth_s=synth_s, nms_syncs=syncs,
-                   detections=n_det, stats=stats, checkpoint=checkpath)
-    print(f'CLI path: synth_test, {timing["images"]} images in {chunks} '
+                   detections=n_det, stats=stats, checkpoint=checkpath,
+                   overrides=list(overrides))
+    print(f'{label}: synth_test, {timing["images"]} images in {chunks} '
           f'chunks of {BATCH}, {timing["img_per_s"]:.2f} img/s over the set '
           f'(main {main_s:.1f} s), launches {launches}, timing {timing}, '
           f'COCOeval stats {stats} of the trained checkpoint', flush=True)
@@ -1114,8 +1290,7 @@ def train_cli_path(seed, trainer_step_ms):
     print(f'training CLI path: {[e["steps"] for e in epochs]} steps '
           f'(straight epochs 1-2, resumed epoch 2), launches {launches}, '
           f'peak memory {peak:.2f} GiB', flush=True)
-    want = {'cisa_shots': 3 * steps, 'roi_align_fwd': 0,
-            'roi_align_pw': steps, 'cisa_attention': 0}
+    want = launch_counts(cisa_shots=3 * steps, roi_align_pw=steps)
     if launches != want:
         fail(f'training CLI launches {launches}, expected {want} for '
              f'{steps} steps')
@@ -1364,8 +1539,7 @@ def meta_cli_path(seed, card):
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
     epoch = trained['epochs'][0]
-    want = {'cisa_shots': 0, 'roi_align_fwd': 0,
-            'roi_align_pw': epoch['steps'], 'cisa_attention': 0}
+    want = launch_counts(roi_align_pw=epoch['steps'])
     if train_launches != want:
         fail(f'meta training CLI launches {train_launches}, expected {want}')
     if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
@@ -1382,8 +1556,7 @@ def meta_cli_path(seed, card):
         serve_s = time.perf_counter() - t0
     serve_launches = read_launches()
     timing = result['timing']
-    want = {'cisa_shots': 0, 'roi_align_fwd': timing['chunks'],
-            'roi_align_pw': 0, 'cisa_attention': 0}
+    want = launch_counts(roi_align_fwd=timing['chunks'])
     if serve_launches != want:
         fail(f'meta dataset CLI launches {serve_launches}, expected {want}')
     stats = [float(x) for x in result['stats']]
@@ -1557,6 +1730,73 @@ def slice9_cli_path(seed, card):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 10
+
+# label -> the islands of the precision recipe under TPU.COMPUTE_DTYPE
+# bfloat16: the default recipe (attention follows compute, float32 head),
+# pure bf16, and a float32 attention island
+PRECISION = {
+    'default_recipe': dict(attention_dtype=None, head_dtype=torch.float32),
+    'pure_bf16': dict(attention_dtype=None, head_dtype=None),
+    'attention_island': dict(attention_dtype=torch.float32,
+                             head_dtype=torch.float32)}
+# the dataset CLI's --set for the default recipe
+RECIPE_SET = ('TPU.COMPUTE_DTYPE', 'bfloat16')
+
+
+def trunk_formats(config, params, query):
+    """The bf16 trunk (conv1..layer3) on one request's queries in the
+    channels_last memory format the port runs (the NHWC input's permuted
+    view) and in contiguous NCHW; -> {format: ms}."""
+    import torch.nn.functional as F
+    from dana_tpu_torch.models import layers as L
+    from dana_tpu_torch.models.dana import prep_query_images
+    from dana_tpu_torch.utils.weights import from_jax_params
+    bb = from_jax_params(params, config).backbone.to(DEV)
+    x = prep_query_images(config, torch.as_tensor(query, device=DEV)) \
+        .float().to(torch.bfloat16)
+
+    def run(fmt):
+        y = x.permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+        y = L.max_pool(F.relu(bb.bn1(bb.conv1(y))))
+        return bb.layer3(bb.layer2(bb.layer1(y)))
+    with torch.inference_mode():
+        return {name: cuda_ms(lambda: run(fmt), 5)
+                for name, fmt in (('channels_last', torch.channels_last),
+                                  ('nchw', torch.contiguous_format))}
+
+
+def precision_path(seed, card, f32_serving):
+    """Phase 10: phase 4's detector (res50 DAnA, 2-way 3-shot, weights from
+    `seed`) under each PRECISION setting serves REQUESTS requests as phase
+    4 does (counters zeroed around the path: 2 K1 a request in the
+    attention dtype, 1 K2 in bf16), request 0 again on the plain versions
+    held at PATH_TOL_BF16; then the bf16 trunk timed in both memory
+    formats.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    f32_ms, f32_peak = f32_serving['req_ms'][1:], f32_serving['peak_gib']
+    by_path, summary = {}, {}
+    for label, islands in PRECISION.items():
+        model = (dataclasses.replace(config, compute_dtype=torch.bfloat16,
+                                     **islands), params)
+        by_path[f'{label}_serving'], summary[label] = serving_path(
+            seed, model, label, tol=PATH_TOL_BF16)
+        torch.cuda.empty_cache()
+        print(f'{label} ({card}): ms per request '
+              f'{summary[label]["req_ms"]} (float32, phase 4: {f32_ms} after '
+              f'its first), peak memory {summary[label]["peak_gib"]:.2f} GiB '
+              f'(float32 {f32_peak:.2f})', flush=True)
+    query = serving_requests(seed, 1)[0][0]
+    summary['trunk_bf16_ms'] = trunk_formats(
+        dataclasses.replace(config, compute_dtype=torch.bfloat16), params,
+        query)
+    print(f'bf16 trunk by memory format ({card}): '
+          f'{summary["trunk_bf16_ms"]} ms a request', flush=True)
+    torch.cuda.empty_cache()
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -1575,6 +1815,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1622,6 +1863,11 @@ def main():
             dev, gen, c=VGG_C, label='[c512]')
         k3_ls_err, widths['roi_align_pw']['ls'] = check_roi_align_pw(
             dev, gen, hw=LS_HW, label='[ls]')
+        # the bf16 kernels: K1 and K4, K2 at 1024 and 512 channels
+        k1b_errs, k1b_sites = check_cisa_bf16(dev, gen)
+        k2b_err, k2b = check_roi_align_bf16(dev, gen)
+        k2b_c512_err, k2b_c512 = check_roi_align_bf16(dev, gen, c=VGG_C,
+                                                      label='[c512]')
     k1_err = max(k1_err, bucket_errs['cisa_shots'])
     k2_err = max(k2_err, bucket_errs['roi_align_fwd'], k2_c512_err,
                  k2_ls_err)
@@ -1650,14 +1896,29 @@ def main():
         # phase 9: the other trunks and pooling modes, then their CLIs
         slice9_launches, slice9 = slice9_path(args.seed, card)
         slice9_cli_launches, slice9_cli = slice9_cli_path(args.seed, card)
+        torch.cuda.empty_cache()
+        # phase 10: the precision recipe, then the dataset CLI in the
+        # default recipe on phase 7's checkpoint
+        t10 = time.perf_counter()
+        precision_launches, precision = precision_path(args.seed, card,
+                                                       serving)
+        recipe_cli_launches, recipe_cli = cli_path(
+            args.seed, ckpt, RECIPE_SET, label='recipe CLI path')
+        print(f'dataset CLI over synth_test in the default recipe: AP '
+              f'{recipe_cli["stats"][0]:.4f}, {recipe_cli["img_per_s"]:.2f} '
+              f'img/s; float32 (phase 6): AP {cli["stats"][0]:.4f}, '
+              f'{cli["img_per_s"]:.2f} img/s (AP not judged)', flush=True)
+        precision['phase_s'] = time.perf_counter() - t10
+        print(f'phase 10 took {precision["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
                **fw_launches, **meta_launches, **slice9_launches,
-               **slice9_cli_launches}
+               **slice9_cli_launches, **precision_launches,
+               'recipe_cli': recipe_cli_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
-                for name in ('cisa_shots', 'roi_align_fwd', 'roi_align_pw',
-                             'cisa_attention')}
+                for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
                       'training_summary': training,
                       'cli_summary': cli,
@@ -1666,6 +1927,8 @@ def main():
                       'meta_cli_summary': meta_cli,
                       'slice9_summary': slice9,
                       'slice9_cli_summary': slice9_cli,
+                      'precision_summary': precision,
+                      'recipe_cli_summary': recipe_cli,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'kernel_sites': {'cisa_shots': k1_sites,
@@ -1673,7 +1936,11 @@ def main():
                                        'roi_align_pw': {'train_roi': k3},
                                        'cisa_attention': {'main': k4},
                                        'buckets': buckets,
-                                       'widths': widths}}),
+                                       'widths': widths,
+                                       'bf16': {'cisa': k1b_sites,
+                                                'roi_align_fwd': k2b,
+                                                'roi_align_fwd_c512':
+                                                    k2b_c512}}}),
           flush=True)
 
     def row(name, source, replaces, err, sites):
@@ -1699,6 +1966,16 @@ def main():
             {'train_roi': k3}),
         row('cisa_attention', 'dana_tpu_torch/ops/csrc/cisa_shots.cu',
             'dana_tpu/ops/cisa_attention.py:65', k4_err, {'main': k4}),
+        row('cisa_shots_bf16', 'dana_tpu_torch/ops/csrc/cisa_shots_bf16.cu',
+            'dana_tpu/ops/cisa_attention.py:173', k1b_errs['shots'],
+            {k: k1b_sites[k] for k in ('rpn', 'roi')}),
+        row('roi_align_fwd_bf16', 'dana_tpu_torch/ops/csrc/roi_align.cu',
+            'dana_tpu/ops/roi_align_pallas.py:221',
+            max(k2b_err, k2b_c512_err), {'roi': k2b}),
+        row('cisa_attention_bf16',
+            'dana_tpu_torch/ops/csrc/cisa_shots_bf16.cu',
+            'dana_tpu/ops/cisa_attention.py:65', k1b_errs['single'],
+            {'main': k1b_sites['single']}),
     ]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -27,7 +27,10 @@ class Predictor:
     config.framework's detector, or its built module.  The device defaults
     to the card and the constructor raises without CUDA unless
     device='cpu' is passed; on the card float32 math runs without TF32
-    (utils.device.use_full_f32).
+    (utils.device.use_full_f32).  The detector computes in the config's
+    precision recipe (compute_dtype, attention_dt, head_dt); the support
+    cache holds compute_dtype features, and the postprocess takes
+    float32.
     `postprocess` is the detection postprocess's keywords
     (`utils.config.postprocess_kwargs` of the CLI's tree; the built-in
     tree's when None).
@@ -100,7 +103,8 @@ class Predictor:
                                  **kw)
         with record_function('dana.postprocess'):
             return postprocess_batch(
-                out['rois'], out['cls_prob'], out['bbox_pred'], im_info,
+                out['rois'], out['cls_prob'].float(),
+                out['bbox_pred'].float(), im_info,
                 bbox_stds=self.config.bbox_normalize_stds,
                 bbox_means=self.config.bbox_normalize_means,
                 **self.postprocess)

@@ -20,6 +20,7 @@ from torch.profiler import record_function
 from dana_tpu_torch.engine import optim
 from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.utils import config as cfg
+from dana_tpu_torch.utils.args import BF16_TRAINING
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import (from_jax_params, velocity_from_jax,
                                           velocity_to_jax)
@@ -53,6 +54,8 @@ class Trainer:
                  clip_norm: float = 0.0, fixed_blocks: int = cfg.FIXED_BLOCKS,
                  finetune: bool = False, **sgd):
         self.device = resolve_device(device)
+        if not config.all_float32:
+            raise SystemExit(BF16_TRAINING)
         use_full_f32()
         model = params if isinstance(params, torch.nn.Module) \
             else from_jax_params(params, config)

@@ -78,12 +78,23 @@ ARCHES = tuple(TRUNKS)
 POOLING_MODES = ('align', 'pool', 'crop')
 
 
+# the activation dtypes the precision recipe takes
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 @dataclasses.dataclass(frozen=True)
 class DanaConfig:
     """Model configuration (field names and defaults of the JAX
-    DanaConfig).  The port runs float32, concat attention and positional
-    encoding on both attention sites: the JAX fields that select otherwise
-    are not ported."""
+    DanaConfig).  The port runs concat attention and positional encoding
+    on both attention sites: the JAX fields that select otherwise are not
+    ported.
+
+    Precision (the JAX package's recipe): the parameters stay float32 and
+    every layer casts them to its input's dtype.  The trunk runs in
+    `compute_dtype`; both attention sites (projections and the CISA core)
+    in `attention_dt`; the RPN heads and the whole R-CNN head (RoI tail
+    included) in `head_dt`; None follows compute_dtype.  Each is float32
+    or bfloat16.  The proposal layer and the postprocess take float32."""
     n_way: int = 2
     n_shot: int = 3
     rpn_reduce_dim: int = 256
@@ -123,8 +134,22 @@ class DanaConfig:
     # 'cisa' (DAnA without the BA block), or a sibling of
     # models/frameworks.py ('frcnn', 'fsod', 'meta', 'fgn')
     framework: str = 'DAnA'
+    compute_dtype: torch.dtype = torch.float32
+    attention_dtype: torch.dtype | None = None
+    head_dtype: torch.dtype | None = None
 
     def __post_init__(self):
+        for name in ('compute_dtype', 'attention_dtype', 'head_dtype'):
+            dt = getattr(self, name)
+            if dt not in DTYPES and (dt is not None
+                                     or name == 'compute_dtype'):
+                raise ValueError(f'{name} {dt} is not one of {DTYPES}')
+        if self.pooling_mode != 'align' \
+                and self.compute_dtype != torch.float32:
+            raise ValueError(
+                f'pooling_mode {self.pooling_mode} in {self.compute_dtype}: '
+                'RoIPool and the crop are float32 only (ROADMAP Queue A 6: '
+                'pool and crop in bf16)')
         if self.arch not in ARCHES:
             raise NotImplementedError(
                 f'the detector has no {self.arch} trunk (have {ARCHES}; a '
@@ -143,6 +168,22 @@ class DanaConfig:
                 'resnet.init_params(config.arch) with 1024 channels '
                 '(dana_tpu/models/frameworks.py) and raise KeyError for '
                 'vgg16')
+
+    @property
+    def attention_dt(self):
+        return (self.compute_dtype if self.attention_dtype is None
+                else self.attention_dtype)
+
+    @property
+    def head_dt(self):
+        return (self.compute_dtype if self.head_dtype is None
+                else self.head_dtype)
+
+    @property
+    def all_float32(self):
+        """True when every stage computes in float32."""
+        return (self.compute_dtype == self.attention_dt == self.head_dt
+                == torch.float32)
 
     @property
     def num_anchors(self):
@@ -170,21 +211,21 @@ class DAnA(nn.Module):
         super().__init__()
         d = config.feat_dim
         self.backbone = TRUNKS[config.arch].module()
-        self.rpn_unary_layer = nn.Linear(d, 1)
-        self.rcnn_unary_layer = nn.Linear(d, 1)
-        self.rpn_adapt_q_layer = nn.Linear(d, config.rpn_reduce_dim)
-        self.rpn_adapt_k_layer = nn.Linear(d, config.rpn_reduce_dim)
-        self.rcnn_adapt_q_layer = nn.Linear(d, config.rcnn_reduce_dim)
-        self.rcnn_adapt_k_layer = nn.Linear(d, config.rcnn_reduce_dim)
+        self.rpn_unary_layer = L.Linear(d, 1)
+        self.rcnn_unary_layer = L.Linear(d, 1)
+        self.rpn_adapt_q_layer = L.Linear(d, config.rpn_reduce_dim)
+        self.rpn_adapt_k_layer = L.Linear(d, config.rpn_reduce_dim)
+        self.rcnn_adapt_q_layer = L.Linear(d, config.rcnn_reduce_dim)
+        self.rcnn_adapt_k_layer = L.Linear(d, config.rcnn_reduce_dim)
         self.RCNN_rpn = rpn_lib.RPN(config.rpn_din, config.num_anchors)
-        self.rcnn_transform_layer = nn.Linear(config.rpn_din, 64)
+        self.rcnn_transform_layer = L.Linear(config.rpn_din, 64)
         self.output_score_layer = nn.Module()
-        self.output_score_layer.linear1 = nn.Linear(
+        self.output_score_layer.linear1 = L.Linear(
             64 * config.pooling_size ** 2, 1024)
-        self.output_score_layer.linear2 = nn.Linear(1024, 2)
-        self.RCNN_bbox_pred = nn.Linear(config.tail_dim, 4)
+        self.output_score_layer.linear2 = L.Linear(1024, 2)
+        self.RCNN_bbox_pred = L.Linear(config.tail_dim, 4)
         if config.semantic_enhance:
-            self.rpn_channel_k_layer = nn.Linear(d, 1)
+            self.rpn_channel_k_layer = L.Linear(d, 1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -236,10 +277,11 @@ def init_params(config: DanaConfig, seed: int = 0,
     return p
 
 
-def _pe(length, like):
-    """The positional table [length, C] of like's channels C."""
+def _pe(length, like, dtype):
+    """The positional table [length, C] of like's channels C, on like's
+    device, rounded to `dtype` (the JAX tables are in attention_dt)."""
     return torch.tensor(positional_encoding(length, like.shape[-1]),
-                        device=like.device, dtype=like.dtype)
+                        device=like.device).to(dtype)
 
 
 def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
@@ -288,7 +330,9 @@ def roi_tail(model, pooled_feat):
 
 def rcnn_head(model: DAnA, config: DanaConfig, pooled_feat, support_pooled):
     """pooled_feat [B,R,7,7,C], support_pooled [B,shot,7,7,C] ->
-    (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2])."""
+    (bbox_pred [B,R,4], cls_prob [B,R,2], cls_score [B,R,2]), in
+    config.head_dt (the RoI tail too)."""
+    pooled_feat = pooled_feat.to(config.head_dt)
     bbox_pred = model.RCNN_bbox_pred(roi_tail(model, pooled_feat))
     return (bbox_pred, *rcnn_scores(model, config, pooled_feat,
                                      support_pooled))
@@ -298,61 +342,71 @@ def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
                 support_pooled):
     """The R-CNN head's attention and score part: pooled_feat
     [B,R,7,7,C] attends support_pooled [B,shot,7,7,C] -> (cls_prob
-    [B,R,2], cls_score [B,R,2])."""
+    [B,R,2], cls_score [B,R,2]): the tokens in config.attention_dt, the
+    rest in config.head_dt."""
     b, r, ph, pw, c = pooled_feat.shape
-    pe = _pe(config.pooling_size ** 2, pooled_feat)
-    q = pooled_feat.reshape(b, r, ph * pw, c) + pe[:ph * pw]
-    s_tokens = _support_tokens(support_pooled, pe)
+    adt, hdt = config.attention_dt, config.head_dt
+    pe = _pe(config.pooling_size ** 2, pooled_feat, adt)
+    q = pooled_feat.reshape(b, r, ph * pw, c).to(adt) + pe[:ph * pw]
+    s_tokens = _support_tokens(support_pooled.to(adt), pe)
     dense = _cisa_attention(q, s_tokens, model, 'rcnn',
                             config.rcnn_reduce_dim, config.unary_gamma)
+    q, dense = q.to(hdt), dense.to(hdt)
     # concat([q, dense]) @ W^T == q @ W[:, :C]^T + dense @ W[:, C:]^T,
     # without the [B,R,49,2C] concat
     tw = model.rcnn_transform_layer
-    corr = (q @ tw.weight[:, :c].T + dense @ tw.weight[:, c:].T
-            + tw.bias)                                          # [B,R,49,64]
+    w = tw.weight.to(hdt)
+    corr = (q @ w[:, :c].T + dense @ w[:, c:].T
+            + tw.bias.to(hdt))                                  # [B,R,49,64]
     x = corr.reshape(b, r, -1)             # token-major: index q*64 + d
     x = F.relu(model.output_score_layer.linear1(x))
     cls_score = model.output_score_layer.linear2(x)
     return torch.softmax(cls_score, dim=-1), cls_score
 
 
-def support_maps(model, support_ims):
+def support_maps(model, config: DanaConfig, support_ims):
     """support_ims [B, n, H, W, 3] (H, W >= 224) -> the trunk's maps
-    [B, n, H/16, W/16, C]."""
+    [B, n, H/16, W/16, C] in config.compute_dtype."""
     b, n, sh, sw, c = support_ims.shape
     if sh < 224 or sw < 224:
         raise ValueError(f'support images must be >= 224px (got {sh}x{sw}):'
                          ' the fixed AvgPool2d(14) needs a >= 14x14 map')
-    feats = model.backbone.base(support_ims.reshape(b * n, sh, sw,
-                                                    c).float())
+    feats = model.backbone.base(support_ims.reshape(b * n, sh, sw, c)
+                                .to(config.compute_dtype))
     return feats.reshape(b, n, *feats.shape[1:])
 
 
 def pool14(x):
-    """AvgPool2d(14, 1) over an NHWC map [N, h, w, C]."""
+    """AvgPool2d(14, 1) over an NHWC map [N, h, w, C], in x's dtype with
+    float32 sums (PyTorch's average pool; XLA on the CPU sums a bfloat16
+    window in bfloat16)."""
     return L.nchw_to_nhwc(L.avg_pool(L.nhwc_to_nchw(x), 14, 1))
 
 
 def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
     """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,C],
-    pooled [B,n,h-13,w-13,C]): the trunk, then AvgPool2d(14, 1)."""
-    feats = support_maps(model, support_ims)
+    pooled [B,n,h-13,w-13,C]): the trunk, then AvgPool2d(14, 1), in
+    config.compute_dtype."""
+    feats = support_maps(model, config, support_ims)
     b, n = feats.shape[:2]
     pooled = pool14(feats.reshape(b * n, *feats.shape[2:]))
     return feats, pooled.reshape(b, n, *pooled.shape[1:])
 
 
 def rpn_attention(model: DAnA, config: DanaConfig, base_feat, support_feat):
-    """base_feat [B,h,w,C] attends support_feat [B,shot,hs,ws,C]
-    -> concat correlation feature [B,h,w,2C]."""
+    """base_feat [B,h,w,C] attends support_feat [B,shot,hs,ws,C] (tokens
+    in config.attention_dt) -> concat correlation feature [B,h,w,2C] in
+    config.head_dt."""
     b, h, w, c = base_feat.shape
-    hs, ws = support_feat.shape[2:4]
-    s_tokens = _support_tokens(support_feat, _pe(20 * 20, base_feat))
+    adt, hdt = config.attention_dt, config.head_dt
+    s_tokens = _support_tokens(support_feat.to(adt),
+                               _pe(20 * 20, base_feat, adt))
     se = model.rpn_channel_k_layer if config.semantic_enhance else None
-    dense = _cisa_attention(base_feat.reshape(b, h * w, c), s_tokens, model,
-                            'rpn', config.rpn_reduce_dim, config.unary_gamma,
-                            se, config.gamma)
-    return torch.cat([base_feat, dense.reshape(b, h, w, c)], dim=-1)
+    dense = _cisa_attention(base_feat.reshape(b, h * w, c).to(adt), s_tokens,
+                            model, 'rpn', config.rpn_reduce_dim,
+                            config.unary_gamma, se, config.gamma)
+    return torch.cat([base_feat.to(hdt), dense.reshape(b, h, w, c).to(hdt)],
+                     dim=-1)
 
 
 def prep_query_images(config: DanaConfig, im_data):
@@ -366,11 +420,12 @@ def prep_query_images(config: DanaConfig, im_data):
 
 
 def query_features(model, config: DanaConfig, im_data):
-    """The queries' base features [B, H/16, W/16, C] (`dana.trunk`
-    range)."""
+    """The queries' base features [B, H/16, W/16, C] in
+    config.compute_dtype (`dana.trunk` range): the mean subtraction in
+    float32, then one cast."""
     with record_function('dana.trunk'):
-        return model.backbone.base(
-            prep_query_images(config, im_data).float())
+        return model.backbone.base(prep_query_images(config, im_data)
+                                   .float().to(config.compute_dtype))
 
 
 def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
@@ -379,7 +434,10 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
     `frameworks.trunk`): the RPN on the conditioned map `corr_feat`
     [B,h',w',C'], its anchors on that map's grid, the proposals, at
     training the target layers and the RPN losses, and the rois pooled
-    from `base_feat` [B,h,w,C] (`pool_rois`).
+    from `base_feat` [B,h,w,C] (`pool_rois`).  The RPN heads run in
+    config.head_dt, the proposal layer in float32; the rois are rounded
+    to base_feat's dtype for the pooling and the pooled features cross
+    into config.head_dt, while the returned rois stay float32.
 
     Training takes gt_boxes [B,G,5] and the target layers' draws (a dict
     keyed by `rpn.DRAW_KEYS`, or a torch.Generator to draw them from);
@@ -389,8 +447,8 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
     rpn_loss_cls, rpn_loss_box)."""
     _, fh, fw, _ = corr_feat.shape
     with record_function('dana.rpn_heads'):
-        logits, probs_fg, deltas = rpn_lib.rpn_forward(corr_feat,
-                                                       model.RCNN_rpn)
+        logits, probs_fg, deltas = rpn_lib.rpn_forward(
+            corr_feat.to(config.head_dt), model.RCNN_rpn)
 
     with record_function('dana.proposals'):
         base_anchor = generate_anchors(ratios=config.anchor_ratios,
@@ -398,7 +456,8 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
         anchors = shifted_anchors(fh, fw, config.feat_stride, base_anchor,
                                   device=base_feat.device)
         rois, _, roi_mask = rpn_lib.proposal_layer(
-            probs_fg.detach(), deltas.detach(), anchors, im_info.float(),
+            probs_fg.detach().float(), deltas.detach().float(), anchors,
+            im_info.float(),
             pre_nms_top_n=(config.train_pre_nms if training
                            else config.test_pre_nms),
             post_nms_top_n=(config.train_post_nms if training
@@ -406,8 +465,9 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
             nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
 
     if not training:
+        pooled = pool_rois(config, base_feat, rois.to(base_feat.dtype))
         return dict(rois=rois, roi_mask=roi_mask,
-                    pooled=pool_rois(config, base_feat, rois))
+                    pooled=pooled.to(config.head_dt))
 
     with record_function('dana.targets'):
         if isinstance(draws, torch.Generator):
@@ -445,10 +505,11 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
 
 
 def pool_rois(config: DanaConfig, base_feat, rois, training=False):
-    """base_feat [B,h,w,C], rois [B,R,5] -> [B,R,P,P,C] by
-    config.pooling_mode, each in its own range: RoIAlign (`dana.roi_align`;
-    K2 when serving, K3 from the axis weights in training), RoIPool
-    (`dana.roi_pool`) or the affine crop (`dana.roi_crop`)."""
+    """base_feat [B,h,w,C], rois [B,R,5] -> [B,R,P,P,C] in base_feat's
+    dtype by config.pooling_mode, each in its own range: RoIAlign
+    (`dana.roi_align`; K2 when serving, K3 from the axis weights in
+    training), RoIPool (`dana.roi_pool`) or the affine crop
+    (`dana.roi_crop`)."""
     p, scale = config.pooling_size, 1.0 / config.feat_stride
     with record_function(f'dana.roi_{config.pooling_mode}'):
         if config.pooling_mode == 'pool':

@@ -12,7 +12,10 @@ in training), and a detector-specific head.  The episodic
 siblings run their score head on the positive supports and, in training,
 on the negative ones, with DAnA's smooth-L1 and hard-mined pair losses.
 Their convolutions and linears are torch's own (cuDNN and cuBLAS on the
-card, float32 without TF32), as the JAX package computes them in XLA.
+card; float32 without TF32 unless the config's precision recipe asks for
+bfloat16), as the JAX package computes them in XLA: the trunk, the
+support maps and the RPN's conditioning in config.compute_dtype, the RPN
+heads and everything after the RoI pooling in config.head_dt.
 
 Modules carry the reference's names (`RCNN_rpn`, `global_fc_1`,
 `RCNN_cls_score.0`, `bn1`, ...), so a JAX param tree or a reference state
@@ -63,9 +66,9 @@ class _Detector(nn.Module):
         self.RCNN_rpn = rpn_lib.RPN(config.feat_dim, config.num_anchors)
 
 
-def _support_maps(model, support_ims):
+def _support_maps(model, config, support_ims):
     with record_function('dana.support_trunk'):
-        return dana.support_maps(model, support_ims)
+        return dana.support_maps(model, config, support_ims)
 
 
 def _shot_means(config, maps, training):
@@ -82,18 +85,19 @@ def _shot_means(config, maps, training):
     return pos, neg
 
 
-def _finish_episodic(out, bbox_pred, score_fn, pos, neg, training):
+def _finish_episodic(out, config, bbox_pred, score_fn, pos, neg, training):
     """The score head on the positive supports (and at training the
-    negative ones), and the shared R-CNN losses; the box branch does not
-    depend on the supports, so it is computed once, by the caller."""
+    negative ones), which cross into config.head_dt here, and the shared
+    R-CNN losses; the box branch does not depend on the supports, so it
+    is computed once, by the caller."""
     with record_function('dana.rcnn_head'):
-        cls_score = score_fn(pos)
+        cls_score = score_fn(pos.to(config.head_dt))
         res = dict(rois=out['rois'], roi_mask=out['roi_mask'],
                    bbox_pred=bbox_pred, cls_score=cls_score,
                    cls_prob=torch.softmax(cls_score, dim=-1))
         if not training:
             return res
-        neg_score = score_fn(neg)
+        neg_score = score_fn(neg.to(config.head_dt))
     with record_function('dana.losses'):
         losses = dana.rcnn_losses(out, bbox_pred, cls_score, neg_score)
     return dict(res, **losses, neg_cls_score=neg_score,
@@ -110,16 +114,16 @@ class FSOD(_Detector):
     def __init__(self, config: DanaConfig):
         super().__init__(config)
         d = config.feat_dim
-        self.global_fc_1 = nn.Linear(2 * d, d)
-        self.global_fc_2 = nn.Linear(d, d)
-        self.global_cls_score = nn.Linear(d, 2)
-        self.corr_conv = nn.Conv2d(d, d, 1, bias=False)
-        self.corr_cls_score = nn.Linear(d, 2)
-        self.patch_conv_1 = nn.Conv2d(2 * d, d // 4, 1, bias=False)
-        self.patch_conv_2 = nn.Conv2d(d // 4, d // 4, 3, bias=False)
-        self.patch_conv_3 = nn.Conv2d(d // 4, d, 1, bias=False)
-        self.patch_cls_score = nn.Linear(d, 2)
-        self.RCNN_bbox_pred = nn.Linear(config.tail_dim, 4)
+        self.global_fc_1 = L.Linear(2 * d, d)
+        self.global_fc_2 = L.Linear(d, d)
+        self.global_cls_score = L.Linear(d, 2)
+        self.corr_conv = L.Conv2d(d, d, 1, bias=False)
+        self.corr_cls_score = L.Linear(d, 2)
+        self.patch_conv_1 = L.Conv2d(2 * d, d // 4, 1, bias=False)
+        self.patch_conv_2 = L.Conv2d(d // 4, d // 4, 3, bias=False)
+        self.patch_conv_3 = L.Conv2d(d // 4, d, 1, bias=False)
+        self.patch_cls_score = L.Linear(d, 2)
+        self.RCNN_bbox_pred = L.Linear(config.tail_dim, 4)
 
 
 def init_fsod_params(config: DanaConfig, seed=0, backbone_params=None):
@@ -172,7 +176,7 @@ def fsod_forward(model: FSOD, config: DanaConfig, im_data, im_info,
     the grid's origin, as the reference places them); the three relation
     scores summed and divided by 10."""
     base_feat = dana.query_features(model, config, im_data)
-    pos, neg = _shot_means(config, _support_maps(model, support_ims),
+    pos, neg = _shot_means(config, _support_maps(model, config, support_ims),
                            training)
     pos_pooled = dana.pool14(pos)                      # [B, 7, 7, C]
     neg_pooled = dana.pool14(neg) if training else None
@@ -202,8 +206,8 @@ def fsod_forward(model: FSOD, config: DanaConfig, im_data, im_info,
         patch = model.patch_cls_score(x.reshape(b, r, -1))
         return (g + loc + patch) / 10.0                    # soft_gamma
 
-    return _finish_episodic(out, bbox_pred, score, pos_pooled, neg_pooled,
-                            training)
+    return _finish_episodic(out, config, bbox_pred, score, pos_pooled,
+                            neg_pooled, training)
 
 
 # ----------------------------------------------------------- Meta R-CNN
@@ -213,8 +217,8 @@ class MetaRCNN(_Detector):
 
     def __init__(self, config: DanaConfig):
         super().__init__(config)
-        self.RCNN_cls_score = nn.Sequential(nn.Linear(config.tail_dim, 2))
-        self.RCNN_bbox_pred = nn.Linear(config.tail_dim, 4)
+        self.RCNN_cls_score = nn.Sequential(L.Linear(config.tail_dim, 2))
+        self.RCNN_bbox_pred = L.Linear(config.tail_dim, 4)
 
 
 def init_meta_params(config: DanaConfig, seed=0, backbone_params=None):
@@ -240,7 +244,7 @@ def meta_forward(model: MetaRCNN, config: DanaConfig, im_data, im_info,
     roi sampling from the episode's gt_boxes; the score head reweights
     the RoI features' channels by the shot-mean vector."""
     base_feat = dana.query_features(model, config, im_data)
-    maps = _support_maps(model, support_ims)
+    maps = _support_maps(model, config, support_ims)
     b, n = maps.shape[:2]
     with record_function('dana.support_trunk'):
         f = F.max_pool2d(L.nhwc_to_nchw(maps.reshape(b * n, *maps.shape[2:])),
@@ -257,8 +261,8 @@ def meta_forward(model: MetaRCNN, config: DanaConfig, im_data, im_info,
     def score(vec):
         return model.RCNN_cls_score(tail * vec[:, None, :])
 
-    return _finish_episodic(out, bbox_pred, score, pos_vec, neg_vec,
-                            training)
+    return _finish_episodic(out, config, bbox_pred, score, pos_vec,
+                            neg_vec, training)
 
 
 # ------------------------------------------------------------------ FGN
@@ -270,14 +274,14 @@ class FGN(_Detector):
 
     def __init__(self, config: DanaConfig):
         super().__init__(config)
-        self.cls_conv1 = nn.Conv2d(2 * config.feat_dim, 512, 3, bias=False)
+        self.cls_conv1 = L.Conv2d(2 * config.feat_dim, 512, 3, bias=False)
         self.bn1 = L.BatchNorm2d(512)
-        self.cls_conv2 = nn.Conv2d(512, 128, 3, bias=False)
+        self.cls_conv2 = L.Conv2d(512, 128, 3, bias=False)
         self.bn2 = L.BatchNorm2d(128)
         # its 1152 inputs in (h, w, c) order: the JAX head's flatten of an
         # NHWC map (load_reference_state_dict permutes the reference's)
-        self.RCNN_cls_score = nn.Linear(128 * 3 * 3, 2)
-        self.RCNN_bbox_pred = nn.Linear(config.tail_dim, 4)
+        self.RCNN_cls_score = L.Linear(128 * 3 * 3, 2)
+        self.RCNN_bbox_pred = L.Linear(config.tail_dim, 4)
 
 
 def init_fgn_params(config: DanaConfig, seed=0, backbone_params=None):
@@ -306,7 +310,7 @@ def fgn_forward(model: FGN, config: DanaConfig, im_data, im_info,
     statistics twice a step, on the positive call and then on the negative
     one; otherwise they use the stored statistics."""
     base_feat = dana.query_features(model, config, im_data)
-    pos, neg = _shot_means(config, _support_maps(model, support_ims),
+    pos, neg = _shot_means(config, _support_maps(model, config, support_ims),
                            training)
     pos_rcnn = dana.pool14(pos)
     neg_rcnn = dana.pool14(neg) if training else None
@@ -329,8 +333,8 @@ def fgn_forward(model: FGN, config: DanaConfig, im_data, im_info,
         x = F.relu(model.bn2(model.cls_conv2(x), batch_stats))
         return model.RCNN_cls_score(L.nchw_to_nhwc(x).reshape(b, r, -1))
 
-    return _finish_episodic(out, bbox_pred, score, pos_rcnn, neg_rcnn,
-                            training)
+    return _finish_episodic(out, config, bbox_pred, score, pos_rcnn,
+                            neg_rcnn, training)
 
 
 # --------------------------------------------------------- Faster R-CNN
@@ -340,8 +344,8 @@ class FasterRCNN(_Detector):
 
     def __init__(self, config: DanaConfig, num_classes=NUM_CLASSES):
         super().__init__(config)
-        self.RCNN_cls_score = nn.Linear(config.tail_dim, num_classes)
-        self.RCNN_bbox_pred = nn.Linear(config.tail_dim, 4 * num_classes)
+        self.RCNN_cls_score = L.Linear(config.tail_dim, num_classes)
+        self.RCNN_bbox_pred = L.Linear(config.tail_dim, 4 * num_classes)
 
 
 def init_frcnn_params(config: DanaConfig, seed=0, backbone_params=None,

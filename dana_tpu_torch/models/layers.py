@@ -1,7 +1,13 @@
 """Building blocks (port of dana_tpu/models/layers.py).
 
-Convolutions, linears and activations are torch's own (nn.Conv2d,
-nn.Linear, F.relu; F.leaky_relu's default slope 0.01 is the JAX one).
+Convolutions and linears are torch's (`Conv2d` and `Linear` below keep
+nn.Conv2d's and nn.Linear's parameters and names), activations too (F.relu;
+F.leaky_relu's default slope 0.01 is the JAX one).  Mixed precision as in
+the JAX layers: the parameters stay float32 masters, and each layer
+computes in its input's dtype, casting its weights per call (a no-op in
+float32).  The casts are explicit, not `torch.autocast`: autocast's op
+lists (softmax and reductions promoted to float32, among others) do not
+follow the JAX package's precision islands.
 The trunk's modules work on NCHW tensors, which the public functions
 make from NHWC inputs with a permute (a channels_last view, so cuDNN
 keeps the NHWC memory order).  The trunk's BatchNorm is always frozen: an
@@ -20,6 +26,22 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's dtype: the weight and bias cast per call."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in its input's dtype: the weight and bias cast per call."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -56,15 +78,23 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_var', torch.ones(c))
 
     def forward(self, x, batch_stats=False):
+        if not batch_stats and x.dtype != self.weight.dtype:
+            # the stored statistics in another precision, as the JAX head
+            # applies them (training is float32 only)
+            return frozen_batchnorm(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=batch_stats,
                             momentum=self.momentum, eps=self.eps)
 
 
 def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):
-    """x * scale + offset over the channel axis 1 (NCHW)."""
+    """x * scale + offset over the channel axis 1 (NCHW), in x's dtype:
+    scale and offset are formed from the float32 statistics, then cast."""
     scale = weight * torch.rsqrt(running_var + eps)
     offset = bias - running_mean * scale
+    scale, offset = scale.to(x.dtype), offset.to(x.dtype)
     return x * scale[:, None, None] + offset[:, None, None]
 
 

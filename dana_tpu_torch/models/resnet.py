@@ -37,7 +37,7 @@ ARCH_LAYERS = {
 def _downsample(inplanes, out, stride):
     if stride == 1 and inplanes == out:
         return None
-    return nn.Sequential(nn.Conv2d(inplanes, out, 1, stride, bias=False),
+    return nn.Sequential(L.Conv2d(inplanes, out, 1, stride, bias=False),
                          L.FrozenBatchNorm2d(out))
 
 
@@ -47,11 +47,11 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride, bias=False)
+        self.conv1 = L.Conv2d(inplanes, planes, 1, stride, bias=False)
         self.bn1 = L.FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = L.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = L.FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = L.Conv2d(planes, out, 1, bias=False)
         self.bn3 = L.FrozenBatchNorm2d(out)
         self.downsample = _downsample(inplanes, out, stride)
 
@@ -69,9 +69,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes, planes, stride):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = L.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = L.FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = L.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = L.FrozenBatchNorm2d(planes)
         self.downsample = _downsample(inplanes, planes, stride)
 
@@ -101,7 +101,7 @@ class ResNet(nn.Module):
         kind, counts = ARCH_LAYERS[arch]
         block = _BLOCKS[kind]
         self.feat_dim, self.tail_dim = dims(arch)
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = L.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = L.FrozenBatchNorm2d(64)
         inplanes = 64
         for li, (planes, blocks) in enumerate(zip([64, 128, 256, 512],

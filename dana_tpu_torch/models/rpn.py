@@ -36,9 +36,9 @@ class RPN(nn.Module):
     def __init__(self, din: int, num_anchors: int):
         super().__init__()
         self.num_anchors = num_anchors
-        self.RPN_Conv = nn.Conv2d(din, 512, 3, 1, 1)
-        self.RPN_cls_score = nn.Conv2d(512, 2 * num_anchors, 1)
-        self.RPN_bbox_pred = nn.Conv2d(512, 4 * num_anchors, 1)
+        self.RPN_Conv = L.Conv2d(din, 512, 3, 1, 1)
+        self.RPN_cls_score = L.Conv2d(512, 2 * num_anchors, 1)
+        self.RPN_bbox_pred = L.Conv2d(512, 4 * num_anchors, 1)
 
 
 def init_rpn_params(rng: np.random.Generator, din: int, num_anchors: int):

@@ -53,12 +53,12 @@ class VGG16(nn.Module):
         super().__init__()
         convs, cin = {}, 3
         for idx, v in zip(CONV_IDX, [v for v in _CFG if v != 'M']):
-            convs[str(idx)] = nn.Conv2d(cin, v, 3, 1, 1)
+            convs[str(idx)] = L.Conv2d(cin, v, 3, 1, 1)
             cin = v
         self.features = nn.ModuleDict(convs)
         self.classifier = nn.ModuleDict({
-            '0': nn.Linear(FEAT_DIM * 7 * 7, TAIL_DIM),
-            '3': nn.Linear(TAIL_DIM, TAIL_DIM)})
+            '0': L.Linear(FEAT_DIM * 7 * 7, TAIL_DIM),
+            '3': L.Linear(TAIL_DIM, TAIL_DIM)})
 
     def base(self, x):
         return base_forward(x, self)

@@ -3,12 +3,16 @@
 
     out[g] = mean_s ( softmax(q[g] @ k[g,s]^T * scale) + gamma * u[g,s] ) @ v[g,s]
 
-`cisa_attention_shots` launches the hand-written kernel
-`csrc/cisa_shots.cu` on CUDA tensors and runs `cisa_attention_shots_plain`
-on CPU tensors.  The model consumes only the mean over shots, so the
-kernel takes it in registers and never stores per-shot outputs.
+`cisa_attention_shots` launches a hand-written kernel on CUDA tensors and
+runs `cisa_attention_shots_plain` on CPU tensors: float32 inputs launch
+`csrc/cisa_shots.cu` (3xTF32), bfloat16 inputs `csrc/cisa_shots_bf16.cu`
+(bf16 products, float32 sums: the JAX kernel's arithmetic in bfloat16);
+mixed dtypes raise.  The model consumes only the mean over shots, so the
+kernels take it in registers and never store per-shot outputs.
 `cisa_attention` is the single-group form (no shot axis, no mean): the
-same kernel entered with S = 1 through views of k, v and u.
+same kernels entered with S = 1 through views of k, v and u.  Each
+wrapper counts its float32 launches in `launches` and its bfloat16 ones
+in `launches_bf16`.
 
 Both are differentiable.  As in the JAX package, whose custom VJPs
 recompute the attention in plain XLA math, the backward recomputes the
@@ -27,41 +31,64 @@ from dana_tpu_torch.ops import build
 
 def cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma):
     """q [G,Nq,D], k [G,S,Ns,D], v [G,S,Ns,C], unary_sm [G,S,Ns]
-    (softmax over Ns) -> [G,Nq,C], the mean over the S shots."""
-    scores = torch.einsum('gqd,gsnd->gsqn', q, k) * scale
-    probs = torch.softmax(scores, dim=-1) + gamma * unary_sm[:, :, None, :]
-    return torch.einsum('gsqn,gsnc->gsqc', probs, v).mean(dim=1)
+    (softmax over Ns) -> [G,Nq,C], the mean over the S shots, in v's
+    dtype.  The JAX kernel's arithmetic in either dtype: the scores are
+    float32 sums of the operands' exact products, the softmax and the
+    unary term float32, the probabilities rounded to v's dtype before the
+    PV product, which sums in float32, and the shot mean is rounded once.
+    In float32 every cast is a no-op."""
+    scores = torch.einsum('gqd,gsnd->gsqn', q.float(), k.float()) * scale
+    probs = (torch.softmax(scores, dim=-1)
+             + gamma * unary_sm.float()[:, :, None, :])
+    out = torch.einsum('gsqn,gsnc->gsqc', probs.to(v.dtype).float(),
+                       v.float())
+    return out.mean(dim=1).to(v.dtype)
 
 
 def cisa_attention_plain(q, k, v, unary_sm, scale, gamma):
-    """q [G,Nq,D], k [G,Ns,D], v [G,Ns,C], unary_sm [G,1,Ns] -> [G,Nq,C]."""
-    scores = torch.einsum('gqd,gnd->gqn', q, k) * scale
-    probs = torch.softmax(scores, dim=-1) + gamma * unary_sm
-    return torch.einsum('gqn,gnc->gqc', probs, v)
+    """q [G,Nq,D], k [G,Ns,D], v [G,Ns,C], unary_sm [G,1,Ns] -> [G,Nq,C]
+    in v's dtype, with the arithmetic of `cisa_attention_shots_plain`."""
+    scores = torch.einsum('gqd,gnd->gqn', q.float(), k.float()) * scale
+    probs = torch.softmax(scores, dim=-1) + gamma * unary_sm.float()
+    out = torch.einsum('gqn,gnc->gqc', probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
 
 
-def _lib():
-    lib = build.load('cisa_shots')
-    if lib.cisa_shots_f32.argtypes is None:
-        lib.cisa_shots_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        lib.cisa_shots_f32.restype = ctypes.c_int
-        lib.cisa_shots_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.cisa_shots_smem_bytes.restype = ctypes.c_size_t
-        lib.cisa_shots_smem_limit.restype = ctypes.c_size_t
-    return lib
+# dtype -> (library and entry name, the D and C steps it takes, the
+# arguments of <name>_smem_bytes, the shared memory of its smallest tile
+# plan, out of (Ns, D, C)); each library also exports <name>_smem_limit()
+_KERNELS = {torch.float32: ('cisa_shots', 'cisa_shots_f32', 8, 4, 2),
+            torch.bfloat16: ('cisa_shots_bf16', 'cisa_shots_bf16', 16, 8, 3)}
+
+
+def _lib(dtype):
+    """-> (the dtype's kernel entry, smem(Ns, D, C): the bytes of shared
+    memory a launch needs, the bytes a block may use)."""
+    name, entry, _, _, n_smem = _KERNELS[dtype]
+    lib = build.load(name)
+    fn = getattr(lib, entry)
+    smem_fn = getattr(lib, f'{name}_smem_bytes')
+    limit_fn = getattr(lib, f'{name}_smem_limit')
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        smem_fn.argtypes = [ctypes.c_int] * n_smem
+        smem_fn.restype = limit_fn.restype = ctypes.c_size_t
+    return fn, lambda *ndc: smem_fn(*ndc[:n_smem]), limit_fn()
 
 
 def _launch(q, k, v, unary_sm, scale, gamma):
-    """Check the inputs and launch the cisa_shots kernel (k [G,S,Ns,D])."""
+    """Check the inputs and launch the cisa_shots kernel of their dtype
+    (k [G,S,Ns,D])."""
     ts = (q, k, v, unary_sm)
     if q.device.type != 'cuda' or any(t.device != q.device for t in ts):
         raise ValueError('cisa_attention_shots: inputs must be on one CUDA '
                          f'device (got {[str(t.device) for t in ts]})')
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError('cisa_attention_shots kernel takes float32 inputs '
-                        f'(got {[t.dtype for t in ts]})')
+    if q.dtype not in _KERNELS or any(t.dtype != q.dtype for t in ts):
+        raise TypeError('cisa_attention_shots kernels take float32 or '
+                        'bfloat16 inputs, all of one dtype (got '
+                        f'{[t.dtype for t in ts]})')
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or unary_sm.dim() != 3:
         raise ValueError('cisa_attention_shots: bad ranks')
     g, nq, d = q.shape
@@ -75,33 +102,41 @@ def _launch(q, k, v, unary_sm, scale, gamma):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError('cisa_attention_shots kernel takes contiguous '
                          'tensors')
-    if d % 8 or c % 4 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError('cisa_attention_shots kernel stages q, k and v in '
-                         f'16-byte copies and steps D by 8: needs D % 8 == 0 '
-                         f'(D={d}), C % 4 == 0 (C={c}) and 16-byte aligned '
-                         'q, k, v')
-    lib = _lib()
-    smem = lib.cisa_shots_smem_bytes(ns, d)
-    if smem > lib.cisa_shots_smem_limit():
+    name, _, d_step, c_step, _ = _KERNELS[q.dtype]
+    if d % d_step or c % c_step or any(t.data_ptr() % 16
+                                       for t in (q, k, v)):
+        raise ValueError(f'{name} kernel stages q, k and v in 16-byte '
+                         f'copies and steps D by {d_step}: needs D % '
+                         f'{d_step} == 0 (D={d}), C % {c_step} == 0 (C={c}) '
+                         'and 16-byte aligned q, k, v')
+    fn, smem_fn, limit = _lib(q.dtype)
+    smem = smem_fn(ns, d, c)
+    if smem > limit:
         raise ValueError(
-            f'cisa_attention_shots kernel: Ns={ns}, D={d} needs {smem} B '
-            f'of shared memory, above the {lib.cisa_shots_smem_limit()} B '
-            'a block may use')
-    out = torch.empty(g, nq, c, device=q.device, dtype=torch.float32)
+            f'{name} kernel: Ns={ns}, D={d}, C={c} needs {smem} B of '
+            f'shared memory, above the {limit} B a block may use')
+    out = torch.empty(g, nq, c, device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
-        err = lib.cisa_shots_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), unary_sm.data_ptr(),
-            out.data_ptr(), g, s, nq, ns, d, c, float(scale), float(gamma),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, 'cisa_shots')
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 unary_sm.data_ptr(), out.data_ptr(), g, s, nq, ns, d, c,
+                 float(scale), float(gamma),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
     return out
+
+
+def _count(wrapper, dtype):
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _shots_forward(q, k, v, unary_sm, scale, gamma):
     if q.device.type == 'cpu':
         return cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma)
     out = _launch(q, k, v, unary_sm, scale, gamma)
-    cisa_attention_shots.launches += 1
+    _count(cisa_attention_shots, q.dtype)
     return out
 
 
@@ -111,7 +146,7 @@ def _single_forward(q, k1, v1, unary_sm, scale, gamma):
         return cisa_attention_plain(q, k1[:, 0], v1[:, 0], unary_sm, scale,
                                     gamma)
     out = _launch(q, k1, v1, unary_sm, scale, gamma)
-    cisa_attention.launches += 1
+    _count(cisa_attention, q.dtype)
     return out
 
 
@@ -156,5 +191,5 @@ def cisa_attention(q, k, v, unary_sm, scale, gamma):
                             gamma, _single_forward)
 
 
-cisa_attention_shots.launches = 0
-cisa_attention.launches = 0
+cisa_attention_shots.launches = cisa_attention_shots.launches_bf16 = 0
+cisa_attention.launches = cisa_attention.launches_bf16 = 0

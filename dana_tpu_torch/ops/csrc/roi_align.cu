@@ -1,5 +1,5 @@
-// RoIAlign over NHWC features, float32, for Hopper (sm_90a): one
-// row-pooling body behind two entries.
+// RoIAlign over NHWC features for Hopper (sm_90a): one row-pooling body
+// behind two float32 entries, and its bfloat16 instance behind a third.
 //
 //   out[b, r, ph, pw, c] = sum_w Wx[b,r,pw,w] * sum_h Wy[b,r,ph,h] * feat[b,h,w,c]
 //
@@ -18,6 +18,17 @@
 //   * `roi_align_pw_f32` (K3, training) for `_kernel_pw3` (pallas_call in
 //     `roi_align_pallas_pw`): the same contractions of given Wy [B,R,P,H]
 //     and Wx [B,R,P,W], which the training step keeps for its backward.
+//   * `roi_align_fwd_bf16` (K2 in bfloat16, the precision recipe's
+//     serving path), whose arithmetic is that of the JAX package's bf16
+//     RoIAlign, the "combine" path of dana_tpu/ops/roi_align.py: every tap
+//     (h, w) of bin (ph, pw) weighs bf16(Wy[ph, h] * Wx[pw, w]), the
+//     product of the two float32 axis weights rounded to bf16, the sums
+//     run in float32 and each output is rounded to bf16 once.  K2's axis
+//     weights, taps and ring serve it unchanged; each thread owns 8
+//     neighbouring channels (16 bytes of bf16), 128 threads a block, and
+//     the combined weights are formed in registers, P a tap.  Bound:
+//     bytes, half of float32's (40 MB of map and 241 MB of outputs at the
+//     serving shapes, 0.084 ms at 3.35 TB/s).
 //
 // Bound on this card: bytes.  The function reads the feature map once and
 // writes each output once: 80 MB and 482 MB at the serving shapes (8
@@ -53,6 +64,7 @@
 //     ends the row: nothing reads them back before layer4, and they
 //     outgrow L2.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -60,42 +72,44 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = 256;              // float32: 4 channels a thread
+constexpr int THREADS_BF16 = 128;         // bf16: 8 channels a thread
 constexpr int D = 8;                        // cp.async ring slots, taps
 constexpr int V = 4;                        // taps a step
 constexpr int MAX_SAMPLES = 64;             // K2: samples per axis supported
 constexpr size_t SMEM_DEFAULT = 48 * 1024;  // above: opt in per kernel
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// 4-byte words of shared memory a block uses (`samples`: K2's sample
-// capacity per axis, 0 for K3).  `carve` lays them out in this order.
+// 4-byte words of shared memory a block of `threads` uses (`samples`: K2's
+// sample capacity per axis, 0 for K3).  `carve` lays them out in this
+// order.
 __host__ __device__ inline size_t smem_words(int H, int W, int P,
-                                             int samples) {
-  return (size_t)4 * D * THREADS + (size_t)2 * H * W + (size_t)3 * H
+                                             int samples, int threads) {
+  return (size_t)4 * D * threads + (size_t)2 * H * W + (size_t)3 * H
       + (size_t)2 * P * W + W + (H + 31) / 32 + (W + 31) / 32
       + (size_t)4 * samples * (1 + P);
 }
 
 struct Taps {
-  float4* ring;    // [D][THREADS] each thread's slots, a column each
+  float4* ring;    // [D][threads] each thread's 16-byte slots
   int2* list;      // [n_h * n_w] the taps in pooling order: feature row
-                   // offset in float4s (bit 31: the last of its column),
-                   // Wy tap (float bits)
+                   // offset in 16-byte units (bit 31: the last of its
+                   // column), Wy tap (float bits)
   float* wy;       // [H]     dense Wy row of the block's ph
   float* wx;       // [P][W]  dense Wx rows of the roi
   float* hw;       // [H]     kept Wy taps
-  int* hoff;       // [H]     their feature rows' offsets, in float4s
+  int* hoff;       // [H]     their feature rows' offsets, 16-byte units
   float* wxs;      // [W][P]  kept columns' Wx
-  int* woff;       // [W]     their offsets, in float4s
+  int* woff;       // [W]     their offsets, 16-byte units
   unsigned* mask;  // [ceil(H/32) + ceil(W/32)] ballots, rows then columns
   float* samples;  // K2: the roi's bilinear samples
 };
 
-__device__ __forceinline__ Taps carve(float* s, int H, int W, int P) {
+__device__ __forceinline__ Taps carve(float* s, int H, int W, int P,
+                                      int threads) {
   Taps t;
   t.ring = reinterpret_cast<float4*>(s);
-  t.list = reinterpret_cast<int2*>(s + 4 * D * THREADS);
+  t.list = reinterpret_cast<int2*>(s + 4 * D * threads);
   t.wy = reinterpret_cast<float*>(t.list + H * W);
   t.wx = t.wy + H;
   t.hw = t.wx + P * W;
@@ -125,13 +139,14 @@ __device__ __forceinline__ bool kept(const Taps& t, int k, int my, int lane,
   return any;
 }
 
-// All warps compact the dense rows into the kept taps, in ascending h and
-// w, and lay them out as one stream; -> its length, kept rows x kept
-// columns.  Starts with the dense rows visible to the whole block, and
-// ends with the taps.
-template <int P>
+// All warps of the NTH threads compact the dense rows into the kept taps,
+// in ascending h and w, and lay them out as one stream; -> its length,
+// kept rows x kept columns.  cn: 16-byte units of a feature row.  Starts
+// with the dense rows visible to the whole block, and ends with the taps.
+template <int P, int NTH>
 __device__ __forceinline__ int compact(const Taps& t, int H, int W,
-                                       int c4n) {
+                                       int cn) {
+  constexpr int WARPS = NTH / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   const int my = (H + 31) / 32, chunks = my + (W + 31) / 32;
@@ -147,10 +162,10 @@ __device__ __forceinline__ int compact(const Taps& t, int H, int W,
     if (k < my) {
       const int h = 32 * k + lane;
       t.hw[pos] = t.wy[h];
-      t.hoff[pos] = h * W * c4n;
+      t.hoff[pos] = h * W * cn;
     } else {
       const int w = 32 * (k - my) + lane;
-      t.woff[pos] = w * c4n;
+      t.woff[pos] = w * cn;
 #pragma unroll
       for (int q = 0; q < P; ++q) t.wxs[pos * P + q] = t.wx[q * W + w];
     }
@@ -158,7 +173,7 @@ __device__ __forceinline__ int compact(const Taps& t, int H, int W,
   __syncthreads();
   int nh = 0, nw = 0;
   for (int k = 0; k < chunks; ++k) (k < my ? nh : nw) += __popc(t.mask[k]);
-  for (int e = threadIdx.x; e < nh * nw; e += THREADS) {
+  for (int e = threadIdx.x; e < nh * nw; e += NTH) {
     const int j = e / nh, i = e - j * nh;
     t.list[e] = make_int2((t.hoff[i] + t.woff[j]) | (i == nh - 1 ? INT_MIN : 0),
                           __float_as_int(t.hw[i]));
@@ -199,6 +214,13 @@ __device__ __forceinline__ float4 ld_shared4(unsigned src) {
   float4 v;
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(src));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_shared_u4(unsigned src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(src));
   return v;
 }
 
@@ -258,6 +280,87 @@ __device__ __forceinline__ void pool_row(const float4* __restrict__ f4,
   }
 }
 
+// Two floats rounded to bf16, the first in the low half (lower address).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The bf16 body: pool_row's ring and tap stream over 8 bf16 channels a
+// thread (16 bytes), each tap weighed, for each output bin q of the row, by
+// bf16(Wy tap * Wx[q, w]) (see the head of the file).
+// f8: the image's feature map, o8: the row's [P, C] outputs, in 16-byte
+// units of 8 channels.
+template <int P>
+__device__ __forceinline__ void pool_row_bf16(const uint4* __restrict__ f8,
+                                              uint4* __restrict__ o8,
+                                              const Taps& t, int taps,
+                                              int c8n) {
+  constexpr int NG = D / V;
+  const int2* list = t.list;
+  const unsigned ring = (unsigned)__cvta_generic_to_shared(
+      t.ring + threadIdx.x);
+  for (int c8 = threadIdx.x; c8 < c8n; c8 += THREADS_BF16) {
+    float acc[P][8];
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[q][i] = 0.f;
+    int j = 0;                              // the current column
+#pragma unroll
+    for (int k = 0; k < (NG - 1) * V; ++k) {
+      if (k < taps)
+        cp_async16(ring + k * THREADS_BF16 * 16,
+                   reinterpret_cast<const float4*>(
+                       f8 + (list[k].x & INT_MAX) + c8));
+      if (k % V == V - 1) cp_async_commit();
+    }
+    for (int k = 0; k < taps; k += V) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int ahead = k + (NG - 1) * V + u;
+        if (ahead < taps)
+          cp_async16(ring + (ahead % D) * THREADS_BF16 * 16,
+                     reinterpret_cast<const float4*>(
+                         f8 + (list[ahead].x & INT_MAX) + c8));
+      }
+      cp_async_commit();
+      cp_async_wait<NG - 1>();
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (k + u >= taps) break;
+        const int2 e = list[k + u];
+        const uint4 raw =
+            ld_shared_u4(ring + ((k + u) % D) * THREADS_BF16 * 16);
+        const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};  // 8 bf16
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {       // bf16 -> float32, exactly
+          x[2 * i] = __uint_as_float(words[i] << 16);
+          x[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+        }
+        const float wy = __int_as_float(e.y);
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const float w = __bfloat162float(
+              __float2bfloat16_rn(__fmul_rn(wy, t.wxs[j * P + q])));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[q][i] = fmaf(w, x[i], acc[q][i]);
+        }
+        if (e.x < 0) ++j;                   // the column is done
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      __stcs(o8 + (size_t)q * c8n + c8,
+             make_uint4(pack_bf16x2(acc[q][0], acc[q][1]),
+                        pack_bf16x2(acc[q][2], acc[q][3]),
+                        pack_bf16x2(acc[q][4], acc[q][5]),
+                        pack_bf16x2(acc[q][6], acc[q][7])));
+    }
+  }
+}
+
 // K2: adaptive samples per bin axis, ceil(extent / pooled) by floor plus
 // exact-product correction, capped at max_samples.
 __device__ __forceinline__ float axis_count(float extent, int pooled,
@@ -301,18 +404,14 @@ __device__ __forceinline__ float axis_entry(const float* smp, int cap,
   return v;
 }
 
-template <int P>
-__global__ void __launch_bounds__(THREADS, 3)
-roi_align_fwd_kernel(const float* __restrict__ feat,
-                     const float* __restrict__ rois, float* __restrict__ out,
-                     int R, int H, int W, int C, int roi_cols,
-                     float spatial_scale, int max_samples) {
-  extern __shared__ float4 smem4[];
-  const Taps t = carve(reinterpret_cast<float*>(smem4), H, W, P);
-  const int ph = (int)(blockIdx.x % P);
-  const size_t br = blockIdx.x / P;                // b * R + r
-  const int b = (int)(br / R);
-  const float* roi = rois + br * roi_cols + (roi_cols - 4);
+// K2: the dense rows Wy[ph, :] and Wx[:, :] of one row of bins from its
+// roi, built by a block of NTH threads into t.
+template <int P, int NTH>
+__device__ __forceinline__ void roi_weights(const Taps& t,
+                                            const float* __restrict__ roi,
+                                            int ph, int H, int W,
+                                            float spatial_scale,
+                                            int max_samples) {
   const float x1 = __fmul_rn(roi[0], spatial_scale);
   const float y1 = __fmul_rn(roi[1], spatial_scale);
   const float x2 = __fmul_rn(roi[2], spatial_scale);
@@ -328,7 +427,7 @@ roi_align_fwd_kernel(const float* __restrict__ feat,
   // the row's ny samples along y at slots [0, ny), then nx for each of
   // the P bins along x at slots ny + q * nx + s
   const int cap = max_samples * (1 + P);
-  for (int e = threadIdx.x; e < ny + P * nx; e += THREADS) {
+  for (int e = threadIdx.x; e < ny + P * nx; e += NTH) {
     if (e < ny) {
       axis_sample(y1, bin_y, cy, ph, e, H, t.samples, cap, e);
     } else {
@@ -337,7 +436,7 @@ roi_align_fwd_kernel(const float* __restrict__ feat,
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < H + P * W; e += THREADS) {
+  for (int e = threadIdx.x; e < H + P * W; e += NTH) {
     if (e < H) {
       t.wy[e] = axis_entry(t.samples, cap, 0, ny, e);
     } else {
@@ -347,11 +446,47 @@ roi_align_fwd_kernel(const float* __restrict__ feat,
     }
   }
   __syncthreads();
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS, 3)
+roi_align_fwd_kernel(const float* __restrict__ feat,
+                     const float* __restrict__ rois, float* __restrict__ out,
+                     int R, int H, int W, int C, int roi_cols,
+                     float spatial_scale, int max_samples) {
+  extern __shared__ float4 smem4[];
+  const Taps t = carve(reinterpret_cast<float*>(smem4), H, W, P, THREADS);
+  const int ph = (int)(blockIdx.x % P);
+  const size_t br = blockIdx.x / P;                // b * R + r
+  const int b = (int)(br / R);
+  roi_weights<P, THREADS>(t, rois + br * roi_cols + (roi_cols - 4), ph, H, W,
+                          spatial_scale, max_samples);
   const int c4n = C / 4;
-  const int taps = compact<P>(t, H, W, c4n);
+  const int taps = compact<P, THREADS>(t, H, W, c4n);
   pool_row<P>(reinterpret_cast<const float4*>(feat) + (size_t)b * H * W * c4n,
               reinterpret_cast<float4*>(out) + (br * P + ph) * P * c4n, t,
               taps, c4n);
+}
+
+// K2 in bf16: K2's weights and taps, the bf16 body
+template <int P>
+__global__ void __launch_bounds__(THREADS_BF16, 4)
+roi_align_fwd_bf16_kernel(const uint4* __restrict__ feat,
+                          const float* __restrict__ rois,
+                          uint4* __restrict__ out, int R, int H, int W, int C,
+                          int roi_cols, float spatial_scale, int max_samples) {
+  extern __shared__ float4 smem4[];
+  const Taps t = carve(reinterpret_cast<float*>(smem4), H, W, P,
+                       THREADS_BF16);
+  const int ph = (int)(blockIdx.x % P);
+  const size_t br = blockIdx.x / P;                // b * R + r
+  const int b = (int)(br / R);
+  roi_weights<P, THREADS_BF16>(t, rois + br * roi_cols + (roi_cols - 4), ph,
+                               H, W, spatial_scale, max_samples);
+  const int c8n = C / 8;
+  const int taps = compact<P, THREADS_BF16>(t, H, W, c8n);
+  pool_row_bf16<P>(feat + (size_t)b * H * W * c8n,
+                   out + (br * P + ph) * P * c8n, t, taps, c8n);
 }
 
 template <int P>
@@ -361,7 +496,7 @@ roi_align_pw_kernel(const float* __restrict__ feat,
                     const float* __restrict__ wx, float* __restrict__ out,
                     int R, int H, int W, int C) {
   extern __shared__ float4 smem4[];
-  const Taps t = carve(reinterpret_cast<float*>(smem4), H, W, P);
+  const Taps t = carve(reinterpret_cast<float*>(smem4), H, W, P, THREADS);
   const int ph = (int)(blockIdx.x % P);
   const size_t br = blockIdx.x / P;                // b * R + r
   const int b = (int)(br / R);
@@ -373,33 +508,35 @@ roi_align_pw_kernel(const float* __restrict__ feat,
   }
   __syncthreads();
   const int c4n = C / 4;
-  const int taps = compact<P>(t, H, W, c4n);
+  const int taps = compact<P, THREADS>(t, H, W, c4n);
   pool_row<P>(reinterpret_cast<const float4*>(feat) + (size_t)b * H * W * c4n,
               reinterpret_cast<float4*>(out) + (br * P + ph) * P * c4n, t,
               taps, c4n);
 }
 
-// Shapes the body takes: C a multiple of 4, one image's map indexable in
-// int float4 offsets below bit 31, and its shared memory within the
-// block's 227 KB.
-bool shape_ok(int H, int W, int C, int P, int samples) {
-  return H > 0 && W > 0 && C > 0 && C % 4 == 0
-      && (size_t)H * W * (C / 4) <= (size_t)INT_MAX
-      && 4 * smem_words(H, W, P, samples) <= SMEM_MAX;
+// Shapes the body takes: C a multiple of `step` (the channels of 16
+// bytes), one image's map indexable in int 16-byte offsets below bit 31,
+// and its shared memory within the block's 227 KB.
+bool shape_ok(int H, int W, int C, int P, int samples, int threads,
+              int step) {
+  return H > 0 && W > 0 && C > 0 && C % step == 0
+      && (size_t)H * W * (C / step) <= (size_t)INT_MAX
+      && 4 * smem_words(H, W, P, samples, threads) <= SMEM_MAX;
 }
 
-// Launch `kernel` over `blocks` blocks with `smem` bytes of dynamic shared
-// memory, opting in above the default 48 KB; -> the cudaError_t.
+// Launch `kernel` over `blocks` blocks of `threads` with `smem` bytes of
+// dynamic shared memory, opting in above the default 48 KB; -> the
+// cudaError_t.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t blocks, size_t smem, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel kernel, size_t blocks, int threads, size_t smem,
+           cudaStream_t stream, Args... args) {
   if (blocks == 0) return (int)cudaSuccess;
   if (smem > SMEM_DEFAULT) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(args...);
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -417,21 +554,51 @@ extern "C" int roi_align_fwd_f32(const void* feat, const void* rois, void* out,
                                  int roi_cols, int P, float spatial_scale,
                                  int max_samples, void* stream) {
   if (max_samples < 1 || max_samples > MAX_SAMPLES
-      || !shape_ok(H, W, C, P, max_samples))
+      || !shape_ok(H, W, C, P, max_samples, THREADS, 4))
     return (int)cudaErrorInvalidValue;
   const size_t blocks = (size_t)B * R * P;
-  const size_t smem = 4 * smem_words(H, W, P, max_samples);
+  const size_t smem = 4 * smem_words(H, W, P, max_samples, THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   const float* f = (const float*)feat;
   const float* r = (const float*)rois;
   float* o = (float*)out;
   switch (P) {            // the detector's 7x7 bins; 5x5 in the tests
     case 5:
-      return launch(roi_align_fwd_kernel<5>, blocks, smem, s, f, r, o, R, H,
-                    W, C, roi_cols, spatial_scale, max_samples);
+      return launch(roi_align_fwd_kernel<5>, blocks, THREADS, smem, s, f, r,
+                    o, R, H, W, C, roi_cols, spatial_scale, max_samples);
     case 7:
-      return launch(roi_align_fwd_kernel<7>, blocks, smem, s, f, r, o, R, H,
-                    W, C, roi_cols, spatial_scale, max_samples);
+      return launch(roi_align_fwd_kernel<7>, blocks, THREADS, smem, s, f, r,
+                    o, R, H, W, C, roi_cols, spatial_scale, max_samples);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2 in bf16: feat [B,H,W,C] bf16, rois [B,R,roi_cols] float32 (roi_cols 4
+// or 5, box in the last 4) -> out [B,R,P,P,C] bf16; contiguous, feat
+// 16-byte aligned, C a multiple of 8.  Launches on `stream`; returns the
+// cudaError_t.
+extern "C" int roi_align_fwd_bf16(const void* feat, const void* rois,
+                                  void* out, int B, int R, int H, int W, int C,
+                                  int roi_cols, int P, float spatial_scale,
+                                  int max_samples, void* stream) {
+  if (max_samples < 1 || max_samples > MAX_SAMPLES
+      || !shape_ok(H, W, C, P, max_samples, THREADS_BF16, 8))
+    return (int)cudaErrorInvalidValue;
+  const size_t blocks = (size_t)B * R * P;
+  const size_t smem = 4 * smem_words(H, W, P, max_samples, THREADS_BF16);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint4* f = (const uint4*)feat;
+  const float* r = (const float*)rois;
+  uint4* o = (uint4*)out;
+  switch (P) {
+    case 5:
+      return launch(roi_align_fwd_bf16_kernel<5>, blocks, THREADS_BF16, smem,
+                    s, f, r, o, R, H, W, C, roi_cols, spatial_scale,
+                    max_samples);
+    case 7:
+      return launch(roi_align_fwd_bf16_kernel<7>, blocks, THREADS_BF16, smem,
+                    s, f, r, o, R, H, W, C, roi_cols, spatial_scale,
+                    max_samples);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -442,9 +609,9 @@ extern "C" int roi_align_fwd_f32(const void* feat, const void* rois, void* out,
 extern "C" int roi_align_pw_f32(const void* feat, const void* wy, const void* wx,
                                 void* out, int B, int R, int H, int W, int C,
                                 int P, void* stream) {
-  if (!shape_ok(H, W, C, P, 0)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(H, W, C, P, 0, THREADS, 4)) return (int)cudaErrorInvalidValue;
   const size_t blocks = (size_t)B * R * P;
-  const size_t smem = 4 * smem_words(H, W, P, 0);
+  const size_t smem = 4 * smem_words(H, W, P, 0, THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   const float* f = (const float*)feat;
   const float* y = (const float*)wy;
@@ -452,11 +619,11 @@ extern "C" int roi_align_pw_f32(const void* feat, const void* wy, const void* wx
   float* o = (float*)out;
   switch (P) {
     case 5:
-      return launch(roi_align_pw_kernel<5>, blocks, smem, s, f, y, x, o, R, H,
-                    W, C);
+      return launch(roi_align_pw_kernel<5>, blocks, THREADS, smem, s, f, y, x,
+                    o, R, H, W, C);
     case 7:
-      return launch(roi_align_pw_kernel<7>, blocks, smem, s, f, y, x, o, R, H,
-                    W, C);
+      return launch(roi_align_pw_kernel<7>, blocks, THREADS, smem, s, f, y, x,
+                    o, R, H, W, C);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
-"""RoIAlign over NHWC features (port of dana_tpu/ops/roi_align.py, float32
-path, and of the two Pallas kernels in dana_tpu/ops/roi_align_pallas.py).
+"""RoIAlign over NHWC features (port of dana_tpu/ops/roi_align.py, its
+float32 path and its bfloat16 "combine" path, and of the two Pallas kernels
+in dana_tpu/ops/roi_align_pallas.py).
 
 RoIAlign is separable (the JAX package's float32 form):
 
@@ -19,6 +20,15 @@ differ in where the taps come from:
     twin `roi_align_pw_plain`.
 Both take P = 5 or 7, C % 4 == 0 and 16-byte aligned feat (the body reads
 float4 channel groups), and raise on anything else.
+
+In bfloat16 (the precision recipe's serving path) `roi_align` launches the
+body's bf16 instance (`roi_align_fwd_bf16`, C % 8 == 0), whose arithmetic
+is the JAX package's bf16 path: each tap's weight is bf16(Wy * Wx), the
+product of the float32 axis weights rounded to bf16, the sums are float32
+and the output is rounded to bf16 once; its plain twin is
+`roi_align_combine_plain`.  The axis weights are the same float32 ones
+(rois taken in float32).  `roi_align` counts its float32 launches in
+`launches` and its bf16 ones in `launches_bf16`.
 `roi_align_train` is the training step's differentiable RoIAlign: it
 builds Wy / Wx once, pools with `roi_align_pw` and, in the backward,
 contracts the same weights with the output gradient in plain tensor
@@ -100,13 +110,31 @@ def roi_align_pw_backward(grad, wy, wx):
     return torch.stack(outs)
 
 
+def roi_align_combine_plain(feat, wy, wx):
+    """bf16 feat [B,H,W,C], float32 Wy [B,R,P,H], Wx [B,R,P,W] ->
+    [B,R,P,P,C] in feat's dtype: the JAX bf16 path, per image: the
+    combined weights bf16(Wy[p,h] * Wx[q,w]) [R,P,P,H,W] against the map
+    with float32 sums, rounded once."""
+    b, h, w, c = feat.shape
+    outs = []
+    for i in range(b):
+        comb = torch.einsum('rph,rqw->rpqhw', wy[i], wx[i]).to(feat.dtype)
+        out = comb.float().reshape(-1, h * w) @ feat[i].float().reshape(
+            h * w, c)
+        outs.append(out.reshape(*comb.shape[:3], c).to(feat.dtype))
+    return torch.stack(outs)
+
+
 def roi_align_plain(feat, rois, output_size: int = 7,
                     spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
-    """feat [B,H,W,C] float32, rois [B,R,4|5] (a leading batch-index
-    column is ignored; rois are grouped per image) -> [B,R,P,P,C]."""
+    """feat [B,H,W,C] float32 or bfloat16, rois [B,R,4|5] (a leading
+    batch-index column is ignored; rois are grouped per image) ->
+    [B,R,P,P,C] in feat's dtype."""
     wy, wx = roi_weights(rois, feat.shape[1], feat.shape[2], output_size,
                          spatial_scale, max_samples)
-    return roi_align_pw_plain(feat, wy, wx)
+    if feat.dtype == torch.float32:
+        return roi_align_pw_plain(feat, wy, wx)
+    return roi_align_combine_plain(feat, wy, wx)
 
 
 def _lib():
@@ -116,6 +144,8 @@ def _lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.roi_align_fwd_f32.restype = ctypes.c_int
+        lib.roi_align_fwd_bf16.argtypes = lib.roi_align_fwd_f32.argtypes
+        lib.roi_align_fwd_bf16.restype = ctypes.c_int
         lib.roi_align_fwd_max_samples.restype = ctypes.c_int
         lib.roi_align_pw_f32.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -126,12 +156,13 @@ def _lib():
 
 
 def _check_body(name, feat, p):
-    """The shared body's contract (float4 channels, P = 5 or 7); -> the
-    loaded library."""
-    c = feat.shape[-1]
-    if c % 4 or feat.data_ptr() % 16:
-        raise ValueError(f'{name} kernel reads feat as float4: needs '
-                         f'C % 4 == 0 (C={c}) and 16-byte aligned feat')
+    """The shared body's contract (16-byte channel groups, P = 5 or 7);
+    -> the loaded library."""
+    c, step = feat.shape[-1], 16 // feat.element_size()
+    groups = 'float4' if step == 4 else f'16-byte groups of {step} channels'
+    if c % step or feat.data_ptr() % 16:
+        raise ValueError(f'{name} kernel reads feat as {groups}: needs '
+                         f'C % {step} == 0 (C={c}) and 16-byte aligned feat')
     lib = _lib()
     if not lib.roi_align_pw_pooled_ok(p):
         raise ValueError(f'{name} kernel is built for P = 5 and 7 '
@@ -141,17 +172,22 @@ def _check_body(name, feat, p):
 
 def roi_align(feat, rois, output_size: int = 7,
               spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
-    """RoIAlign forward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Same arguments as `roi_align_plain`."""
+    """RoIAlign forward: the CUDA kernel of feat's dtype for CUDA tensors
+    (float32 feat with float32 rois; bf16 feat with float32 or bf16 rois,
+    read as float32), the plain version for CPU tensors.  Same arguments
+    as `roi_align_plain`."""
     if feat.device.type == 'cpu':
         return roi_align_plain(feat, rois, output_size, spatial_scale,
                                max_samples)
     if feat.device.type != 'cuda' or rois.device != feat.device:
         raise ValueError('roi_align: feat and rois must be on one CUDA '
                          f'device (got {feat.device}, {rois.device})')
-    if feat.dtype != torch.float32 or rois.dtype != torch.float32:
-        raise TypeError('roi_align kernel takes float32 feat and rois '
-                        f'(got {feat.dtype}, {rois.dtype})')
+    bf16 = feat.dtype == torch.bfloat16
+    if bf16 and rois.dtype in (torch.bfloat16, torch.float32):
+        rois = rois.float()
+    elif feat.dtype != torch.float32 or rois.dtype != torch.float32:
+        raise TypeError('roi_align kernels take float32 feat and rois, or '
+                        f'bf16 feat (got {feat.dtype}, {rois.dtype})')
     if feat.dim() != 4 or rois.dim() != 3 or rois.shape[-1] not in (4, 5) \
             or rois.shape[0] != feat.shape[0]:
         raise ValueError(f'roi_align: bad shapes feat {tuple(feat.shape)}, '
@@ -165,18 +201,22 @@ def roi_align(feat, rois, output_size: int = 7,
     b, h, w, c = feat.shape
     r = rois.shape[1]
     out = torch.empty(b, r, output_size, output_size, c, device=feat.device,
-                      dtype=torch.float32)
+                      dtype=feat.dtype)
+    entry = lib.roi_align_fwd_bf16 if bf16 else lib.roi_align_fwd_f32
     with torch.cuda.device(feat.device):
-        err = lib.roi_align_fwd_f32(
+        err = entry(
             feat.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
             rois.shape[-1], output_size, spatial_scale, max_samples,
             torch.cuda.current_stream(feat.device).cuda_stream)
-    build.check(err, 'roi_align_fwd')
-    roi_align.launches += 1
+    build.check(err, 'roi_align_fwd_bf16' if bf16 else 'roi_align_fwd')
+    if bf16:
+        roi_align.launches_bf16 += 1
+    else:
+        roi_align.launches += 1
     return out
 
 
-roi_align.launches = 0
+roi_align.launches = roi_align.launches_bf16 = 0
 
 
 def roi_align_pw(feat, wy, wx):

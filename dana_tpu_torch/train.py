@@ -66,7 +66,7 @@ from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.engine.train import Trainer
 from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
-from dana_tpu_torch.utils.args import load_cfg, parse_args
+from dana_tpu_torch.utils.args import BF16_TRAINING, load_cfg, parse_args
 from dana_tpu_torch.utils.config import dana_config
 from dana_tpu_torch.utils.device import resolve_device
 
@@ -193,6 +193,9 @@ def setup(args):
     the seed or from the checkpoint --r names, its Trainer with the
     restored momentum and generator, the batcher at the epoch before."""
     c = load_cfg(args)
+    config = dana_config(c, args.way, args.shot, args.net, args.backbone)
+    if not config.all_float32:
+        raise SystemExit(BF16_TRAINING)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -205,7 +208,6 @@ def setup(args):
         loader, args.batch_size, shuffle=True, seed=args.seed,
         num_workers=min(args.num_workers, os.cpu_count() or 1))
 
-    config = dana_config(c, args.way, args.shot, args.net, args.backbone)
     if args.resume:
         params, config, lr, start_epoch, velocity, generator = restore(
             args, c, config)

@@ -19,11 +19,12 @@ Two layers:
 `dana_config(tree, way, shot, net, backbone)` builds a detector's config
 from a tree, as the root `utils.py model_config_kwargs` and `get_model`
 do: the trunk of `backbone` (or of `net` where that names one), the
-tree's POOLING_MODE, float32 compute; for DAnA the BA block on and concat
-attention, for `cisa` the BA block off; `config.framework` names the
-detector.  `get_model(name, way, shot, seed, net)` mirrors the root
-`utils.get_model` on the default tree (9 anchors, before any `--ascale`
-preset).
+tree's POOLING_MODE, the precision recipe of TPU.COMPUTE_DTYPE,
+TPU.ATTENTION_DTYPE and TPU.HEAD_DTYPE (`dtype_or_none`); for DAnA the BA
+block on and concat attention, for `cisa` the BA block off;
+`config.framework` names the detector.  `get_model(name, way, shot, seed,
+net)` mirrors the root `utils.get_model` on the default tree (9 anchors,
+before any `--ascale` preset).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from __future__ import annotations
 from ast import literal_eval
 
 import numpy as np
+import torch
 
 FEAT_STRIDE = 16
 # training: optimizer (torch SGD semantics, per-group bias rules)
@@ -115,6 +117,15 @@ def default_cfg() -> AttrDict:
             'QUANT_INT8': False,
             # decoded training support crops kept by the episodic loaders
             'SUPPORT_CACHE': 2048,
+            # the precision recipe, at the JAX package's defaults: the trunk
+            # in COMPUTE_DTYPE, the attention sites in ATTENTION_DTYPE ('':
+            # follow COMPUTE_DTYPE), the RPN heads and the R-CNN head in
+            # HEAD_DTYPE, float32 parameters throughout.  The JAX package
+            # reads PARAM_DTYPE nowhere; the port carries it and ignores it
+            'COMPUTE_DTYPE': 'float32',
+            'ATTENTION_DTYPE': '',
+            'HEAD_DTYPE': 'float32',
+            'PARAM_DTYPE': 'float32',
         },
         'RESNET': {'FIXED_BLOCKS': 1},
         'MAX_NUM_GT_BOXES': 20,
@@ -181,6 +192,24 @@ def cfg_from_list(c: AttrDict, cfg_list) -> None:
         d[leaf] = value
 
 
+# TPU.*_DTYPE names -> torch dtype names (the root `utils.py` `_dt_or_none`
+# table)
+DTYPE_NAMES = {'bfloat16': 'bfloat16', 'bf16': 'bfloat16', 'float32': 'float32',
+          'f32': 'float32'}
+
+
+def dtype_or_none(name: str):
+    """A TPU.*_DTYPE value -> its torch dtype; '' -> None (follow
+    COMPUTE_DTYPE).  An unknown name raises: a mistyped precision setting
+    must not run in float32 unnoticed."""
+    if not name:
+        return None
+    if name not in DTYPE_NAMES:
+        raise ValueError(f'unknown dtype {name!r} for a TPU.*_DTYPE setting '
+                         f'(use one of {sorted(DTYPE_NAMES)})')
+    return getattr(torch, DTYPE_NAMES[name])
+
+
 def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA',
                 backbone: str = 'res50'):
     """The config of the detector `net` (a key of NETS) on the trunk
@@ -214,6 +243,9 @@ def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA',
         bbox_normalize_means=tuple(c.TRAIN.BBOX_NORMALIZE_MEANS),
         bbox_normalize_stds=tuple(c.TRAIN.BBOX_NORMALIZE_STDS),
         bn_train=c.TRAIN.BN_TRAIN,
+        compute_dtype=dtype_or_none(c.TPU.COMPUTE_DTYPE) or torch.float32,
+        attention_dtype=dtype_or_none(c.TPU.ATTENTION_DTYPE),
+        head_dtype=dtype_or_none(c.TPU.HEAD_DTYPE),
         pixel_means=tuple(np.asarray(c.PIXEL_MEANS).ravel().tolist()))
 
 

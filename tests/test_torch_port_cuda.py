@@ -298,3 +298,73 @@ def test_trunk_and_mode_paths_match_plain(dev, label):
     assert serving['cisa_shots'] == 2 * chip_smoke.REQUESTS
     assert serving['roi_align_fwd'] == chip_smoke.REQUESTS * align
     assert training['roi_align_pw'] == chip_smoke.STEPS * align
+
+
+# the bf16 kernels against their plain versions on the same bf16 inputs:
+# one bf16 ulp at the output's scale (float32 sums in another order can
+# move a value across a rounding boundary)
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_ULP * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize('shape', [
+    (2, 3, 100, 400, 256, 1024),     # RPN site
+    (1, 3, 14700, 49, 256, 1024),    # RoI site, ragged Nq
+    (2, 3, 100, 400, 256, 512),      # VGG16's channels
+    (2, 3, 77, 1, 256, 1024),        # Ns = 1
+    (3, 2, 77, 57, 64, 1096),        # ragged Nq and Ns, a channel tail
+    (1, 1, 40, 130, 32, 2048),       # two channel slices
+])
+def test_cisa_bf16_kernel_matches_plain(dev, shape):
+    g, s, nq, ns, d, c = shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(*sh, device=dev, generator=gen).bfloat16()
+               for sh in ((g, nq, d), (g, s, ns, d), (g, s, ns, c)))
+    u = torch.softmax(torch.randn(g, s, ns, device=dev, generator=gen),
+                      -1).bfloat16()
+    before = (ca.cisa_attention_shots.launches,
+              ca.cisa_attention_shots.launches_bf16)
+    got = ca.cisa_attention_shots(q, k, v, u, d ** -0.5, 0.1)
+    _bf16_close(got, ca.cisa_attention_shots_plain(q, k, v, u, d ** -0.5,
+                                                   0.1))
+    assert (ca.cisa_attention_shots.launches,
+            ca.cisa_attention_shots.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+
+
+def test_cisa_single_bf16_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(*sh, device=dev, generator=gen).bfloat16()
+               for sh in ((2, 100, 256), (2, 400, 256), (2, 400, 1024)))
+    u = torch.softmax(torch.randn(2, 1, 400, device=dev, generator=gen),
+                      -1).bfloat16()
+    before = ca.cisa_attention.launches_bf16
+    _bf16_close(ca.cisa_attention(q, k, v, u, 1 / 16, 0.1),
+                ca.cisa_attention_plain(q, k, v, u, 1 / 16, 0.1))
+    assert ca.cisa_attention.launches_bf16 == before + 1
+    with pytest.raises(TypeError, match='one dtype'):
+        ca.cisa_attention(q.float(), k, v, u, 1 / 16, 0.1)
+    with pytest.raises(ValueError, match='D % 16'):
+        ca.cisa_attention(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                          v, u, 1 / 16, 0.1)
+
+
+@pytest.mark.parametrize('c', [40, 512, 1024])
+def test_roi_align_bf16_kernel_matches_plain(dev, c):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    feat = torch.randn(2, 10, 12, c, device=dev, generator=gen).bfloat16()
+    rois = _kernel_rois(dev, gen, 5).bfloat16()     # as the model rounds
+    for p in (7, 5):
+        before = ra.roi_align.launches, ra.roi_align.launches_bf16
+        got = ra.roi_align(feat, rois, p)
+        _bf16_close(got, ra.roi_align_plain(feat, rois, p))
+        assert (ra.roi_align.launches,
+                ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
+        assert not got[:, _OUTSIDE].any()
+    with pytest.raises(ValueError, match='16-byte groups'):
+        ra.roi_align(feat[..., :12].contiguous(), rois)
