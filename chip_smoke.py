@@ -35,6 +35,11 @@ Run from the repository root.  Phases, each of which fails the run:
      at |kernel - plain| <= BF16_ULP * max|plain| (one bf16 ulp at the
      output's scale) and timed beside it, SDPA in bf16 for K1 and K4, and
      the bound (K1 and K4 at the bf16 tensor-core rate, K2 its bytes);
+     K1-bf16's and K4-bf16's two phases (the probabilities into a bf16
+     scratch, then one product over the shots' keys) are timed apart and
+     printed beside the earlier mma.sync kernel's time
+     (MMA_SYNC_CISA_BF16_MS) with TFLOP/s and GB/s, after the kernel's
+     ptxas register and spill report;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -556,17 +561,42 @@ def check_bf16(name, got, want):
     return err, tol
 
 
+# K1-bf16 and K4-bf16 before their wgmma redesign: the simple mma.sync
+# kernel's ms per call (PERF.md kernel table, the K1 @ bf16 and K4 @ bf16
+# rows' times in brackets: this script's phase 3 on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+MMA_SYNC_CISA_BF16_MS = {'rpn': 0.799, 'roi': 0.941, 'rpn_c512': 0.683,
+                         'roi_c512': 0.740, 'single': 0.311}
+
+
+def ptxas_report(name):
+    """The register and spill lines nvcc's ptxas printed for one kernel
+    source (build.BUILD_LOG), each named by its entry function."""
+    from dana_tpu_torch.ops import build
+    lines, entry = [], None
+    for line in build.BUILD_LOG.get(name, '').splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif 'spill' in line or 'ptxas info    : Used' in line:
+            lines.append(f'{entry}: {line.strip()}')
+    return lines
+
+
 def check_cisa_bf16(dev, gen):
     """K1 in bf16 at the serving path's two sites on ResNet's 1024 and
     VGG16's 512 channels, then edge shapes, and K4 in bf16 (the single-group
     CISA, K1's bf16 kernel at S = 1) at its main shape: against the plain
     versions, timed beside the plain versions, SDPA in bf16 plus the unary
-    term, and the bound at the bf16 tensor-core rate; -> ({'shots': K1's
+    term, the bound at the bf16 tensor-core rate and the mma.sync kernel's
+    time, with its two phases (the probabilities into the bf16 scratch,
+    then the product over the shots' keys) timed apart; -> ({'shots': K1's
     max |error|, 'single': K4's}, {site: numbers})."""
     from dana_tpu_torch.ops.cisa_attention import (
         cisa_attention, cisa_attention_plain, cisa_attention_shots,
-        cisa_attention_shots_plain)
+        cisa_attention_shots_plain, cisa_probs_bf16, cisa_pv_bf16)
     from dana_tpu_torch.utils import config as cfg
+    for line in ptxas_report('cisa_shots_bf16'):
+        print(f'cisa_shots_bf16 ptxas: {line}', flush=True)
     bf16 = torch.bfloat16
     fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
     ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
@@ -606,16 +636,31 @@ def check_cisa_bf16(dev, gen):
             flops = 2 * g * max(s, 1) * nq * ns * (d + c)
             b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
             ms = cuda_ms(lambda: fn(*args), 10)
+            k4, v4 = (k[:, None], v[:, None]) if single else (k, v)
+            probs = cisa_probs_bf16(q, k4, u, 1.0 / 16.0, 0.1)
             sites[name] = dict(
                 ms=ms, plain_ms=cuda_ms(lambda: plain(*args), 3),
                 library_ms=cuda_ms(lambda: library(*args), 5), bound_ms=b_ms,
                 bound_by=b_by, bound_rate='bf16 tensor cores',
-                tflop_per_s=flops / ms / 1e9, flops=flops, bytes=nbytes,
-                max_abs_err=case_err, tol=tol)
+                tflop_per_s=flops / ms / 1e9, gb_per_s=nbytes / ms / 1e6,
+                mma_sync_ms=MMA_SYNC_CISA_BF16_MS[name],
+                phase_a_ms=cuda_ms(
+                    lambda: cisa_probs_bf16(q, k4, u, 1.0 / 16.0, 0.1), 10),
+                phase_b_ms=cuda_ms(lambda: cisa_pv_bf16(probs, v4), 10),
+                flops=flops, bytes=nbytes, max_abs_err=case_err, tol=tol)
+            del probs
         print(f'cisa bf16[{name}] G={g} S={s or 1} Nq={nq} Ns={ns} D={d} '
               f'C={c}: max|kernel-plain| {case_err:.3e} (tolerance '
               f'{tol:.3e})' + (f', {sites[name]}' if name in sites else ''),
               flush=True)
+        if name in sites:
+            t = sites[name]
+            print(f'cisa bf16[{name}]: {t["ms"]:.4f} ms (mma.sync kernel: '
+                  f'{t["mma_sync_ms"]} ms; phase A {t["phase_a_ms"]:.4f}, '
+                  f'phase B {t["phase_b_ms"]:.4f}), '
+                  f'{t["tflop_per_s"]:.1f} TFLOP/s, {t["gb_per_s"]:.1f} GB/s, '
+                  f'bound {t["bound_ms"]:.4f} ms ({t["bound_by"]}), SDPA + '
+                  f'unary {t["library_ms"]:.4f} ms', flush=True)
         del q, k, v, u, args
     return errs, sites
 
@@ -1742,6 +1787,13 @@ PRECISION = {
                              head_dtype=torch.float32)}
 # the dataset CLI's --set for the default recipe
 RECIPE_SET = ('TPU.COMPUTE_DTYPE', 'bfloat16')
+# each setting's requests after the first with the mma.sync K1-bf16, ms
+# (PERF.md section 5, the serving table's rows of the three bf16 settings
+# before the redesign: this script's phase 10 on an NVIDIA H100 80GB HBM3
+# at 700 W)
+MMA_SYNC_REQUEST_MS = {'default_recipe': (84.50, 86.81),
+                       'pure_bf16': (40.02, 41.51),
+                       'attention_island': (88.03, 88.55)}
 
 
 def trunk_formats(config, params, query):
@@ -1784,9 +1836,12 @@ def precision_path(seed, card, f32_serving):
             seed, model, label, tol=PATH_TOL_BF16)
         torch.cuda.empty_cache()
         print(f'{label} ({card}): ms per request '
-              f'{summary[label]["req_ms"]} (float32, phase 4: {f32_ms} after '
-              f'its first), peak memory {summary[label]["peak_gib"]:.2f} GiB '
-              f'(float32 {f32_peak:.2f})', flush=True)
+              f'{summary[label]["req_ms"]} (with the mma.sync K1-bf16: '
+              f'{MMA_SYNC_REQUEST_MS[label][0]}-'
+              f'{MMA_SYNC_REQUEST_MS[label][1]} after its first; float32, '
+              f'phase 4: {f32_ms} after its first), peak memory '
+              f'{summary[label]["peak_gib"]:.2f} GiB (float32 '
+              f'{f32_peak:.2f})', flush=True)
     query = serving_requests(seed, 1)[0][0]
     summary['trunk_bf16_ms'] = trunk_formats(
         dataclasses.replace(config, compute_dtype=torch.bfloat16), params,
@@ -1841,7 +1896,7 @@ def main():
           flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if 'ptxas info    : Used' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
 
     # phase 3: kernels against their plain versions

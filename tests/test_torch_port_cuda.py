@@ -312,14 +312,20 @@ def _bf16_close(got, want):
     assert err <= BF16_ULP * want.float().abs().max().item(), err
 
 
+# (G, S, Nq, Ns, D, C) against the bf16 kernel's tiles: 128 query rows a
+# block, 64 keys a tile (one pass at Ns <= 64), 128 x 128 output tiles
 @pytest.mark.parametrize('shape', [
-    (2, 3, 100, 400, 256, 1024),     # RPN site
-    (1, 3, 14700, 49, 256, 1024),    # RoI site, ragged Nq
-    (2, 3, 100, 400, 256, 512),      # VGG16's channels
+    (2, 3, 100, 400, 256, 1024),     # RPN site, Nq below one row tile
+    (1, 3, 14700, 49, 256, 1024),    # RoI site: one key tile, ragged Nq
+    (2, 3, 300, 400, 256, 512),      # VGG16's channels, ragged Nq
     (2, 3, 77, 1, 256, 1024),        # Ns = 1
     (3, 2, 77, 57, 64, 1096),        # ragged Nq and Ns, a channel tail
-    (1, 1, 40, 130, 32, 2048),       # two channel slices
-])
+    (1, 1, 40, 130, 32, 2048),       # D below one sub-tile, 16 channel tiles
+    (1, 1, 200, 49, 256, 1096),      # S = 1, G = 1, Ns = 49
+    (1, 3, 129, 400, 256, 1096),     # one row past a tile, G = 1
+    (2, 1, 257, 1, 256, 512),        # S = 1, Ns = 1
+    (1, 3, 640, 65, 448, 1032),      # the largest D, one key past a tile,
+])                                   # a v box wholly past C
 def test_cisa_bf16_kernel_matches_plain(dev, shape):
     g, s, nq, ns, d, c = shape
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -337,11 +343,39 @@ def test_cisa_bf16_kernel_matches_plain(dev, shape):
                                                        before[1] + 1)
 
 
-def test_cisa_single_bf16_kernel_matches_plain(dev):
+@pytest.mark.parametrize('shape', [
+    (2, 3, 100, 400, 256, 1024), (1, 3, 14700, 49, 256, 1024),
+    (3, 2, 77, 57, 64, 1096), (2, 1, 257, 1, 256, 512)])
+def test_cisa_bf16_phases_match_plain(dev, shape):
+    """Phase A's P against its plain version (the same bits but where the
+    float32 row sums, taken in another order, move a value across a bf16
+    rounding boundary: one bf16 ulp of the value), and phase B on that P
+    against its plain version (one bf16 ulp at the output's scale)."""
+    g, s, nq, ns, d, c = shape
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (torch.randn(*sh, device=dev, generator=gen).bfloat16()
+               for sh in ((g, nq, d), (g, s, ns, d), (g, s, ns, c)))
+    u = torch.softmax(torch.randn(g, s, ns, device=dev, generator=gen),
+                      -1).bfloat16()
+    p = ca.cisa_probs_bf16(q, k, u, d ** -0.5, 0.1)
+    want = ca.cisa_probs_bf16_plain(q, k, u, d ** -0.5, 0.1)
+    torch.testing.assert_close(p.float(), want.float(), rtol=BF16_ULP,
+                               atol=1e-6)
+    _bf16_close(ca.cisa_pv_bf16(p, v), ca.cisa_pv_bf16_plain(p, v))
+
+
+@pytest.mark.parametrize('shape', [
+    (2, 100, 400, 256, 1024),        # K4 at the RPN site's widths
+    (1, 300, 49, 256, 512),          # one key tile, G = 1, ragged Nq
+    (1, 77, 1, 256, 1096),           # Ns = 1, a channel tail
+    (8, 2432, 400, 256, 1024),       # chip_smoke.py's K4 shape
+])
+def test_cisa_single_bf16_kernel_matches_plain(dev, shape):
+    g, nq, ns, d, c = shape
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v = (torch.randn(*sh, device=dev, generator=gen).bfloat16()
-               for sh in ((2, 100, 256), (2, 400, 256), (2, 400, 1024)))
-    u = torch.softmax(torch.randn(2, 1, 400, device=dev, generator=gen),
+               for sh in ((g, nq, d), (g, ns, d), (g, ns, c)))
+    u = torch.softmax(torch.randn(g, 1, ns, device=dev, generator=gen),
                       -1).bfloat16()
     before = ca.cisa_attention.launches_bf16
     _bf16_close(ca.cisa_attention(q, k, v, u, 1 / 16, 0.1),
@@ -351,6 +385,10 @@ def test_cisa_single_bf16_kernel_matches_plain(dev):
         ca.cisa_attention(q.float(), k, v, u, 1 / 16, 0.1)
     with pytest.raises(ValueError, match='D % 16'):
         ca.cisa_attention(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                          v, u, 1 / 16, 0.1)
+    with pytest.raises(ValueError, match='shared memory'):
+        ca.cisa_attention(torch.zeros(g, nq, 512, device=dev).bfloat16(),
+                          torch.zeros(g, ns, 512, device=dev).bfloat16(),
                           v, u, 1 / 16, 0.1)
 
 
