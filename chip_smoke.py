@@ -39,7 +39,13 @@ Run from the repository root.  Phases, each of which fails the run:
      scratch, then one product over the shots' keys) are timed apart and
      printed beside the earlier mma.sync kernel's time
      (MMA_SYNC_CISA_BF16_MS) with TFLOP/s and GB/s, after the kernel's
-     ptxas register and spill report;
+     ptxas register and spill report; K2-bf16 is also held and timed at
+     the other four query buckets and on the --ls canvas (1000 rois an
+     image), each time with its time without the whole-map rois, its
+     modelled L2 bytes (each roi's kept taps once, `roi_tap_extent`,
+     beside the row-pooling body's rule) and the tensor-core TFLOP/s of its
+     padded product, beside the row-pooling kernel's time at the first
+     bucket (ROW_POOLING_K2_BF16_MS), after roi_align.cu's ptxas report;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -368,12 +374,13 @@ def roi_taps(wy, wx, c):
     return flops, 4 * c * (nh * nw[..., None]).sum().item()
 
 
-def roi_site(fn, plain, nbytes, flops, gather, fn_cut, library=None):
+def roi_site(fn, plain, nbytes, flops, gather, fn_cut, library=None,
+             flop_per_s=FP32_FLOP_PER_S):
     """Times of a RoIAlign kernel beside its plain version (and library
     yardstick), its bound, and its rates: GB/s of the counted bytes and of
     the modelled L2 bytes; `fn_cut`: the kernel on the same rois without
     the whole-map ones (`without_whole_map`), whose rows are the longest."""
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, flops, flop_per_s)
     ms = cuda_ms(fn, 10)
     return dict(ms=ms, plain_ms=cuda_ms(plain, 3),
                 library_ms=None if library is None else cuda_ms(library, 3),
@@ -570,14 +577,16 @@ MMA_SYNC_CISA_BF16_MS = {'rpn': 0.799, 'roi': 0.941, 'rpn_c512': 0.683,
 
 
 def ptxas_report(name):
-    """The register and spill lines nvcc's ptxas printed for one kernel
-    source (build.BUILD_LOG), each named by its entry function."""
+    """The register, spill and wgmma-serialisation lines nvcc's ptxas
+    printed for one kernel source (build.BUILD_LOG), each named by its
+    entry function."""
     from dana_tpu_torch.ops import build
     lines, entry = [], None
     for line in build.BUILD_LOG.get(name, '').splitlines():
         if 'Compiling entry function' in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif 'spill' in line or 'ptxas info    : Used' in line:
+        elif ('spill' in line or 'ptxas info    : Used' in line
+              or 'serializ' in line):
             lines.append(f'{entry}: {line.strip()}')
     return lines
 
@@ -665,37 +674,114 @@ def check_cisa_bf16(dev, gen):
     return errs, sites
 
 
-def check_roi_align_bf16(dev, gen, c=1024, label=''):
-    """K2 in bf16 at the serving shapes (BATCH maps of the first query
-    bucket with `c` channels, the test proposals rounded to bf16 as the
-    model hands them), against its plain version (the JAX package's bf16
-    path), timed; -> (max |error|, numbers)."""
-    from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
-                                              roi_weights)
+# K2-bf16 before its tensor-core redesign: the row-pooling body's bf16
+# instance, ms per call at the first query bucket (PERF.md kernel table,
+# the K2 @ bf16 row's times in brackets: this script's phase 3 on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+ROW_POOLING_K2_BF16_MS = {'roi': 0.575, 'c512': 0.501}
+TC_TAPS, TC_ROWS, TC_SLICE = 64, 64, 256    # K2-bf16's tiles (roi_align.cu)
+
+
+def k2_bf16_work(rois, h, w, p, c):
+    """K2-bf16's work on these rois on an h x w map of c channels: flops,
+    the nonzero combined products (2 C for each (roi, bin, tap) with Wy[ph,
+    h] Wx[pw, w] != 0); tap_bytes, each roi's taps (`roi_tap_extent`: the
+    rows x columns of its spans) once at 2 C bytes; gather_bytes, what its
+    TMA boxes read through L2 (a span's columns rounded up to 8, cut at the
+    map's edge); row_gather_bytes, the row-pooling body's rule (the kept
+    taps of each (roi, bin row) read apart); tc_flops, the tensor-core
+    operations of the padded product (64 bin rows x the span's rows times
+    its columns rounded up to 8, rounded up to 64 a roi, x C rounded up to
+    256)."""
+    from dana_tpu_torch.ops.roi_align import roi_tap_extent, roi_weights
+    wy, wx = roi_weights(rois, h, w, p, 1 / 16.0)
+    rows, cols = roi_tap_extent(rois, h, w, p, 1 / 16.0)
+    ny, nx = (wy != 0).sum(-1), (wx != 0).sum(-1)           # [B,R,P]
+    nh, nw = rows.sum(-1), cols.sum(-1)                      # [B,R]
+    padded = (nw + 7) // 8 * 8
+    read = torch.minimum(padded, w - cols.int().argmax(-1))  # inside the map
+    slots = ((nh * padded + TC_TAPS - 1) // TC_TAPS).clamp(min=1)
+    return dict(
+        flops=2 * c * (ny.sum(-1) * nx.sum(-1)).sum().item(),
+        tap_bytes=2 * c * (nh * nw).sum().item(),
+        gather_bytes=2 * c * (nh * read).sum().item(),
+        row_gather_bytes=2 * c * (ny * (wx != 0).any(-2).sum(-1)[..., None]
+                                  ).sum().item(),
+        tc_flops=2 * TC_ROWS * TC_TAPS * slots.sum().item()
+        * (-(-c // TC_SLICE) * TC_SLICE))
+
+
+def check_roi_align_bf16(dev, gen, card, c=1024, hw=QUERY_HW, r=None,
+                         label='', row_pooling_ms=None):
+    """K2 in bf16 at the serving shapes (BATCH maps of the query bucket `hw`
+    with `c` channels, `r` rois an image (default the test proposals),
+    rounded to bf16 as the model hands them), against its plain version
+    (the JAX package's bf16 path), timed beside it, without the whole-map
+    rois and beside `row_pooling_ms`, the row-pooling kernel's time at the
+    same shapes; -> (max |error|, numbers)."""
+    from dana_tpu_torch.ops.roi_align import roi_align, roi_align_plain
     from dana_tpu_torch.utils import config as cfg
-    b, r, p = BATCH, cfg.TEST_RPN_POST_NMS_TOP_N, cfg.POOLING_SIZE
-    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    b, r, p = BATCH, r or cfg.TEST_RPN_POST_NMS_TOP_N, cfg.POOLING_SIZE
+    fh, fw = (s // cfg.FEAT_STRIDE for s in hw)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen).to(
         torch.bfloat16)
-    rois = serving_rois(b, r, gen, dev).to(torch.bfloat16)
+    rois = serving_rois(b, r, gen, dev, hw).to(torch.bfloat16)
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
     err, tol = check_bf16(f'roi_align_fwd bf16{label}',
                           roi_align(feat, rois, p, 1 / 16.0), want)
-    wy, wx = roi_weights(rois, fh, fw, p, 1 / 16.0)
-    taps = ((wy != 0).sum(-1) * (wx != 0).any(-2).sum(-1)[..., None]).sum()
+    work = k2_bf16_work(rois, fh, fw, p, c)
     nbytes = 2 * feat.numel() + 4 * rois.numel() + 2 * want.numel()
-    flops = 2 * c * p * taps.item()           # P bins a tap, a channel
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    ms = cuda_ms(lambda: roi_align(feat, rois, p, 1 / 16.0), 10)
-    site = dict(ms=ms, plain_ms=cuda_ms(
-        lambda: roi_align_plain(feat, rois, p, 1 / 16.0), 3),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
-        bytes=nbytes, gb_per_s=nbytes / ms / 1e6,
-        gather_bytes=2 * c * taps.item(), max_abs_err=err, tol=tol)
+    cut = without_whole_map(rois)
+    site = roi_site(lambda: roi_align(feat, rois, p, 1 / 16.0),
+                    lambda: roi_align_plain(feat, rois, p, 1 / 16.0),
+                    nbytes, work['flops'], work['gather_bytes'],
+                    lambda: roi_align(feat, cut, p, 1 / 16.0),
+                    flop_per_s=BF16_FLOP_PER_S)
+    site.update(tap_bytes=work['tap_bytes'],
+                row_gather_bytes=work['row_gather_bytes'],
+                tc_flops=work['tc_flops'],
+                tc_tflop_per_s=work['tc_flops'] / site['ms'] / 1e9,
+                max_abs_err=err, tol=tol, row_pooling_ms=row_pooling_ms)
     print(f'roi_align_fwd bf16{label} feat={tuple(feat.shape)} '
           f'rois={tuple(rois.shape)}: max|kernel-plain| {err:.3e} '
           f'(tolerance {tol:.3e}), {site}', flush=True)
+    print(f'roi_align_fwd bf16{label} ({card}): {site["ms"]:.4f} ms '
+          f'(row-pooling kernel: {site["row_pooling_ms"]} ms; without the '
+          f'whole-map rois '
+          f'{site["ms_without_whole_map"]:.4f}), bound '
+          f'{site["bound_ms"]:.4f} ms ({site["bound_by"]}), taps '
+          f'{site["tap_bytes"] / 1e9:.3f} GB (row rule '
+          f'{site["row_gather_bytes"] / 1e9:.3f}), read through L2 '
+          f'{site["gather_bytes"] / 1e9:.3f} GB at '
+          f'{site["gather_gb_per_s"]:.1f} GB/s, tensor cores '
+          f'{site["tc_tflop_per_s"]:.1f} TFLOP/s of the padded product, '
+          f'plain {site["plain_ms"]:.3f} ms', flush=True)
     return err, site
+
+
+def check_roi_align_bf16_all(dev, gen, card):
+    """K2-bf16's ptxas report, then the kernel held and timed on ResNet's
+    1024 and VGG16's 512 channels at the first query bucket, at the other
+    four buckets and on the --ls canvas (1000 rois an image); -> (max
+    |error|, {case: numbers})."""
+    for line in ptxas_report('roi_align'):
+        print(f'roi_align ptxas: {line}', flush=True)
+        if 'roi_align_fwd_bf16' in line and (
+                'serializ' in line
+                or ('spill' in line and '0 bytes spill stores, 0 bytes '
+                    'spill loads' not in line)):
+            fail(f'roi_align_fwd_bf16: ptxas reports {line}')
+    cases = {'roi': {}, 'c512': dict(c=VGG_C, label='[c512]'),
+             'ls': dict(hw=LS_HW, r=LS_POST_NMS, label='[ls]'),
+             **{'x'.join(map(str, hw)): dict(hw=hw, label=f'[{hw}]')
+                for hw in OTHER_BUCKETS}}
+    err, sites = 0.0, {}
+    for name, kw in cases.items():
+        e, sites[name] = check_roi_align_bf16(
+            dev, gen, card, row_pooling_ms=ROW_POOLING_K2_BF16_MS.get(name),
+            **kw)
+        err = max(err, e)
+    return err, sites
 
 
 def pw_library(wy, feat, wx):
@@ -1918,11 +2004,10 @@ def main():
             dev, gen, c=VGG_C, label='[c512]')
         k3_ls_err, widths['roi_align_pw']['ls'] = check_roi_align_pw(
             dev, gen, hw=LS_HW, label='[ls]')
-        # the bf16 kernels: K1 and K4, K2 at 1024 and 512 channels
+        # the bf16 kernels: K1 and K4, K2 at 1024 and 512 channels, at
+        # every query bucket and on the --ls canvas
         k1b_errs, k1b_sites = check_cisa_bf16(dev, gen)
-        k2b_err, k2b = check_roi_align_bf16(dev, gen)
-        k2b_c512_err, k2b_c512 = check_roi_align_bf16(dev, gen, c=VGG_C,
-                                                      label='[c512]')
+        k2b_err, k2b_sites = check_roi_align_bf16_all(dev, gen, card)
     k1_err = max(k1_err, bucket_errs['cisa_shots'])
     k2_err = max(k2_err, bucket_errs['roi_align_fwd'], k2_c512_err,
                  k2_ls_err)
@@ -1993,9 +2078,8 @@ def main():
                                        'buckets': buckets,
                                        'widths': widths,
                                        'bf16': {'cisa': k1b_sites,
-                                                'roi_align_fwd': k2b,
-                                                'roi_align_fwd_c512':
-                                                    k2b_c512}}}),
+                                                'roi_align_fwd':
+                                                    k2b_sites}}}),
           flush=True)
 
     def row(name, source, replaces, err, sites):
@@ -2025,8 +2109,8 @@ def main():
             'dana_tpu/ops/cisa_attention.py:173', k1b_errs['shots'],
             {k: k1b_sites[k] for k in ('rpn', 'roi')}),
         row('roi_align_fwd_bf16', 'dana_tpu_torch/ops/csrc/roi_align.cu',
-            'dana_tpu/ops/roi_align_pallas.py:221',
-            max(k2b_err, k2b_c512_err), {'roi': k2b}),
+            'dana_tpu/ops/roi_align_pallas.py:221', k2b_err,
+            {'roi': k2b_sites['roi']}),
         row('cisa_attention_bf16',
             'dana_tpu_torch/ops/csrc/cisa_shots_bf16.cu',
             'dana_tpu/ops/cisa_attention.py:65', k1b_errs['single'],

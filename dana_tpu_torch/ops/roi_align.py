@@ -11,9 +11,9 @@ adaptive sample count by floor plus exact-product correction, capped at
 `max_samples`, and the clamp rules of the reference CUDA kernel).
 
 Two entries, each a hand-written kernel for CUDA tensors and its plain
-version for CPU tensors.  Both kernels are in `csrc/roi_align.cu` and share
-one body that pools a row of bins (b, r, ph) from its kept taps; they
-differ in where the taps come from:
+version for CPU tensors.  Their float32 kernels are in `csrc/roi_align.cu`
+and share one body that pools a row of bins (b, r, ph) from its kept taps;
+they differ in where the taps come from:
   * `roi_align` (serving): the kernel builds Wy / Wx from the rois; plain
     twin `roi_align_plain`.
   * `roi_align_pw` (training): the kernel takes precomputed Wy / Wx; plain
@@ -21,13 +21,14 @@ differ in where the taps come from:
 Both take P = 5 or 7, C % 4 == 0 and 16-byte aligned feat (the body reads
 float4 channel groups), and raise on anything else.
 
-In bfloat16 (the precision recipe's serving path) `roi_align` launches the
-body's bf16 instance (`roi_align_fwd_bf16`, C % 8 == 0), whose arithmetic
-is the JAX package's bf16 path: each tap's weight is bf16(Wy * Wx), the
-product of the float32 axis weights rounded to bf16, the sums are float32
-and the output is rounded to bf16 once; its plain twin is
-`roi_align_combine_plain`.  The axis weights are the same float32 ones
-(rois taken in float32).  `roi_align` counts its float32 launches in
+In bfloat16 (the precision recipe's serving path) `roi_align` launches
+`roi_align_fwd_bf16` (C % 8 == 0), whose arithmetic is the JAX package's
+bf16 path: each tap's weight is bf16(Wy * Wx), the product of the float32
+axis weights rounded to bf16, the sums are float32 and the output is
+rounded to bf16 once; its plain twin is `roi_align_combine_plain`.  The
+kernel does it as one tensor-core product a roi over the roi's kept taps,
+the rectangle `roi_tap_extent` gives; the axis weights are the same float32
+ones (rois taken in float32).  `roi_align` counts its float32 launches in
 `launches` and its bf16 ones in `launches_bf16`.
 `roi_align_train` is the training step's differentiable RoIAlign: it
 builds Wy / Wx once, pools with `roi_align_pw` and, in the backward,
@@ -44,9 +45,11 @@ import torch
 from dana_tpu_torch.ops import build
 
 
-def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
-    """[..., pooled, size] interpolation weights for one axis from roi
-    start/end `lo`, `hi` [...] in feature coordinates."""
+def _axis_samples(lo, hi, size: int, pooled: int, max_samples: int):
+    """The bilinear samples of one axis from roi start/end `lo`, `hi` [...]
+    in feature coordinates: (low index, high index, low weight, high
+    weight) [..., pooled, max_samples] (weight 0 past the bin's count), and
+    the count [...]."""
     extent = torch.clamp(hi - lo, min=1.0)
     # IEEE division on every device, as the kernel divides: PyTorch on CUDA
     # turns a division by a Python number into a product with its float32
@@ -71,12 +74,32 @@ def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
     x_low = torch.clamp(torch.floor(xc), max=size - 1)
     frac = torch.where(x_low >= size - 1, 0.0, xc - x_low)
     x_high = torch.clamp(x_low + 1, max=size - 1)
-
     w = (smask & in_range).to(dt) / count[..., None, None]
-    u = torch.arange(size, device=dev, dtype=dt)
-    contrib = ((u == x_low[..., None]) * (w * (1.0 - frac))[..., None]
-               + (u == x_high[..., None]) * (w * frac)[..., None])
+    return x_low, x_high, w * (1.0 - frac), w * frac, count
+
+
+def _axis_weights(lo, hi, size: int, pooled: int, max_samples: int):
+    """[..., pooled, size] interpolation weights for one axis from roi
+    start/end `lo`, `hi` [...] in feature coordinates."""
+    x_low, x_high, w_low, w_high, _ = _axis_samples(lo, hi, size, pooled,
+                                                    max_samples)
+    u = torch.arange(size, device=lo.device, dtype=lo.dtype)
+    contrib = ((u == x_low[..., None]) * w_low[..., None]
+               + (u == x_high[..., None]) * w_high[..., None])
     return contrib.sum(dim=-2)                                  # [...,P,size]
+
+
+def _axis_span(lo, hi, size: int, pooled: int, max_samples: int):
+    """[..., size] bool: the span of the map one axis's samples touch, from
+    the low index of bin 0's first sample to the high index of bin P-1's
+    last (the indices grow with the sample)."""
+    x_low, x_high, _, _, count = _axis_samples(lo, hi, size, pooled,
+                                               max_samples)
+    first = x_low[..., 0, 0]
+    last = torch.gather(x_high[..., -1, :], -1,
+                        count.long()[..., None] - 1)[..., 0]
+    u = torch.arange(size, device=lo.device, dtype=lo.dtype)
+    return (u >= first[..., None]) & (u <= last[..., None])
 
 
 def roi_weights(rois, h: int, w: int, output_size: int = 7,
@@ -87,6 +110,20 @@ def roi_weights(rois, h: int, w: int, output_size: int = 7,
     wy = _axis_weights(r[..., 1], r[..., 3], h, output_size, max_samples)
     wx = _axis_weights(r[..., 0], r[..., 2], w, output_size, max_samples)
     return wy, wx
+
+
+def roi_tap_extent(rois, h: int, w: int, output_size: int = 7,
+                   spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
+    """The taps the bf16 kernel pools for each roi: (rows [B,R,h], columns
+    [B,R,w]) bool, each axis's span of the map from the low index of bin
+    0's first sample to the high index of bin P-1's last; the taps are
+    rows x columns.  Every nonzero weight lies inside (a sample's indices
+    lie between those two); rows and columns inside it may weigh 0 (gaps
+    between capped samples, samples outside the map).  For the byte model
+    of the kernel and its tests; the serving path does not call it."""
+    r = rois[..., -4:].float() * spatial_scale
+    return (_axis_span(r[..., 1], r[..., 3], h, output_size, max_samples),
+            _axis_span(r[..., 0], r[..., 2], w, output_size, max_samples))
 
 
 def roi_align_pw_plain(feat, wy, wx):

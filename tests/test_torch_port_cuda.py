@@ -392,17 +392,66 @@ def test_cisa_single_bf16_kernel_matches_plain(dev, shape):
                           v, u, 1 / 16, 0.1)
 
 
+def _roi_align_bf16_case(feat, rois, p, max_samples=16, outside=()):
+    """K2-bf16 against its plain version, one bf16 launch, zero rows for
+    the rois wholly outside the map."""
+    before = ra.roi_align.launches, ra.roi_align.launches_bf16
+    got = ra.roi_align(feat, rois, p, max_samples=max_samples)
+    _bf16_close(got, ra.roi_align_plain(feat, rois, p,
+                                        max_samples=max_samples))
+    assert (ra.roi_align.launches,
+            ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
+    assert not got[:, list(outside)].any()
+
+
+@pytest.mark.parametrize('max_samples', [16, 64])
 @pytest.mark.parametrize('c', [40, 512, 1024])
-def test_roi_align_bf16_kernel_matches_plain(dev, c):
+def test_roi_align_bf16_kernel_matches_plain(dev, c, max_samples):
+    """On the 10x12 map: the edge rois (outside, 1x1, degenerate, past the
+    map on every side, at the sample cap), C past one 256-channel slice or
+    below one warpgroup's 128 (C = 40 loads a 64-channel box at a time,
+    512 and 1024 a chunk's four at once), P 7 and 5 (25 of the 64 tile
+    rows)."""
     gen = torch.Generator(device=dev).manual_seed(9)
     feat = torch.randn(2, 10, 12, c, device=dev, generator=gen).bfloat16()
     rois = _kernel_rois(dev, gen, 5).bfloat16()     # as the model rounds
     for p in (7, 5):
-        before = ra.roi_align.launches, ra.roi_align.launches_bf16
-        got = ra.roi_align(feat, rois, p)
-        _bf16_close(got, ra.roi_align_plain(feat, rois, p))
-        assert (ra.roi_align.launches,
-                ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
-        assert not got[:, _OUTSIDE].any()
+        _roi_align_bf16_case(feat, rois, p, max_samples, _OUTSIDE)
     with pytest.raises(ValueError, match='16-byte groups'):
         ra.roi_align(feat[..., :12].contiguous(), rois)
+
+
+# at the first query bucket's 38x64 map: the whole map (T = 38 x 64 = 2,432
+# taps, 38 slots of 64), larger than the map from its corner and from
+# outside it (samples skip cells at the cap), a 1x1 roi, rois wholly
+# outside left of and below-right of the map
+_SERVING_EDGE = [[0, 0, 1023, 607], [0, 0, 3000, 2500],
+                 [-900, -900, 3000, 3000], [30, 30, 30.4, 30.2],
+                 [-300, 20, -20, 60], [1100, 700, 1300, 900]]
+_SERVING_OUTSIDE = (4, 5)
+
+
+@pytest.mark.parametrize('case', [f'{h}x{w}' for h, w in BUCKETS]
+                         + ['ls', 'whole_map'])
+def test_roi_align_bf16_at_serving_shapes(dev, case):
+    """K2-bf16 at chip_smoke.py phase 3's shapes: 8 maps of 1024 channels
+    at every query bucket with 300 proposal-like rois an image, and on the
+    --ls canvas with 1000; then the whole-map and larger-than-map rois at
+    the first bucket for P 7 and 5 and max_samples 16 and 64."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if case == 'whole_map':
+        feat = torch.randn(2, 38, 64, 1024, device=dev,
+                           generator=gen).bfloat16()
+        rois = torch.cat([torch.tensor(_SERVING_EDGE, device=dev).expand(
+            2, -1, -1), _edge_rois(dev, gen)], 1).contiguous().bfloat16()
+        for p in (7, 5):
+            for max_samples in (16, 64):
+                _roi_align_bf16_case(feat, rois, p, max_samples,
+                                     _SERVING_OUTSIDE)
+        return
+    hw, r = ((chip_smoke.LS_HW, chip_smoke.LS_POST_NMS) if case == 'ls'
+             else (tuple(map(int, case.split('x'))), 300))
+    feat = torch.randn(8, hw[0] // 16, hw[1] // 16, 1024, device=dev,
+                       generator=gen).bfloat16()
+    rois = chip_smoke.serving_rois(8, r, gen, dev, hw).bfloat16()
+    _roi_align_bf16_case(feat, rois, 7)
