@@ -45,7 +45,15 @@ Run from the repository root.  Phases, each of which fails the run:
      modelled L2 bytes (each roi's kept taps once, `roi_tap_extent`,
      beside the row-pooling body's rule) and the tensor-core TFLOP/s of its
      padded product, beside the row-pooling kernel's time at the first
-     bucket (ROW_POOLING_K2_BF16_MS), after roi_align.cu's ptxas report;
+     bucket (ROW_POOLING_K2_BF16_MS), after roi_align.cu's ptxas report.
+     The bf16 training step's kernels at its shapes: K1-bf16 at the
+     training RPN and RoI sites, and K2-bf16 on TRAIN_BATCH maps with 128
+     rois an image drawn like the sampler's (`training_rois`: fg near a gt
+     box, bg anywhere, one whole-map roi), each held at one bf16 ulp and
+     timed as above; the bf16 RoIAlign's backward on the card (one bf16
+     product over the images, `roi_align_combine_backward`) held at one
+     bf16 ulp against the same formula summed in float32 and timed beside
+     it and its bound;
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -137,7 +145,23 @@ Run from the repository root.  Phases, each of which fails the run:
      channels_last and in contiguous NCHW; then the dataset CLI serves
      phase 7's checkpoint over synth_test in the default recipe (--set
      TPU.COMPUTE_DTYPE bfloat16: 2 bf16 K1 and 1 bf16 K2 a chunk), its AP
-     printed beside phase 6's float32 AP, not judged.
+     printed beside phase 6's float32 AP, not judged;
+ 11. bf16 training: a Trainer on phase 5's detector takes STEPS steps in
+     the default recipe and STEPS in pure bf16 (TRAIN_RECIPES) on phase 5's
+     episodes (counters zeroed around each path: 3 bf16 K1 and 1 bf16 K2 a
+     step, no float32 kernel), held as phase 5 holds its steps but for the
+     tolerances: step 0 on the plain versions within PATH_TOL_BF16
+     (absolute plus relative) on the losses and GRAD_TOL_BF16 of the
+     step's gradient norm on each parameter's gradient (the reason beside
+     it), its steady step time and peak memory printed beside phase 5's;
+     FSOD, Meta R-CNN, FGN, cisa and Faster R-CNN take FW_STEPS steps each
+     in the default recipe, held as phase 8 holds them at the same bf16
+     tolerances; DAnA in pool and in crop mode serves one request and
+     takes one step in the default recipe against the plain path; then the
+     training CLI trains one epoch of synth_train in the default recipe
+     (3 bf16 K1 and 1 bf16 K2 a step) and the dataset CLI serves its
+     checkpoint over synth_test in the default recipe and in pure bf16,
+     each AP printed beside phase 6's float32 AP, not judged.
 """
 
 from __future__ import annotations
@@ -195,6 +219,20 @@ MAX_GT = 20                   # gt slots per query (1-5 boxes filled)
 # of the R-CNN loss are picked by rank, so a near tie could flip a pick
 GRAD_RTOL = 1e-3
 LOSS_RTOL = 1e-4
+# phase 11: a bf16 step's gradients, kernel path against plain path, per
+# parameter, as a share of the norm of the step's whole compared gradient
+# (attention, RPN and head parameters), not of the parameter's own norm.
+# In bf16 the attention sites' q, k and unary gradients are sums whose
+# terms cancel but for probability gradients rounded to bf16 (JAX's VJP
+# rounds them so), so a one-ulp difference in a few of K1's outputs moves
+# them by far more than an ulp of their own norm: on the CPU (DAnA res50,
+# 2 episodes of 320x512), one ulp added to 0.05% of K1's outputs moved
+# rpn_adapt_q_layer.weight's gradient by 3.2% (default recipe) to 4.4%
+# (pure bf16) of its own norm and output_score_layer.linear1's by 1.0% in
+# pure bf16, but no parameter's by more than 5.6e-3 of the step's norm
+# (1% of the outputs: 3.3e-3).  A few bf16 ulps (2**-7 = 7.8e-3) of that
+# norm: 2e-2.
+GRAD_TOL_BF16 = 2e-2
 
 
 def fail(msg):
@@ -593,8 +631,10 @@ def ptxas_report(name):
 
 def check_cisa_bf16(dev, gen):
     """K1 in bf16 at the serving path's two sites on ResNet's 1024 and
-    VGG16's 512 channels, then edge shapes, and K4 in bf16 (the single-group
-    CISA, K1's bf16 kernel at S = 1) at its main shape: against the plain
+    VGG16's 512 channels, at the training step's two sites (TRAIN_BATCH
+    episodes; the RoI site runs twice a step), then edge shapes, and K4 in
+    bf16 (the single-group CISA, K1's bf16 kernel at S = 1) at its main
+    shape: against the plain
     versions, timed beside the plain versions, SDPA in bf16 plus the unary
     term, the bound at the bf16 tensor-core rate and the mma.sync kernel's
     time, with its two phases (the probabilities into the bf16 scratch,
@@ -610,10 +650,12 @@ def check_cisa_bf16(dev, gen):
     fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
     ns_rpn = (SUPPORT_HW // cfg.FEAT_STRIDE) ** 2
     bins = cfg.POOLING_SIZE ** 2
-    r_test = cfg.TEST_RPN_POST_NMS_TOP_N
+    r_test, r_train = cfg.TEST_RPN_POST_NMS_TOP_N, cfg.TRAIN_BATCH_SIZE
     # (G, S, Nq, Ns, D, C); S = 0 marks K4 (single group, S = 1)
     cases = {'rpn': (BATCH, 3, fh * fw, ns_rpn, 256, 1024),
              'roi': (BATCH, 3, r_test * bins, bins, 256, 1024),
+             'train_rpn': (TRAIN_BATCH, 3, fh * fw, ns_rpn, 256, 1024),
+             'train_roi': (TRAIN_BATCH, 3, r_train * bins, bins, 256, 1024),
              'rpn_c512': (BATCH, 3, fh * fw, ns_rpn, 256, VGG_C),
              'roi_c512': (BATCH, 3, r_test * bins, bins, 256, VGG_C),
              'single': (BATCH, 0, fh * fw, ns_rpn, 256, 1024),
@@ -652,7 +694,7 @@ def check_cisa_bf16(dev, gen):
                 library_ms=cuda_ms(lambda: library(*args), 5), bound_ms=b_ms,
                 bound_by=b_by, bound_rate='bf16 tensor cores',
                 tflop_per_s=flops / ms / 1e9, gb_per_s=nbytes / ms / 1e6,
-                mma_sync_ms=MMA_SYNC_CISA_BF16_MS[name],
+                mma_sync_ms=MMA_SYNC_CISA_BF16_MS.get(name),
                 phase_a_ms=cuda_ms(
                     lambda: cisa_probs_bf16(q, k4, u, 1.0 / 16.0, 0.1), 10),
                 phase_b_ms=cuda_ms(lambda: cisa_pv_bf16(probs, v4), 10),
@@ -664,12 +706,14 @@ def check_cisa_bf16(dev, gen):
               flush=True)
         if name in sites:
             t = sites[name]
-            print(f'cisa bf16[{name}]: {t["ms"]:.4f} ms (mma.sync kernel: '
-                  f'{t["mma_sync_ms"]} ms; phase A {t["phase_a_ms"]:.4f}, '
-                  f'phase B {t["phase_b_ms"]:.4f}), '
+            was = (f'mma.sync kernel: {t["mma_sync_ms"]} ms; '
+                   if t['mma_sync_ms'] else '')
+            print(f'cisa bf16[{name}]: {t["ms"]:.4f} ms ({was}phase A '
+                  f'{t["phase_a_ms"]:.4f}, phase B {t["phase_b_ms"]:.4f}), '
                   f'{t["tflop_per_s"]:.1f} TFLOP/s, {t["gb_per_s"]:.1f} GB/s, '
-                  f'bound {t["bound_ms"]:.4f} ms ({t["bound_by"]}), SDPA + '
-                  f'unary {t["library_ms"]:.4f} ms', flush=True)
+                  f'bound {t["bound_ms"]:.4f} ms ({t["bound_by"]}), plain '
+                  f'{t["plain_ms"]:.4f} ms, SDPA + unary '
+                  f'{t["library_ms"]:.4f} ms', flush=True)
         del q, k, v, u, args
     return errs, sites
 
@@ -712,20 +756,24 @@ def k2_bf16_work(rois, h, w, p, c):
 
 
 def check_roi_align_bf16(dev, gen, card, c=1024, hw=QUERY_HW, r=None,
-                         label='', row_pooling_ms=None):
+                         label='', row_pooling_ms=None, train=False):
     """K2 in bf16 at the serving shapes (BATCH maps of the query bucket `hw`
     with `c` channels, `r` rois an image (default the test proposals),
-    rounded to bf16 as the model hands them), against its plain version
-    (the JAX package's bf16 path), timed beside it, without the whole-map
-    rois and beside `row_pooling_ms`, the row-pooling kernel's time at the
-    same shapes; -> (max |error|, numbers)."""
+    rounded to bf16 as the model hands them), or with `train` at the
+    training step's (TRAIN_BATCH maps, `training_rois`), against its plain
+    version (the JAX package's bf16 path), timed beside it, without the
+    whole-map rois and beside `row_pooling_ms`, the row-pooling kernel's
+    time at the same shapes; -> (max |error|, numbers)."""
     from dana_tpu_torch.ops.roi_align import roi_align, roi_align_plain
     from dana_tpu_torch.utils import config as cfg
-    b, r, p = BATCH, r or cfg.TEST_RPN_POST_NMS_TOP_N, cfg.POOLING_SIZE
+    p = cfg.POOLING_SIZE
+    b, r = ((TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE) if train
+            else (BATCH, r or cfg.TEST_RPN_POST_NMS_TOP_N))
     fh, fw = (s // cfg.FEAT_STRIDE for s in hw)
     feat = torch.randn(b, fh, fw, c, device=dev, generator=gen).to(
         torch.bfloat16)
-    rois = serving_rois(b, r, gen, dev, hw).to(torch.bfloat16)
+    rois = (training_rois if train else serving_rois)(b, r, gen, dev,
+                                                      hw).to(torch.bfloat16)
     want = roi_align_plain(feat, rois, p, 1 / 16.0)
     err, tol = check_bf16(f'roi_align_fwd bf16{label}',
                           roi_align(feat, rois, p, 1 / 16.0), want)
@@ -761,9 +809,10 @@ def check_roi_align_bf16(dev, gen, card, c=1024, hw=QUERY_HW, r=None,
 
 def check_roi_align_bf16_all(dev, gen, card):
     """K2-bf16's ptxas report, then the kernel held and timed on ResNet's
-    1024 and VGG16's 512 channels at the first query bucket, at the other
-    four buckets and on the --ls canvas (1000 rois an image); -> (max
-    |error|, {case: numbers})."""
+    1024 and VGG16's 512 channels at the first query bucket, at the
+    training step's shapes (TRAIN_BATCH maps, 128 sampled rois an image),
+    at the other four buckets and on the --ls canvas (1000 rois an image);
+    -> (max |error|, {case: numbers})."""
     for line in ptxas_report('roi_align'):
         print(f'roi_align ptxas: {line}', flush=True)
         if 'roi_align_fwd_bf16' in line and (
@@ -772,6 +821,7 @@ def check_roi_align_bf16_all(dev, gen, card):
                     'spill loads' not in line)):
             fail(f'roi_align_fwd_bf16: ptxas reports {line}')
     cases = {'roi': {}, 'c512': dict(c=VGG_C, label='[c512]'),
+             'train_roi': dict(train=True, label='[train]'),
              'ls': dict(hw=LS_HW, r=LS_POST_NMS, label='[ls]'),
              **{'x'.join(map(str, hw)): dict(hw=hw, label=f'[{hw}]')
                 for hw in OTHER_BUCKETS}}
@@ -782,6 +832,75 @@ def check_roi_align_bf16_all(dev, gen, card):
             **kw)
         err = max(err, e)
     return err, sites
+
+
+def training_rois(b, r, gen, dev, hw=None):
+    """Rois as the training step's sampler hands them to RoIAlign, on an
+    image of the query bucket `hw` (default QUERY_HW): a quarter fg (one
+    gt box of 32-432 x 32-332 px an image, its corners moved by up to a
+    tenth of its size), the rest bg boxes of 32-512 px anywhere on the
+    image, and at index 5 one roi over the whole map (`without_whole_map`
+    replaces it)."""
+    h, w = hw or QUERY_HW
+    n_fg = r // 4
+    span = torch.tensor([w, h], device=dev, dtype=torch.float32)
+    wh = torch.rand(b, 1, 2, device=dev, generator=gen) \
+        * torch.tensor([400.0, 300.0], device=dev) + 32
+    xy = torch.rand(b, 1, 2, device=dev, generator=gen) * (span - wh)
+    jitter = (torch.rand(b, n_fg, 4, device=dev, generator=gen) * 2 - 1) \
+        * 0.1 * torch.cat([wh, wh], -1)
+    fg = torch.cat([xy, xy + wh], -1) + jitter
+    ctr = torch.rand(b, r - n_fg, 2, device=dev, generator=gen) * span
+    size = 2 ** (torch.rand(b, r - n_fg, 2, device=dev, generator=gen) * 4
+                 + 5)
+    boxes = torch.cat([fg, torch.cat([ctr - size / 2, ctr + size / 2], -1)],
+                      1)
+    boxes[:, 5] = torch.tensor([0.0, 0.0, w - 1, h - 1], device=dev)
+    batch = torch.arange(b, device=dev, dtype=torch.float32)
+    return torch.cat([batch[:, None, None].expand(b, r, 1), boxes],
+                     -1).contiguous()
+
+
+def check_combine_backward(dev, gen, card):
+    """The bf16 training RoIAlign's backward on the card
+    (`roi_align_combine_backward`: the combined weights bf16(Wy * Wx)
+    against the output gradient, one bf16 product over the images with
+    float32 accumulation) at the training step's shapes, against the same
+    formula summed in float32 and rounded once, held at one bf16 ulp of its
+    scale and timed beside it and its bound (the dense product at the bf16
+    tensor-core rate, or its bytes); -> numbers."""
+    from dana_tpu_torch.ops.roi_align import (roi_align_combine_backward,
+                                              roi_weights)
+    from dana_tpu_torch.utils import config as cfg
+    b, r, p, c = TRAIN_BATCH, cfg.TRAIN_BATCH_SIZE, cfg.POOLING_SIZE, 1024
+    fh, fw = (s // cfg.FEAT_STRIDE for s in QUERY_HW)
+    rois = training_rois(b, r, gen, dev).to(torch.bfloat16)
+    wy, wx = roi_weights(rois, fh, fw, p, 1 / 16.0)
+    grad = torch.randn(b, r, p, p, c, device=dev, generator=gen).to(
+        torch.bfloat16)
+
+    def summed_in_float32():
+        comb = torch.einsum('brph,brqw->brpqhw', wy, wx).to(torch.bfloat16)
+        out = torch.bmm(comb.float().reshape(b, -1, fh * fw).transpose(1, 2),
+                        grad.float().reshape(b, -1, c))
+        return out.to(torch.bfloat16).reshape(b, fh, fw, c)
+    err, tol = check_bf16('roi_align_combine_backward',
+                          roi_align_combine_backward(grad, wy, wx),
+                          summed_in_float32())
+    flops = 2 * b * r * p * p * fh * fw * c
+    nbytes = 2 * grad.numel() + 4 * (wy.numel() + wx.numel()) \
+        + 2 * b * fh * fw * c
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    ms = cuda_ms(lambda: roi_align_combine_backward(grad, wy, wx), 10)
+    out = dict(ms=ms, plain_ms=cuda_ms(summed_in_float32, 5), bound_ms=b_ms,
+               bound_by=b_by, tflop_per_s=flops / ms / 1e9, flops=flops,
+               bytes=nbytes, max_abs_err=err, tol=tol)
+    print(f'roi_align_combine_backward grad={tuple(grad.shape)} map '
+          f'{fh}x{fw} ({card}): max|card-float32 sums| {err:.3e} '
+          f'(tolerance {tol:.3e}); {ms:.4f} ms, {out["tflop_per_s"]:.1f} '
+          f'TFLOP/s, bound {b_ms:.4f} ms ({b_by}), float32 product '
+          f'{out["plain_ms"]:.4f} ms', flush=True)
+    return out
 
 
 def pw_library(wy, feat, wx):
@@ -1016,17 +1135,18 @@ def want_launches(config, n, training):
     """The kernel launches of n requests (or training steps) of `config`:
     K1 at the two attention sites of DAnA and cisa (three in training: the
     RoI site again for the negative supports), in the attention dtype;
-    RoIAlign once in align mode (K2 serving, in the compute dtype; K3
-    training), the single-group CISA never."""
+    RoIAlign once in align mode, in the compute dtype (K2 serving; in
+    training K3 on a float32 map, K2-bf16 on a bf16 one), the single-group
+    CISA never."""
     from dana_tpu_torch.models.dana import CACHED_SUPPORTS
     align = n if config.pooling_mode == 'align' else 0
     sites = (3 if training else 2) \
         if config.framework in CACHED_SUPPORTS else 0
     k1 = 'cisa_shots' + _suffix(config.attention_dt)
-    if training:
-        return launch_counts(**{k1: sites * n, 'roi_align_pw': align})
-    return launch_counts(**{k1: sites * n, 'roi_align_fwd'
-                            + _suffix(config.compute_dtype): align})
+    roi = 'roi_align_fwd' + _suffix(config.compute_dtype)
+    if training and config.compute_dtype == torch.float32:
+        roi = 'roi_align_pw'
+    return launch_counts(**{k1: sites * n, roi: align})
 
 
 def _suffix(dtype):
@@ -1034,14 +1154,15 @@ def _suffix(dtype):
     return '_bf16' if dtype == torch.bfloat16 else ''
 
 
-def serving_path(seed, model=None, label='main path', tol=TOL):
-    """REQUESTS requests of `model` (serving_predictor's default: the main
-    path), then request 0 again on the plain versions, held at `tol`
+def serving_path(seed, model=None, label='main path', tol=TOL, n=None):
+    """n requests of `model` (serving_predictor's default: the main path),
+    then request 0 again on the plain versions, held at `tol`
     (compare_paths); -> (launches, summary)."""
     from dana_tpu_torch.ops import nms
 
+    n = n or REQUESTS
     pred = serving_predictor(seed, model)
-    requests = serving_requests(seed, REQUESTS)
+    requests = serving_requests(seed, n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1057,10 +1178,10 @@ def serving_path(seed, model=None, label='main path', tol=TOL):
     launches = read_launches()
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'{label}: {REQUESTS} requests of {BATCH} x {QUERY_HW} uint8, '
+    print(f'{label}: {n} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
-    want = want_launches(pred.config, REQUESTS, training=False)
+    want = want_launches(pred.config, n, training=False)
     if launches != want:
         fail(f'{label} launches {launches}, expected {want}')
 
@@ -1148,41 +1269,56 @@ def head_grads(model):
             if p.requires_grad and not n.startswith('backbone.')}
 
 
+def _float32(config):
+    return config.compute_dtype == config.attention_dt == config.head_dt \
+        == torch.float32
+
+
 def compare_step(params, config, seed, batch, record, metrics, grads,
                  label):
     """The step that `record` recorded, again on the plain versions from
-    the same weights, draws and proposals: the losses within LOSS_RTOL and
-    the head gradients within GRAD_RTOL of their norms of the kernel
-    path's `metrics` and `grads`.  -> (loss relative diffs, worst gradient
-    relative diff)."""
+    the same weights, draws and proposals, against the kernel path's
+    `metrics` and `grads`: in float32 the losses within LOSS_RTOL and each
+    head gradient within GRAD_RTOL of its norm; in a bf16 recipe the
+    losses within PATH_TOL_BF16 (absolute plus relative) and each head
+    gradient within GRAD_TOL_BF16 of the norm of all of them (its reason
+    beside it).  -> (loss relative diffs, worst gradient relative diff)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
     plain = Trainer(params, config, seed=seed)
     with plain_ops(), recorded_step({}, pinned=record):
         pm = plain.step(batch, draws=record['draws'])
+    f32 = _float32(config)
     diffs = {}
     for k in (*LOSSES, 'loss'):
         a, b = metrics[k], float(pm[k])
         diffs[k] = abs(a - b) / max(abs(b), 1e-12)
-        if diffs[k] > LOSS_RTOL:
+        ok = (diffs[k] <= LOSS_RTOL if f32
+              else abs(a - b) <= PATH_TOL_BF16 * (1 + abs(b)))
+        if not ok:
             fail(f'{label} step {k}: kernel path {a}, plain path {b}')
-    worst = 0.0
-    for n, p in plain.model.named_parameters():
-        if n not in grads or n in NO_GRAD:
-            continue
-        rel = ((grads[n] - p.grad).norm()
-               / p.grad.norm().clamp(min=1e-30)).item()
-        worst = max(worst, rel)
-        if not rel <= GRAD_RTOL:
+    pg = {n: p.grad for n, p in plain.model.named_parameters()
+          if n in grads and n not in NO_GRAD}
+    step_norm = torch.sqrt(sum(g.norm() ** 2 for g in pg.values())).item()
+    worst = worst_own = 0.0
+    for n, g in pg.items():
+        gap = (grads[n] - g).norm().item()
+        own = gap / max(g.norm().item(), 1e-30)
+        rel = own if f32 else gap / max(step_norm, 1e-30)
+        worst, worst_own = max(worst, rel), max(worst_own, own)
+        if not rel <= (GRAD_RTOL if f32 else GRAD_TOL_BF16):
             fail(f'{label} step gradient of {n}: |kernel - plain| is '
-                 f'{rel:.3e} of its norm')
+                 f'{rel:.3e} of its ' + ('norm' if f32 else
+                                          'step\'s gradient norm'))
+    scale = '' if f32 else (f' of the step\'s gradient norm ({worst_own:.3e}'
+                            ' of a parameter\'s own)')
     print(f'{label} step, kernel vs plain path: loss relative diffs {diffs};'
-          f' worst gradient relative diff {worst:.3e} over {len(grads)} '
-          'attention, RPN and head parameters', flush=True)
+          f' worst gradient relative diff {worst:.3e}{scale} over '
+          f'{len(grads)} attention, RPN and head parameters', flush=True)
     return diffs, worst
 
 
-def training_path(seed, model=None, label='main path'):
-    """STEPS SGD steps of the Trainer on `model`, a (config, params) pair
+def training_path(seed, model=None, label='main path', steps=None):
+    """`steps` SGD steps of the Trainer on `model`, a (config, params) pair
     (by default the main path's detector), then step 0 again on the plain
     versions; -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
@@ -1190,8 +1326,9 @@ def training_path(seed, model=None, label='main path'):
 
     config, params = model or cfg.get_model('res50', way=2, shot=3,
                                             seed=seed)
+    steps = steps or STEPS
     trainer = Trainer(params, config, seed=seed)        # device='cuda'
-    episodes = training_episodes(seed, STEPS, trainer.device)
+    episodes = training_episodes(seed, steps, trainer.device)
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1209,10 +1346,10 @@ def training_path(seed, model=None, label='main path'):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'{label} training: {STEPS} steps of {TRAIN_BATCH} x {QUERY_HW} '
+    print(f'{label} training: {steps} steps of {TRAIN_BATCH} x {QUERY_HW} '
           f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
           f'GiB, launches {launches}, metrics {metrics}', flush=True)
-    want = want_launches(config, STEPS, training=True)
+    want = want_launches(config, steps, training=True)
     if launches != want:
         fail(f'{label} training launches {launches}, expected {want}')
     for m in metrics:
@@ -1246,7 +1383,8 @@ def training_path(seed, model=None, label='main path'):
     diffs, worst = compare_step(params, config, seed, episodes[0], record,
                                 metrics[0], grads0, label)
     return launches, dict(step_ms=step_ms,
-                          steady_step_ms=float(np.mean(step_ms[1:])),
+                          steady_step_ms=float(np.mean(step_ms[1:] or
+                                                       step_ms)),
                           peak_gib=peak, metrics=metrics,
                           loss_rel_diff=diffs, grad_rel_diff=worst)
 
@@ -1584,11 +1722,12 @@ def all_class_gt(gt, seed):
     return out
 
 
-def framework_training(name, config, params, seed):
+def framework_training(name, config, params, seed, label=None):
     """FW_STEPS Trainer steps of `name` on seeded episodes (Meta R-CNN's
     with every class's gt), then step 0 again on the plain versions.
     -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
+    label = label or name
     trainer = Trainer(params, config, seed=seed)        # device='cuda'
     episodes = training_episodes(seed, FW_STEPS, trainer.device)
     if name == 'meta':
@@ -1611,15 +1750,15 @@ def framework_training(name, config, params, seed):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = want_launches(config, FW_STEPS, training=True)
     if launches != want:
-        fail(f'{name} training launches {launches}, expected {want}')
+        fail(f'{label} training launches {launches}, expected {want}')
     for m in metrics:
         if not all(np.isfinite(m[k]) for k in (*LOSSES, 'loss')) \
                 or m['skipped'] != 0.0 or m['fg_cnt'] <= 0:
-            fail(f'{name} step: non-finite, skipped or no fg roi: {m}')
+            fail(f'{label} step: non-finite, skipped or no fg roi: {m}')
     del trainer
     torch.cuda.empty_cache()
     diffs, worst = compare_step(params, config, seed, episodes[0], record,
-                                metrics[0], grads0, name)
+                                metrics[0], grads0, label)
     return launches, dict(step_ms=step_ms, peak_gib=peak, metrics=metrics,
                           loss_rel_diff=diffs, grad_rel_diff=worst)
 
@@ -1938,6 +2077,123 @@ def precision_path(seed, card, f32_serving):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 11
+
+# phase 11's settings of the recipe in training (PRECISION's islands)
+TRAIN_RECIPES = ('default_recipe', 'pure_bf16')
+
+
+def _recipe(config, label):
+    return dataclasses.replace(config, compute_dtype=torch.bfloat16,
+                               **PRECISION[label])
+
+
+def bf16_training_path(seed, card, f32_training):
+    """Phase 11's Trainer paths: phase 5's detector takes STEPS steps in
+    each TRAIN_RECIPES setting, each sibling and cisa FW_STEPS in the
+    default recipe, and DAnA in pool and in crop mode serves one request
+    and takes one step in the default recipe; counters zeroed around each
+    path, step 0 (and request 0) against the plain versions at the bf16
+    tolerances.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    by_path, summary = {}, {}
+    for label in TRAIN_RECIPES:
+        by_path[f'{label}_training'], t = training_path(
+            seed, (_recipe(config, label), params), label)
+        summary[label] = t
+        torch.cuda.empty_cache()
+        print(f'{label} training ({card}): steady step '
+              f'{t["steady_step_ms"]:.2f} ms (ms per step {t["step_ms"]}), '
+              f'peak memory {t["peak_gib"]:.2f} GiB; float32 (phase 5): '
+              f'{f32_training["steady_step_ms"]:.2f} ms, '
+              f'{f32_training["peak_gib"]:.2f} GiB', flush=True)
+    for name in FRAMEWORKS:
+        fconf, fparams = cfg.get_model(name, way=2, shot=3, seed=seed)
+        label = f'{name} (default recipe)'
+        by_path[f'{name}_recipe_training'], t = framework_training(
+            name, _recipe(fconf, 'default_recipe'), fparams, seed, label)
+        summary[name] = t
+        print(f'{label} training ({card}): ms per step {t["step_ms"]}, '
+              f'peak memory {t["peak_gib"]:.2f} GiB', flush=True)
+        del fparams
+        torch.cuda.empty_cache()
+    for mode in ('pool', 'crop'):
+        model = (_recipe(dataclasses.replace(config, pooling_mode=mode),
+                         'default_recipe'), params)
+        label = f'{mode} (default recipe)'
+        by_path[f'{mode}_recipe_serving'], serving = serving_path(
+            seed, model, label, tol=PATH_TOL_BF16, n=1)
+        by_path[f'{mode}_recipe_training'], training = training_path(
+            seed, model, label, steps=1)
+        summary[mode] = dict(serving=serving, training=training)
+        torch.cuda.empty_cache()
+        print(f'{label} ({card}): request {serving["req_ms"]} ms, step '
+              f'{training["step_ms"]} ms', flush=True)
+    return by_path, summary
+
+
+def recipe_cli_path(seed, card, f32_cli):
+    """Phase 11's CLIs (synth sets in the current DANA_SYNTH_ROOT): the
+    training CLI trains one epoch of synth_train in the default recipe
+    (RECIPE_SET; counters zeroed around it: 3 bf16 K1 and 1 bf16 K2 a step,
+    nothing else), then the dataset CLI serves that checkpoint over
+    synth_test in the default recipe and in pure bf16, each AP printed
+    beside phase 6's float32 AP (not judged).  -> ({path: launches},
+    summary)."""
+    from dana_tpu_torch import train
+    from dana_tpu_torch.data.synth import synth_fsod
+    from dana_tpu_torch.utils import config as cfg
+    synth_fsod('train')
+    save_dir = os.path.join(os.path.dirname(os.environ['DANA_SYNTH_ROOT']),
+                            'run_recipe')
+    argv = ['--dataset', 'synth', '--way', '2', '--shot', '3', '--bs',
+            str(TRAIN_BATCH), '--epochs', '1', '--nw', '8', '--dlog',
+            '--disp_interval', '5', '--seed', str(seed), '--save_dir',
+            save_dir, '--set', *RECIPE_SET]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    trained = train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    epoch = trained['epochs'][0]
+    tree = cfg.default_cfg()
+    cfg.cfg_from_list(tree, list(RECIPE_SET))
+    want = want_launches(cfg.dana_config(tree, 2, 3), epoch['steps'],
+                         training=True)
+    if launches != want:
+        fail(f'recipe training CLI launches {launches}, expected {want}')
+    if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
+        fail(f'recipe training CLI: {epoch["skipped"]} skipped steps, '
+             f'losses {epoch["loss_curve"]}')
+    steady = float(np.median(epoch['step_s'][2:]) * 1e3)
+    by_path = {'recipe_train_cli': launches}
+    summary = dict(steps=epoch['steps'], eps_per_s=epoch['eps_per_s'],
+                   steady_step_ms=steady, train_s=train_s, peak_gib=peak,
+                   wait_s=epoch['wait_s'], losses=epoch['losses'])
+    print(f'recipe training CLI ({card}): epoch 1 of synth_train, '
+          f'{epoch["steps"]} steps, {epoch["eps_per_s"]:.2f} eps/s, steady '
+          f'step {steady:.2f} ms, peak {peak:.2f} GiB, launches {launches}',
+          flush=True)
+    for label, overrides in (
+            ('default_recipe', RECIPE_SET),
+            ('pure_bf16', RECIPE_SET + ('TPU.HEAD_DTYPE', 'bfloat16'))):
+        by_path[f'recipe_trained_{label}_cli'], served = cli_path(
+            seed, trained['checkpoint'], overrides,
+            label=f'dataset CLI ({label}) on the recipe-trained checkpoint')
+        summary[label] = served
+        print(f'the recipe-trained checkpoint served in the {label} '
+              f'({card}): AP {served["stats"][0]:.4f}, '
+              f'{served["img_per_s"]:.2f} img/s; phase 6 (float32 training '
+              f'and serving): AP {f32_cli["stats"][0]:.4f} (AP not judged)',
+              flush=True)
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -2008,6 +2264,7 @@ def main():
         # every query bucket and on the --ls canvas
         k1b_errs, k1b_sites = check_cisa_bf16(dev, gen)
         k2b_err, k2b_sites = check_roi_align_bf16_all(dev, gen, card)
+        combine_backward = check_combine_backward(dev, gen, card)
     k1_err = max(k1_err, bucket_errs['cisa_shots'])
     k2_err = max(k2_err, bucket_errs['roi_align_fwd'], k2_c512_err,
                  k2_ls_err)
@@ -2051,12 +2308,22 @@ def main():
         precision['phase_s'] = time.perf_counter() - t10
         print(f'phase 10 took {precision["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+        # phase 11: the recipe in training, then its CLIs
+        t11 = time.perf_counter()
+        bf16_train_launches, bf16_train = bf16_training_path(
+            args.seed, card, training)
+        recipe_train_cli_launches, recipe_train_cli = recipe_cli_path(
+            args.seed, card, cli)
+        bf16_train['phase_s'] = time.perf_counter() - t11
+        print(f'phase 11 took {bf16_train["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
                **fw_launches, **meta_launches, **slice9_launches,
                **slice9_cli_launches, **precision_launches,
-               'recipe_cli': recipe_cli_launches}
+               'recipe_cli': recipe_cli_launches, **bf16_train_launches,
+               **recipe_train_cli_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -2069,8 +2336,11 @@ def main():
                       'slice9_cli_summary': slice9_cli,
                       'precision_summary': precision,
                       'recipe_cli_summary': recipe_cli,
+                      'bf16_training_summary': bf16_train,
+                      'recipe_train_cli_summary': recipe_train_cli,
                       'launches_by_path': by_path,
                       'backward': backward,
+                      'combine_backward': combine_backward,
                       'kernel_sites': {'cisa_shots': k1_sites,
                                        'roi_align_fwd': {'roi': k2},
                                        'roi_align_pw': {'train_roi': k3},

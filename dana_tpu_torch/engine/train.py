@@ -9,6 +9,12 @@ not finite changes neither the parameters nor the momentum and reports
 skipped = 1.  FGN's head
 BatchNorms with config.bn_train update their running statistics in the
 forward, as the JAX step merges them after its update, skipped or not.
+
+The config's precision recipe (compute_dtype, attention_dtype,
+head_dtype) sets the activations' dtypes only: the parameters stay
+float32 masters, every layer casts them to its input's dtype, so the
+gradients, the momentum and the SGD update are float32, as in the JAX
+step.
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ from torch.profiler import record_function
 from dana_tpu_torch.engine import optim
 from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.utils import config as cfg
-from dana_tpu_torch.utils.args import BF16_TRAINING
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import (from_jax_params, velocity_from_jax,
                                           velocity_to_jax)
@@ -54,8 +59,6 @@ class Trainer:
                  clip_norm: float = 0.0, fixed_blocks: int = cfg.FIXED_BLOCKS,
                  finetune: bool = False, **sgd):
         self.device = resolve_device(device)
-        if not config.all_float32:
-            raise SystemExit(BF16_TRAINING)
         use_full_f32()
         model = params if isinstance(params, torch.nn.Module) \
             else from_jax_params(params, config)

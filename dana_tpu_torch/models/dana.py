@@ -14,9 +14,10 @@ DAnA without the BA block).
 
 The trunk is a bottleneck ResNet (50, 101, 152) or VGG16 (`arch`, a key
 of TRUNKS): its module's `base` gives the stride-16 base features, its
-`tail` the RoI tail (layer4 and its spatial mean, or fc6 / fc7).  The rois are
-pooled by `pooling_mode`: RoIAlign (K2 when serving, K3 in training),
-RoIPool (ops/roi_pool.py) or the affine crop (ops/grid_sample.py).
+`tail` the RoI tail (layer4 and its spatial mean, or fc6 / fc7).  The rois
+are pooled by `pooling_mode`: RoIAlign (K2 when serving; in training K3 on
+a float32 map, K2-bf16 on a bf16 one), RoIPool (ops/roi_pool.py) or the
+affine crop (ops/grid_sample.py).
 
 Supports are 320 px: stride-16 features give 20x20 = 400 support tokens
 at the RPN site; RoIs and pooled supports give 7x7 = 49 tokens at the
@@ -144,12 +145,6 @@ class DanaConfig:
             if dt not in DTYPES and (dt is not None
                                      or name == 'compute_dtype'):
                 raise ValueError(f'{name} {dt} is not one of {DTYPES}')
-        if self.pooling_mode != 'align' \
-                and self.compute_dtype != torch.float32:
-            raise ValueError(
-                f'pooling_mode {self.pooling_mode} in {self.compute_dtype}: '
-                'RoIPool and the crop are float32 only (ROADMAP Queue A 6: '
-                'pool and crop in bf16)')
         if self.arch not in ARCHES:
             raise NotImplementedError(
                 f'the detector has no {self.arch} trunk (have {ARCHES}; a '
@@ -178,12 +173,6 @@ class DanaConfig:
     def head_dt(self):
         return (self.compute_dtype if self.head_dtype is None
                 else self.head_dtype)
-
-    @property
-    def all_float32(self):
-        """True when every stage computes in float32."""
-        return (self.compute_dtype == self.attention_dt == self.head_dt
-                == torch.float32)
 
     @property
     def num_anchors(self):
@@ -284,6 +273,17 @@ def _pe(length, like, dtype):
                         device=like.device).to(dtype)
 
 
+def _token_softmax(x):
+    """The softmax over the support tokens (dim -2) in float32, rounded
+    once to x's dtype, as XLA computes a bf16 softmax inside one fusion.
+    torch's CPU kernel for bf16 over a non-last dim rounds on the way, so
+    its probabilities no longer sum to one within an ulp; in training the
+    unary layer's weight gradient, a sum over the tokens whose terms cancel
+    but for the map's variation, then takes that error times the support
+    map's common mode (ten times JAX's own bf16 deviation on the CPU)."""
+    return torch.softmax(x.float(), dim=-2).to(x.dtype)
+
+
 def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
                     unary_gamma, se_layer=None, gamma=0.1):
     """CISA block: query tokens attend support tokens, mean over shots.
@@ -293,7 +293,7 @@ def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
     Returns [B, (R,) Nq, C]."""
     if se_layer is not None:
         # BA block: spatial softmax -> global channel vector -> residual
-        w = torch.softmax(se_layer(s_tokens), dim=-2)           # [B,S,Ns,1]
+        w = _token_softmax(se_layer(s_tokens))                  # [B,S,Ns,1]
         glob = torch.sum(w * s_tokens, dim=-2, keepdim=True)     # [B,S,1,C]
         s_tokens = s_tokens + gamma * F.leaky_relu(glob)
 
@@ -302,7 +302,7 @@ def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
     k = getattr(model, f'{prefix}_adapt_k_layer')(s_tokens)
     k = k - k.mean(dim=-2, keepdim=True)
     unary = getattr(model, f'{prefix}_unary_layer')(s_tokens)
-    unary_sm = torch.softmax(unary, dim=-2)[..., 0]             # [B,S,Ns]
+    unary_sm = _token_softmax(unary)[..., 0]                    # [B,S,Ns]
 
     b, d = q.shape[0], q.shape[-1]
     extra, nq = q.shape[1:-2], q.shape[-2]
@@ -465,9 +465,8 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
             nms_thresh=config.rpn_nms_thresh, nms_cap=config.nms_cap)
 
     if not training:
-        pooled = pool_rois(config, base_feat, rois.to(base_feat.dtype))
         return dict(rois=rois, roi_mask=roi_mask,
-                    pooled=pooled.to(config.head_dt))
+                    pooled=pool_rois(config, base_feat, rois))
 
     with record_function('dana.targets'):
         if isinstance(draws, torch.Generator):
@@ -505,20 +504,24 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
 
 
 def pool_rois(config: DanaConfig, base_feat, rois, training=False):
-    """base_feat [B,h,w,C], rois [B,R,5] -> [B,R,P,P,C] in base_feat's
-    dtype by config.pooling_mode, each in its own range: RoIAlign
-    (`dana.roi_align`; K2 when serving, K3 from the axis weights in
-    training), RoIPool (`dana.roi_pool`) or the affine crop
-    (`dana.roi_crop`)."""
+    """base_feat [B,h,w,C], float32 rois [B,R,5] -> [B,R,P,P,C] in
+    config.head_dt, pooled by config.pooling_mode from the rois rounded to
+    base_feat's dtype, each mode in its own range: RoIAlign
+    (`dana.roi_align`; K2 when serving; in training K3 from the axis
+    weights on a float32 map, K2-bf16 on a bf16 one), RoIPool
+    (`dana.roi_pool`) or the affine crop (`dana.roi_crop`)."""
     p, scale = config.pooling_size, 1.0 / config.feat_stride
+    rois = rois.to(base_feat.dtype)
     with record_function(f'dana.roi_{config.pooling_mode}'):
         if config.pooling_mode == 'pool':
-            return roi_pool(base_feat, rois, p, scale)
-        if config.pooling_mode == 'crop':
-            return roi_crop_pool(base_feat, rois, p, scale)
-        if training:
-            return roi_align_train(base_feat, rois, p, scale)
-        return roi_align(base_feat, rois.contiguous(), p, scale)
+            pooled = roi_pool(base_feat, rois, p, scale)
+        elif config.pooling_mode == 'crop':
+            pooled = roi_crop_pool(base_feat, rois, p, scale)
+        elif training:
+            pooled = roi_align_train(base_feat, rois, p, scale)
+        else:
+            pooled = roi_align(base_feat, rois.contiguous(), p, scale)
+    return pooled.to(config.head_dt)
 
 
 def rcnn_losses(out, bbox_pred, cls_score, neg_score):
@@ -557,7 +560,8 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
     rois_label [B,S], the positive branch's cls_prob / bbox_pred /
     cls_score, the negative branch's neg_cls_score and rpn_loss_cls,
     rpn_loss_box, rcnn_loss_cls, rcnn_loss_bbox.  The RoIs are pooled by
-    `pool_rois` (in align mode `roi_align_train`, K3 on the card), and the
+    `pool_rois` (in align mode `roi_align_train`: K3 on the card, or
+    K2-bf16 on a bf16 map), and the
     negative supports run only the head's attention and score part: their
     box branch would feed no loss.
 

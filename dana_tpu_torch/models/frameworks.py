@@ -368,7 +368,7 @@ def frcnn_forward(model: FasterRCNN, config: DanaConfig, im_data, im_info,
     class-specific deltas [B, R, 4 * classes] from the RoI tail.  In
     training the deltas of each roi's label are kept ([B, S, 4]) and the
     class loss is the mean negative log-likelihood over every sampled
-    roi."""
+    roi, in float32 (the box loss too, in `smooth_l1_loss`)."""
     base_feat = dana.query_features(model, config, im_data)
     out = dana.trunk(model, config, base_feat, base_feat, im_info, training,
                      gt_boxes, draws)
@@ -385,7 +385,7 @@ def frcnn_forward(model: FasterRCNN, config: DanaConfig, im_data, im_info,
     pick = labels[..., None, None].expand(b, r, 1, 4)
     bbox_pred = torch.gather(bbox_pred.reshape(b, r, -1, 4), 2, pick)[:, :, 0]
     with record_function('dana.losses'):
-        nll = -torch.gather(torch.log_softmax(cls_score, -1), -1,
+        nll = -torch.gather(torch.log_softmax(cls_score.float(), -1), -1,
                             labels[..., None])[..., 0]
         losses = dict(
             rcnn_loss_cls=nll.mean(),

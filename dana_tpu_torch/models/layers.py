@@ -67,7 +67,9 @@ class BatchNorm2d(nn.Module):
     forward(x, batch_stats): with batch statistics, which update the
     running ones in place (momentum 0.1; the biased variance normalises,
     the unbiased one enters the running variance, as torch's train-mode
-    BatchNorm2d does), else with the stored statistics."""
+    BatchNorm2d does), formed, applied and updated in float32 and cast back
+    to x's dtype (the JAX package's `batchnorm_train`), else with the
+    stored statistics."""
 
     def __init__(self, c, eps=1e-5, momentum=0.1):
         super().__init__()
@@ -80,13 +82,13 @@ class BatchNorm2d(nn.Module):
     def forward(self, x, batch_stats=False):
         if not batch_stats and x.dtype != self.weight.dtype:
             # the stored statistics in another precision, as the JAX head
-            # applies them (training is float32 only)
+            # applies them
             return frozen_batchnorm(x, self.weight, self.bias,
                                     self.running_mean, self.running_var,
                                     self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
                             self.weight, self.bias, training=batch_stats,
-                            momentum=self.momentum, eps=self.eps)
+                            momentum=self.momentum, eps=self.eps).to(x.dtype)
 
 
 def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):

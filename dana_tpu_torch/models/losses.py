@@ -3,6 +3,11 @@ models/losses.py): the smooth-L1 box loss, the RPN's masked
 cross-entropy and the 1:2:1 hard-mined pair cross-entropy of the R-CNN
 head.
 
+Each loss computes in float32 whatever the dtype of its predictions, as
+every call site of the JAX package casts the logits, deltas and scores to
+float32 before its loss (the precision recipe's bf16 heads); the gradient
+flows back through that cast.
+
 Ranks come from stable sorts, as `jnp.argsort` sorts: under saturated
 random-init scores many probabilities tie exactly, and an unstable sort
 would mine other background rois.
@@ -20,6 +25,7 @@ def smooth_l1_loss(pred, targets, inside_w, outside_w, sigma=1.0,
     inside_w / outside_w broadcast against pred.  `reduce_dims` are
     summed (default: every axis but the first); the first is meaned."""
     sigma2 = sigma * sigma
+    pred = pred.float()
     diff = inside_w * (pred - targets)
     adiff = diff.abs()
     flag = (adiff < 1.0 / sigma2).to(pred.dtype)
@@ -35,6 +41,7 @@ def masked_cross_entropy(logits, labels, mask):
     """Mean cross-entropy over the mask-selected entries, flattened across
     the batch.  logits [..., K], labels [...] (negative labels read class
     0 and must be masked out), mask [...]."""
+    logits = logits.float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     m = mask.to(logits.dtype)
@@ -61,8 +68,8 @@ def hard_mined_pair_ce(cls_logits, labels, neg_logits):
     cls_logits [B,S,2] positive branch, labels [B,S] in {0,1}, neg_logits
     [B,S,2] negative branch (all labelled 0)."""
     m = labels.numel()
-    logits = cls_logits.reshape(m, 2)
-    neg = neg_logits.reshape(m, 2)
+    logits = cls_logits.float().reshape(m, 2)
+    neg = neg_logits.float().reshape(m, 2)
     fg = labels.reshape(m) > 0
     n_fg = fg.sum()
 

@@ -12,6 +12,11 @@ its `max_pool=True` (the config's CROP_RESIZE_WITH_MAX_POOL is read by
 neither package).  The JAX function samples from the batch's maps
 repeated once per roi; here each roi reads its own image's map through a
 flat index, a chunk of rois at a time, so no copy of the maps is made.
+
+Dtypes follow the JAX function's promotion: theta is computed in the
+rois' dtype, the affine grid in float32 (its `linspace` is float32, and
+float32 wins over a bf16 theta), so the lerp weights are float32 and a
+bf16 map's samples, crops and pooled result come out in float32.
 """
 
 from __future__ import annotations
@@ -59,21 +64,22 @@ def grid_sample(feat, grid):
 
 def affine_grid(theta, out_hw):
     """F.affine_grid with align_corners=True: theta [N, 2, 3] -> grid
-    [N, H, W, 2]."""
+    [N, H, W, 2] in float32 (a bf16 theta is promoted, as in JAX)."""
     hh, ww = out_hw
-    dev, dt = theta.device, theta.dtype
-    gy, gx = torch.meshgrid(
-        torch.linspace(-1.0, 1.0, hh, device=dev, dtype=dt),
-        torch.linspace(-1.0, 1.0, ww, device=dev, dtype=dt), indexing='ij')
+    dev = theta.device
+    gy, gx = torch.meshgrid(torch.linspace(-1.0, 1.0, hh, device=dev),
+                            torch.linspace(-1.0, 1.0, ww, device=dev),
+                            indexing='ij')
     base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)   # [H, W, 3]
-    return torch.einsum('nij,hwj->nhwi', theta, base)
+    return torch.einsum('nij,hwj->nhwi', theta.float(), base)
 
 
 def roi_crop_pool(feat, rois, output_size: int = 7,
                   spatial_scale: float = 1.0 / 16.0):
     """The crop of each roi: feat [B, H, W, C], rois [B, R, 5] in image
     coordinates (a leading batch-index column, ignored; rois are grouped
-    per image) -> [B, R, P, P, C].  Differentiable in feat."""
+    per image) -> [B, R, P, P, C] in float32, for a bf16 map too (the
+    module's docstring says why).  Differentiable in feat."""
     b, h, w, c = feat.shape
     r = rois.shape[1]
     p = output_size
@@ -88,7 +94,7 @@ def roi_crop_pool(feat, rois, output_size: int = 7,
     grid = affine_grid(theta.reshape(b * r, 2, 3), (2 * p, 2 * p))
     base = torch.arange(b, device=feat.device).repeat_interleave(r) * (h * w)
     flat = feat.reshape(b * h * w, c)
-    n = max(1, CHUNK_BYTES // (4 * (2 * p) ** 2 * c * feat.element_size()))
+    n = max(1, CHUNK_BYTES // (4 * (2 * p) ** 2 * c * 4))
     outs = []
     for s in range(0, b * r, n):
         crops = _sample(flat, base[s:s + n], h, w, grid[s:s + n])

@@ -31,9 +31,14 @@ the rectangle `roi_tap_extent` gives; the axis weights are the same float32
 ones (rois taken in float32).  `roi_align` counts its float32 launches in
 `launches` and its bf16 ones in `launches_bf16`.
 `roi_align_train` is the training step's differentiable RoIAlign: it
-builds Wy / Wx once, pools with `roi_align_pw` and, in the backward,
-contracts the same weights with the output gradient in plain tensor
-math (no gradient for the rois, which come from the sampler).
+builds Wy / Wx once and keeps them for the backward (no gradient for the
+rois, which come from the sampler).  On a float32 map it pools with
+`roi_align_pw` and its backward contracts the same weights with the
+output gradient (`roi_align_pw_backward`); on a bf16 map it pools with
+`roi_align` (K2-bf16) and its backward is the VJP of the JAX package's
+bf16 combine path, bf16(sum bf16(Wy * Wx) * grad) with float32 sums
+(`roi_align_combine_backward`).  Both backward passes are plain tensor
+math.
 """
 
 from __future__ import annotations
@@ -160,6 +165,28 @@ def roi_align_combine_plain(feat, wy, wx):
             h * w, c)
         outs.append(out.reshape(*comb.shape[:3], c).to(feat.dtype))
     return torch.stack(outs)
+
+
+def roi_align_combine_backward(grad, wy, wx):
+    """The gradient of `roi_align_combine_plain` for feat, the VJP of the
+    JAX package's bf16 combine path: grad [B,R,P,P,C] bf16, float32 Wy
+    [B,R,P,H], Wx [B,R,P,W] -> [B,H,W,C] in grad's dtype,
+    bf16(sum_{r,p,q} bf16(Wy[r,p,h] * Wx[r,q,w]) * grad[r,p,q]) with
+    float32 sums, rounded once.  One product over all images: the combined
+    weights [B, R*P*P, H*W] against the gradient [B, R*P*P, C]; on the card
+    a bf16 product with float32 accumulation (cuBLAS rounds its float32
+    sums once; `use_full_f32` keeps its split sums in float32), on the CPU
+    the same in float32."""
+    b, r, p, _, c = grad.shape
+    h, w = wy.shape[-1], wx.shape[-1]
+    comb = torch.einsum('brph,brqw->brpqhw', wy, wx).to(grad.dtype) \
+        .reshape(b, r * p * p, h * w)
+    g = grad.reshape(b, r * p * p, c)
+    if grad.device.type == 'cuda':
+        out = torch.bmm(comb.transpose(1, 2), g)
+    else:
+        out = torch.bmm(comb.float().transpose(1, 2), g.float())
+    return out.to(grad.dtype).reshape(b, h, w, c)
 
 
 def roi_align_plain(feat, rois, output_size: int = 7,
@@ -294,27 +321,41 @@ def roi_align_pw(feat, wy, wx):
 roi_align_pw.launches = 0
 
 
-class _RoIAlignPW(torch.autograd.Function):
-    """roi_align_pw with the plain contraction backward; gradient for feat
-    only (the weights come from the rois, which have none)."""
+class _RoIAlignTrain(torch.autograd.Function):
+    """The training RoIAlign from the rois' axis weights Wy, Wx: float32
+    feat pools with `roi_align_pw` (K3) and contracts the weights back in
+    the backward; bf16 feat pools with `roi_align` (K2-bf16, which builds
+    the same weights from the rois) and takes the combine path's VJP.
+    Gradient for feat only (the weights come from the rois, which have
+    none)."""
 
     @staticmethod
-    def forward(ctx, feat, wy, wx):
+    def forward(ctx, feat, rois, wy, wx, output_size, spatial_scale,
+                max_samples):
         ctx.save_for_backward(wy, wx)
-        return roi_align_pw(feat, wy, wx)
+        if feat.dtype == torch.float32:
+            return roi_align_pw(feat, wy, wx)
+        return roi_align(feat, rois, output_size, spatial_scale, max_samples)
 
     @staticmethod
     def backward(ctx, grad):
         wy, wx = ctx.saved_tensors
-        return roi_align_pw_backward(grad.contiguous(), wy, wx), None, None
+        fn = roi_align_pw_backward if grad.dtype == torch.float32 \
+            else roi_align_combine_backward
+        return fn(grad.contiguous(), wy, wx), None, None, None, None, None, \
+            None
 
 
 def roi_align_train(feat, rois, output_size: int = 7,
                     spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
     """The training step's RoIAlign, differentiable in feat: Wy / Wx are
-    built once, pooled with `roi_align_pw` (K3 on the card) and kept for
-    the backward.  Same arguments and result as `roi_align_plain`."""
+    built once from the rois (in float32, as K2-bf16 reads bf16 rois) and
+    kept for the backward; a float32 map pools with `roi_align_pw` (K3 on
+    the card), a bf16 map with `roi_align` (K2-bf16).  Same arguments and
+    result as `roi_align_plain`."""
     with torch.no_grad():
         wy, wx = roi_weights(rois, feat.shape[1], feat.shape[2],
                              output_size, spatial_scale, max_samples)
-    return _RoIAlignPW.apply(feat, wy.contiguous(), wx.contiguous())
+    return _RoIAlignTrain.apply(feat, rois.contiguous(), wy.contiguous(),
+                                wx.contiguous(), output_size, spatial_scale,
+                                max_samples)

@@ -21,6 +21,11 @@ changes nothing.  Chunks are sized to a fixed budget of gathered bytes,
 and with autograd each chunk is recomputed in the backward pass
 (`torch.utils.checkpoint`), so training memory does not grow with the
 rois.  Any number of rois works.
+
+As in the JAX function, the maxes are taken on the map upcast to float32
+and the result is cast back to the map's dtype: on a bf16 map the values
+are the same, and the gradient's shares of tied values (and of bins that
+overlap) sum in float32 and round once.
 """
 
 from __future__ import annotations
@@ -70,7 +75,8 @@ def roi_pool(feat, rois, output_size: int = 7,
              spatial_scale: float = 1.0 / 16.0):
     """Max RoI pooling: feat [B, H, W, C], rois [B, R, 4|5] in image
     coordinates (a leading batch-index column is ignored; rois are grouped
-    per image) -> [B, R, P, P, C].  Differentiable in feat."""
+    per image) -> [B, R, P, P, C] in feat's dtype.  Differentiable in
+    feat."""
     b, h, w, c = feat.shape
     r = rois.shape[1]
     p = output_size
@@ -84,10 +90,10 @@ def roi_pool(feat, rois, output_size: int = 7,
         kh, device=feat.device), max=h - 1) * w                # [B,R,P,Kh]
     cols = torch.clamp(xs[..., None] + torch.arange(kw, device=feat.device),
                        max=w - 1)                              # [B,R,Q,Kw]
-    per_roi = p * kh * p * kw * c * feat.element_size()
+    per_roi = p * kh * p * kw * c * 4
     n = max(1, CHUNK_BYTES // per_roi)
     grad = torch.is_grad_enabled() and feat.requires_grad
-    flat = feat.reshape(b * h * w, c)
+    flat = feat.float().reshape(b * h * w, c)
     parts = [t.reshape(b * r, *t.shape[2:]) for t in (rows, lh, cols, lw)]
     outs = []
     for s in range(0, b * r, n):
@@ -95,4 +101,4 @@ def roi_pool(feat, rois, output_size: int = 7,
         outs.append(checkpoint(_pool_chunk, *args, use_reentrant=False)
                     if grad else _pool_chunk(*args))
     out = torch.cat(outs).reshape(b, r, p, p, c)
-    return torch.where(torch.isfinite(out), out, 0.0)
+    return torch.where(torch.isfinite(out), out, 0.0).to(feat.dtype)

@@ -40,7 +40,12 @@ names (DAnA and cisa also on vgg16, whose trunk trains whole; with
 --backbone vgg16 the gradient norm is clipped at 10 unless --clip_norm
 says otherwise, as in the JAX CLI), with the config tree's POOLING_MODE,
 which every checkpoint records and --r takes back; --ls trains at
-cfgs/res101_ls.yml's values (800 px queries).
+cfgs/res101_ls.yml's values (800 px queries).  `--set TPU.COMPUTE_DTYPE
+bfloat16 [TPU.ATTENTION_DTYPE ..] [TPU.HEAD_DTYPE ..]` trains in the
+precision recipe (default: bf16 trunk and attention, float32 heads): the
+parameters and the momentum stay float32, and so does every checkpoint,
+which records no dtype, as the JAX CLI's records none: a resumed run
+trains in the precision its own --set names.
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
 Multi-GPU flags, Orbax checkpoints and the space-to-depth stem are refused
@@ -66,7 +71,7 @@ from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.engine.train import Trainer
 from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
-from dana_tpu_torch.utils.args import BF16_TRAINING, load_cfg, parse_args
+from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import dana_config
 from dana_tpu_torch.utils.device import resolve_device
 
@@ -194,8 +199,6 @@ def setup(args):
     restored momentum and generator, the batcher at the epoch before."""
     c = load_cfg(args)
     config = dana_config(c, args.way, args.shot, args.net, args.backbone)
-    if not config.all_float32:
-        raise SystemExit(BF16_TRAINING)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 

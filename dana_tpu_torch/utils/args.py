@@ -4,17 +4,12 @@
 and dataset-name mapping, plus `--device`.
 
 Flags and settings that ask for what the port does not have yet are
-refused with the ROADMAP item that ports it, instead of being ignored:
-among them POOLING_MODE pool or crop under a bfloat16 TPU.COMPUTE_DTYPE,
-and (`BF16_TRAINING`, the training CLI's and Trainer's message) training
-in any precision but float32.
+refused with the ROADMAP item that ports it, instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
-
-import torch
 
 from dana_tpu_torch.models.dana import POOLING_MODES
 from dana_tpu_torch.utils import config as config_lib
@@ -158,20 +153,8 @@ def load_cfg(args):
         raise SystemExit(f'POOLING_MODE {c.POOLING_MODE}: the modes are '
                          f'{", ".join(POOLING_MODES)}')
     try:
-        dtypes = {k: config_lib.dtype_or_none(c.TPU[k])
-                  for k in ('COMPUTE_DTYPE', 'ATTENTION_DTYPE', 'HEAD_DTYPE')}
+        for k in ('COMPUTE_DTYPE', 'ATTENTION_DTYPE', 'HEAD_DTYPE'):
+            config_lib.dtype_or_none(c.TPU[k])
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    if c.POOLING_MODE != 'align' and dtypes['COMPUTE_DTYPE'] not in (
-            None, torch.float32):
-        raise SystemExit(f'POOLING_MODE {c.POOLING_MODE} with '
-                         f'TPU.COMPUTE_DTYPE {c.TPU.COMPUTE_DTYPE}: RoIPool '
-                         'and the crop are float32 only (ROADMAP Queue A 6: '
-                         'pool and crop in bf16)')
     return c
-
-
-BF16_TRAINING = ('training runs in float32 only: TPU.COMPUTE_DTYPE, '
-                 'ATTENTION_DTYPE and HEAD_DTYPE other than float32 are not '
-                 'ported for training yet (ROADMAP Queue A 6: the bf16 '
-                 'training slice)')

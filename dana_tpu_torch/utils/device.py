@@ -25,11 +25,18 @@ def use_full_f32():
     On Hopper cuDNN runs float32 convolutions in TF32 by default (about
     three decimal digits), which would move the trunk's features away
     from the JAX reference's float32 numerics.  The slice computes in
-    float32, so both TF32 switches go off.  The flags are process-wide."""
+    float32, so both TF32 switches go off.  cuBLAS's bf16 products keep
+    the sums of a split reduction in float32 too, as the JAX package's bf16
+    products sum in float32 (the bf16 RoIAlign's backward is one such
+    product).  The flags are process-wide."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def tf32_flags() -> dict:
+    m = torch.backends.cuda.matmul
     return {'cudnn.allow_tf32': torch.backends.cudnn.allow_tf32,
-            'cuda.matmul.allow_tf32': torch.backends.cuda.matmul.allow_tf32}
+            'cuda.matmul.allow_tf32': m.allow_tf32,
+            'cuda.matmul.allow_bf16_reduced_precision_reduction':
+                m.allow_bf16_reduced_precision_reduction}

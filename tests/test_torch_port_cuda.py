@@ -325,7 +325,10 @@ def _bf16_close(got, want):
     (1, 3, 129, 400, 256, 1096),     # one row past a tile, G = 1
     (2, 1, 257, 1, 256, 512),        # S = 1, Ns = 1
     (1, 3, 640, 65, 448, 1032),      # the largest D, one key past a tile,
-])                                   # a v box wholly past C
+                                     # a v box wholly past C
+    (4, 3, 2432, 400, 256, 1024),    # the training step's RPN site
+    (4, 3, 6272, 49, 256, 1024),     # its RoI site (twice a step)
+])
 def test_cisa_bf16_kernel_matches_plain(dev, shape):
     g, s, nq, ns, d, c = shape
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -455,3 +458,54 @@ def test_roi_align_bf16_at_serving_shapes(dev, case):
                        generator=gen).bfloat16()
     rois = chip_smoke.serving_rois(8, r, gen, dev, hw).bfloat16()
     _roi_align_bf16_case(feat, rois, 7)
+
+
+def test_roi_align_bf16_at_training_shapes(dev):
+    """K2-bf16 at the bf16 training step's shapes (chip_smoke.py phase 3):
+    4 maps of 38x64x1024 and 128 rois an image drawn like the sampler's,
+    one over the whole map, for P 7 and 5."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    feat = torch.randn(4, 38, 64, 1024, device=dev, generator=gen).bfloat16()
+    rois = chip_smoke.training_rois(4, 128, gen, dev).bfloat16()
+    for p in (7, 5):
+        _roi_align_bf16_case(feat, rois, p)
+
+
+def test_roi_align_train_bf16_grad_matches_plain_autograd(dev):
+    """The training RoIAlign on a bf16 map: its forward launches K2-bf16
+    (not K3), and its backward (`roi_align_combine_backward`, one bf16
+    product with float32 accumulation) is autograd's of the plain combine
+    path (float32 sums, one rounding) within one bf16 ulp, at the training
+    step's shapes and on the edge rois."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(torch.randn(4, 38, 64, 1024, device=dev, generator=gen),
+              chip_smoke.training_rois(4, 128, gen, dev)),
+             (torch.randn(2, 10, 12, 64, device=dev, generator=gen),
+              _edge_rois(dev, gen))]
+    for feat, rois in cases:
+        feat, rois = feat.bfloat16(), rois.bfloat16()
+        cot = torch.randn(*rois.shape[:2], 7, 7, feat.shape[-1], device=dev,
+                          generator=gen).bfloat16()
+        before = ra.roi_align_pw.launches, ra.roi_align.launches_bf16
+        grads = []
+        for f in (ra.roi_align_train, ra.roi_align_plain):
+            x = feat.clone().requires_grad_()
+            out = f(x, rois)
+            grads.append(torch.autograd.grad(out, x, cot)[0])
+            assert out.dtype == torch.bfloat16
+        _bf16_close(grads[0], grads[1])
+        assert (ra.roi_align_pw.launches,
+                ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize('recipe', ['default_recipe', 'pure_bf16'])
+def test_recipe_training_step_launches(dev, recipe):
+    """One Trainer.step of chip_smoke.py phase 11's detector in the recipe:
+    3 bf16 K1 and 1 bf16 K2 launches and no float32 kernel, and step 0
+    agrees with the plain versions (chip_smoke.py's bf16 tolerances)."""
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=0)
+    model = (chip_smoke._recipe(config, recipe), params)
+    launches, _ = chip_smoke.training_path(0, model, recipe, steps=1)
+    assert launches == chip_smoke.launch_counts(cisa_shots_bf16=3,
+                                                roi_align_fwd_bf16=1)

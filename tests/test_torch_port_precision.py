@@ -454,34 +454,72 @@ def test_profile_tool_breaks_the_recipe_down():
             if e.key.startswith('dana.')} == STAGES
 
 
-# ------------------------------------------------------------ refusals
+# ------------------------------------------------- training in the recipe
+
+def _small_batch():
+    rng = np.random.default_rng(9)
+    gt = np.zeros((1, 2, 5), np.float32)
+    gt[0, 0] = [10, 10, 90, 70, 1]
+    return dict(im_data=rng.integers(0, 256, (1, 128, 160, 3))
+                .astype(np.uint8),
+                im_info=np.array([[128, 160, 1.0]], np.float32),
+                gt_boxes=gt, support_ims=rng.normal(0, 50, (1, 2, 224, 224,
+                                                            3))
+                .astype(np.float32))
+
 
 @pytest.mark.parametrize('keys', [['TPU.COMPUTE_DTYPE', 'bfloat16'],
                                   ['TPU.ATTENTION_DTYPE', 'bfloat16']])
-def test_training_refuses_bf16(tmp_path, keys):
-    """The Trainer and the training CLI train in float32 only, naming the
-    ROADMAP item that ports the bf16 training slice."""
+def test_training_runs_bf16(synth_root, keys):
+    """The Trainer and the training CLI train in the recipe's settings
+    (the refusal of ROADMAP Queue A 6 is gone): the CLI's setup builds a
+    trainer in those dtypes, and a step on the CPU gives finite losses,
+    skips nothing and leaves the parameters and momentum float32."""
     from dana_tpu_torch import train as ttrain
+    from test_torch_port_train import SMALL
+    _, _, cli_trainer, _ = ttrain.setup(ttrain.parse_args(
+        ['--dataset', 'synth_test', '--device', 'cpu', '--way', '2',
+         '--shot', '1', '--bs', '1', '--nw', '1', '--set', *keys]))
     tree = tcfg.default_cfg()
     tcfg.cfg_from_list(tree, keys)
-    config = tcfg.dana_config(tree, 2, 2)
-    with pytest.raises(SystemExit, match='ROADMAP Queue A 6: the bf16 '
-                                         'training slice'):
-        Trainer(None, config, device='cpu')
-    with pytest.raises(SystemExit, match='bf16 training slice'):
-        ttrain.main(['--dataset', 'synth_test', '--device', 'cpu',
-                     '--save_dir', str(tmp_path), '--set', *keys])
+    config = tcfg.dana_config(tree, 2, 1)
+    for field in ('compute_dtype', 'attention_dt', 'head_dt'):
+        assert getattr(cli_trainer.config, field) == getattr(config, field)
+    config = dataclasses.replace(config, **SMALL)
+    trainer = Trainer(tdana.init_params(config, seed=0), config,
+                      device='cpu')
+    m = trainer.step(_small_batch())
+    assert m['skipped'].item() == 0.0 and torch.isfinite(m['loss'])
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    assert all(s['momentum_buffer'].dtype == torch.float32
+               for s in trainer.optimizer.state.values())
 
 
 @pytest.mark.parametrize('mode', ['pool', 'crop'])
-def test_pool_and_crop_refused_in_bf16(mode):
+def test_pool_and_crop_run_in_bf16(mode):
+    """POOLING_MODE pool and crop under bf16 compute (the refusal of
+    ROADMAP Queue A 6 is gone): the configs build, and the default recipe
+    serves a request and takes a training step with finite results, its
+    pooled features reaching the float32 head."""
     from dana_tpu_torch.utils import args as targs
-    with pytest.raises(ValueError, match='pool and crop in bf16'):
-        tdana.DanaConfig(pooling_mode=mode, compute_dtype=BF16)
+    from test_torch_port_train import SMALL
     args = targs.parse_args(['--dataset', 'synth', '--set', 'POOLING_MODE',
                              mode, 'TPU.COMPUTE_DTYPE', 'bfloat16'])
-    with pytest.raises(SystemExit, match='pool and crop in bf16'):
-        targs.load_cfg(args)
+    tree = targs.load_cfg(args)
+    config = dataclasses.replace(tcfg.dana_config(tree, 2, 1), **SMALL)
+    assert (config.pooling_mode, config.compute_dtype, config.head_dt) == \
+        (mode, BF16, torch.float32)
+    params = tdana.init_params(config, seed=0)
+    pred = Predictor(params, config, device='cpu')
+    rng = np.random.default_rng(5)
+    pred.encode_supports(0, rng.normal(0, 50, (1, 224, 224, 3))
+                         .astype(np.float32))
+    batch = _small_batch()
+    dets, _ = pred.predict(batch['im_data'], batch['im_info'], [0])
+    assert dets.dtype == torch.float32 and torch.isfinite(dets).all()
+    trainer = Trainer(params, config, device='cpu')
+    m = trainer.step(batch)
+    assert m['skipped'].item() == 0.0 and torch.isfinite(m['loss'])
 
 
 # ------------------------------------------------------------------ CLI

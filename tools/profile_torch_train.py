@@ -4,7 +4,7 @@
     python3 tools/profile_torch_train.py [--seed 0] [--iters 5]
         [--source episodes|cli|cli_fixed]
         [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--backbone res50|res101|vgg16]
-        [--set POOLING_MODE pool|crop ...]
+        [--set POOLING_MODE pool|crop TPU.COMPUTE_DTYPE bfloat16 ...]
         [--trace .scratch/profile_torch_train.trace.json]
 
 --source episodes (the default) builds the trainer that chip_smoke.py
@@ -27,6 +27,9 @@ record_function ranges of `models/dana.py` `forward` and of
 to the ranges open when they were launched, as in
 tools/profile_torch_predict.py (the backward's kernels, launched by
 autograd's own thread while `dana.backward` is open, go to that range).
+`--set TPU.COMPUTE_DTYPE bfloat16 [TPU.HEAD_DTYPE bfloat16 | ...]` breaks
+down a step of the precision recipe (K1-bf16 and K2-bf16 in place of the
+float32 K1 and K3).
 The last line is one JSON object with the per-step numbers.
 """
 
@@ -73,9 +76,12 @@ def main():
         finally:
             if stream is not None:
                 stream.close()
-    out.update(source=args.source, framework=trainer.config.framework,
-               arch=trainer.config.arch,
-               pooling_mode=trainer.config.pooling_mode)
+    config = trainer.config
+    out.update(source=args.source, framework=config.framework,
+               arch=config.arch, pooling_mode=config.pooling_mode,
+               dtypes={k: str(getattr(config, k)).replace('torch.', '')
+                       for k in ('compute_dtype', 'attention_dt',
+                                 'head_dt')})
     print(json.dumps(out))
 
 
