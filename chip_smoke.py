@@ -27,7 +27,9 @@ Run from the repository root.  Phases, each of which fails the run:
      divide as the kernel does, their weights); K1's four sites, K2 and K3
      are held and timed again on VGG16's 512 channels, and K1's serving
      sites and training RPN site, K2 (1000 rois an image) and K3 on the
-     --ls canvas (LS_HW), which --ls gives both CLIs.  The bf16 kernels of
+     --ls canvas (LS_HW), which --ls gives both CLIs; K1 float32 and
+     K1-bf16 at both serving sites at the N-way evaluation's 2 and 5 shots
+     (MULTIWAY_SHOTS), where K1 takes other tile plans.  The bf16 kernels of
      the precision recipe (phase 10) on bf16 inputs: K1 at its two serving
      sites on 1024 and 512 channels and at edge shapes, K4 (K1's bf16
      kernel at S = 1) and K2 on 1024 and 512 channels (the rois rounded to
@@ -161,7 +163,25 @@ Run from the repository root.  Phases, each of which fails the run:
      training CLI trains one epoch of synth_train in the default recipe
      (3 bf16 K1 and 1 bf16 K2 a step) and the dataset CLI serves its
      checkpoint over synth_test in the default recipe and in pure bf16,
-     each AP printed beside phase 6's float32 AP, not judged.
+     each AP printed beside phase 6's float32 AP, not judged;
+ 12. the N-way evaluation, Pascal VOC, product attention and remat
+     (SLICE14): (a) `dana_tpu_torch.multiway_eval` serves phase 7's
+     checkpoint over synth_test 5-way 2-shot and 5-way 5-shot (BASELINE
+     config #4), each image's ways one request (counters zeroed around
+     each run: 2 K1 and 1 K2 an image), img/s and AP printed (not judged),
+     then request 0 of each shot count at full serving size (one 608x1024
+     query as 5 rows, 6000 / 300, random weights from --seed) in float32
+     and in the default recipe against the plain path (phases 4 and 10's
+     tolerances); (b) the training CLI with its default --dataset
+     pascal_voc trains one epoch on a VOC2007 devkit written from the synth
+     scenes under a temporary DATA_DIR (3 K1 and 1 K3 a step), and the
+     dataset CLI serves its checkpoint over voc_2007_test (2 K1 and 1 K2 a
+     chunk; the VOC mean AP printed, not judged); (c) DAnA with product
+     attention serves two requests and takes a step against the plain
+     path, as phases 4 and 5 hold theirs; (d) phase 5's first step with
+     TPU.REMAT_BACKBONE True against without: equal losses, gradients
+     within REMAT_TOL of the step's gradient norm, both peak memories
+     printed.
 """
 
 from __future__ import annotations
@@ -233,6 +253,21 @@ LOSS_RTOL = 1e-4
 # (1% of the outputs: 3.3e-3).  A few bf16 ulps (2**-7 = 7.8e-3) of that
 # norm: 2e-2.
 GRAD_TOL_BF16 = 2e-2
+# phase 12: at random init product attention squares the trunk's features
+# (the RPN's input reaches 2475 on a 320x512 query where concat's reaches
+# 52), so its RPN deltas reach 129 (concat's 7) and K1's float32 last bits,
+# 1e-6 of its output, move a delta by 3.3e-4, past phase 4's 1e-4 + 1e-4
+# |delta| near the zero crossings.  The product detector's RPN conv and
+# R-CNN transform are scaled by PRODUCT_SCALE, which gives its deltas
+# concat's magnitude (mean 0.94 against 1.70) and the same 1e-6 of K1's
+# output moves them 1.1e-5 (concat: 3.2e-5; a CPU replay with K1's output
+# perturbed)
+PRODUCT_SCALE = 1.0 / 32
+# phase 12: a step with TPU.REMAT_BACKBONE against one without, as a share
+# of the step's gradient norm: the backward recomputes the same forward, so
+# the gradients are expected bit for bit, but cuDNN's backward kernels are
+# not deterministic on the card
+REMAT_TOL = 1e-6
 
 
 def fail(msg):
@@ -330,6 +365,21 @@ def cisa_library(q, k, v, u, scale, gamma):
     return (o + gamma * (u[:, :, None, :] @ v)).mean(1)
 
 
+# the shot counts of the N-way evaluation (BASELINE config #4: 5-way 2-shot
+# and 5-way 5-shot), at which K1 takes tile plans the 3-shot main path does
+# not reach
+MULTIWAY_SHOTS = (2, 5)
+
+
+def multiway_cisa_cases(nq_rpn, ns_rpn, nq_roi, ns_roi):
+    """K1's two serving sites at each MULTIWAY_SHOTS shot count, BATCH
+    groups: {'rpn_s2': (G, S, Nq, Ns, D, C), ...}."""
+    return {f'{site}_s{s}': (BATCH, s, nq, ns, 256, 1024)
+            for s in MULTIWAY_SHOTS
+            for site, nq, ns in (('rpn', nq_rpn, ns_rpn),
+                                 ('roi', nq_roi, ns_roi))}
+
+
 def check_cisa(dev, gen):
     from dana_tpu_torch.ops.cisa_attention import (
         cisa_attention_shots, cisa_attention_shots_plain)
@@ -358,6 +408,7 @@ def check_cisa(dev, gen):
              'rpn_ls': (BATCH, 3, lh * lw, ns_rpn, 256, 1024),
              'roi_ls': (BATCH, 3, LS_POST_NMS * bins, bins, 256, 1024),
              'train_rpn_ls': (TRAIN_BATCH, 3, lh * lw, ns_rpn, 256, 1024),
+             **multiway_cisa_cases(fh * fw, ns_rpn, r_test * bins, bins),
              'ns1': (2, 3, 1000, 1, 256, 1024),
              'ragged': (3, 2, 77, 57, 256, 1100)}
     err, sites = 0.0, {}
@@ -659,6 +710,7 @@ def check_cisa_bf16(dev, gen):
              'rpn_c512': (BATCH, 3, fh * fw, ns_rpn, 256, VGG_C),
              'roi_c512': (BATCH, 3, r_test * bins, bins, 256, VGG_C),
              'single': (BATCH, 0, fh * fw, ns_rpn, 256, 1024),
+             **multiway_cisa_cases(fh * fw, ns_rpn, r_test * bins, bins),
              'ns1': (2, 3, 1000, 1, 256, 1024),
              'ragged': (3, 2, 77, 57, 256, 1096)}
 
@@ -2194,6 +2246,300 @@ def recipe_cli_path(seed, card, f32_cli):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 12
+
+MULTIWAY_WAY = 5            # BASELINE config #4: 5-way, MULTIWAY_SHOTS shots
+# TRAIN_CLI_ARGS without --dataset: the training CLI's default, pascal_voc
+VOC_TRAIN_ARGS = ['--way', '2', '--shot', '3', '--bs', str(TRAIN_BATCH),
+                  '--epochs', '1', '--nw', '8', '--dlog', '--disp_interval',
+                  '5']
+
+
+def multiway_path(seed, card, checkpath):
+    """Phase 12 (a): `multiway_eval` serves phase 7's checkpoint over
+    synth_test at MULTIWAY_WAY ways and each MULTIWAY_SHOTS shot count
+    (counters zeroed around each run: 2 K1 and 1 K2 an image, its ways one
+    request); then request 0 of each shot count at full serving size (one
+    608x1024 query as the request's MULTIWAY_WAY rows, 6000 / 300
+    proposals, ResNet-50 with weights from `seed`) in float32 and in the
+    default recipe, kernel path against plain path as phases 4 and 10 hold
+    theirs.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch import multiway_eval
+    from dana_tpu_torch.engine.predict import Predictor
+    from dana_tpu_torch.utils import config as cfg
+    by_path, summary = {}, {}
+    for shot in MULTIWAY_SHOTS:
+        label = f'{MULTIWAY_WAY}-way {shot}-shot'
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        result = multiway_eval.main([checkpath, str(MULTIWAY_WAY), str(shot)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = read_launches()
+        images = result['timing']['images']
+        want = launch_counts(cisa_shots=2 * images, roi_align_fwd=images)
+        if launches != want:
+            fail(f'{label} evaluation launches {launches}, expected {want}')
+        stats = [float(x) for x in result['stats']]
+        if len(stats) != 12 or not np.isfinite(stats).all():
+            fail(f'{label} evaluation: COCOeval stats {stats}')
+        by_path[f'multiway_s{shot}'] = launches
+        summary[label] = dict(
+            images=images, img_per_s=result['timing']['img_per_s'],
+            main_s=main_s, stats=stats,
+            launches_per_image={k: v / images for k, v in launches.items()
+                                if v})
+        print(f'{label} evaluation of phase 7\'s checkpoint over synth_test '
+              f'({card}): {images} images, '
+              f'{result["timing"]["img_per_s"]:.2f} img/s (main '
+              f'{main_s:.1f} s), AP {stats[0]:.4f}, AP50 {stats[1]:.4f} (not '
+              f'judged), launches per image '
+              f'{summary[label]["launches_per_image"]}', flush=True)
+    query = serving_requests(seed, 1)[0][0][:1]
+    info = np.array([[*QUERY_HW, 1.0]] * MULTIWAY_WAY, np.float32)
+    rng = np.random.default_rng(seed + 3)
+    means = np.asarray(cfg.PIXEL_MEANS, np.float32)
+    for shot in MULTIWAY_SHOTS:
+        config, params = cfg.get_model('res50', way=MULTIWAY_WAY, shot=shot,
+                                       seed=seed)
+        sups = rng.integers(0, 256, (MULTIWAY_WAY, shot, SUPPORT_HW,
+                                     SUPPORT_HW, 3)).astype(np.float32) - means
+        for recipe, tol in (('float32', TOL),
+                            ('default_recipe', PATH_TOL_BF16)):
+            conf = config if recipe == 'float32' else _recipe(config, recipe)
+            label = f'{MULTIWAY_WAY}-way {shot}-shot request ({recipe})'
+            pred = Predictor(params, conf)               # device='cuda'
+            ways = list(range(MULTIWAY_WAY))
+            for cls in ways:
+                pred.encode_supports(cls, sups[cls])
+            queries = np.repeat(query, MULTIWAY_WAY, 0)
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            dets, valid = pred.predict(queries, info, ways)
+            torch.cuda.synchronize()
+            req_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            want = want_launches(conf, 1, training=False)
+            if launches != want:
+                fail(f'{label} launches {launches}, expected {want}')
+            if dets.shape != (MULTIWAY_WAY, 100, 5) \
+                    or not torch.isfinite(dets).all():
+                fail(f'{label}: detections {tuple(dets.shape)} not finite '
+                     'or of the wrong shape')
+            diffs = compare_paths(
+                pred.model, conf, queries, info,
+                dict(support_feats=pred.batch_support_feats(ways)),
+                lambda: pred.predict(queries, info, ways), label=label,
+                tol=tol)
+            by_path[f'multiway_request_s{shot}_{recipe}'] = launches
+            summary[label] = dict(req_ms=req_ms, path_diffs=diffs)
+            print(f'{label} ({card}): {req_ms:.2f} ms (the first request of '
+                  f'its predictor), launches {launches}', flush=True)
+            del pred
+            torch.cuda.empty_cache()
+    return by_path, summary
+
+
+def write_voc(data_dir, year='2007'):
+    """A VOC<year> devkit under data_dir holding the synth scenes of the
+    current DANA_SYNTH_ROOT: synth_train as trainval, synth_test as test;
+    each scene's PPM bytes as JPEGImages/<index>.jpg (cv2 and the port's
+    reader pick the decoder by signature), its boxes 1-based in
+    Annotations/<index>.xml, synth class k as VOC_CLASSES[k]; -> the
+    (trainval, test) image counts."""
+    from dana_tpu_torch.data.pascal_voc import VOC_CLASSES
+    from dana_tpu_torch.data.synth import synth_fsod
+    voc = os.path.join(data_dir, f'VOCdevkit{year}', f'VOC{year}')
+    for sub in ('Annotations', 'JPEGImages', os.path.join('ImageSets',
+                                                          'Main')):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    counts = []
+    for split, ds in (('trainval', synth_fsod('train')),
+                      ('test', synth_fsod('test', num_images=20))):
+        names = []
+        for i, entry in enumerate(ds.roidb):
+            name = f'{split}_{i:06d}'
+            names.append(name)
+            with open(ds.image_path_at(i), 'rb') as src, \
+                    open(os.path.join(voc, 'JPEGImages', name + '.jpg'),
+                         'wb') as dst:
+                dst.write(src.read())
+            objs = ''.join(
+                f'<object><name>{VOC_CLASSES[int(c)]}</name>'
+                '<difficult>0</difficult><bndbox>'
+                + ''.join(f'<{k}>{int(v) + 1}</{k}>' for k, v in
+                          zip(('xmin', 'ymin', 'xmax', 'ymax'), box))
+                + '</bndbox></object>'
+                for box, c in zip(entry['boxes'], entry['gt_classes']))
+            with open(os.path.join(voc, 'Annotations', name + '.xml'),
+                      'w') as f:
+                f.write(f'<annotation><size><width>{entry["width"]}</width>'
+                        f'<height>{entry["height"]}</height><depth>3</depth>'
+                        f'</size>{objs}</annotation>')
+        with open(os.path.join(voc, 'ImageSets', 'Main', split + '.txt'),
+                  'w') as f:
+            f.write(''.join(n + '\n' for n in names))
+        counts.append(len(names))
+    return counts
+
+
+def voc_cli_path(seed, card):
+    """Phase 12 (b): the training CLI with its default --dataset
+    (pascal_voc: voc_2007_trainval) trains one epoch on write_voc's devkit
+    under a temporary DATA_DIR, then the dataset CLI serves that checkpoint
+    over voc_2007_test (counters zeroed around each: 3 K1 and 1 K3 a step,
+    2 K1 and 1 K2 a chunk); the VOC mean AP is printed, not judged.  ->
+    ({path: launches}, summary)."""
+    from dana_tpu_torch import inference, train
+    data_dir = os.path.join(os.path.dirname(os.environ['DANA_SYNTH_ROOT']),
+                            'voc_data')
+    n_trainval, n_test = write_voc(data_dir)
+    argv = VOC_TRAIN_ARGS + ['--seed', str(seed), '--save_dir',
+                             os.path.join(data_dir, 'run'),
+                             '--set', 'DATA_DIR', data_dir]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    trained = train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    epoch = trained['epochs'][0]
+    want = launch_counts(cisa_shots=3 * epoch['steps'],
+                         roi_align_pw=epoch['steps'])
+    if train_launches != want:
+        fail(f'VOC training CLI launches {train_launches}, expected {want}')
+    if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
+        fail(f'VOC training CLI: {epoch["skipped"]} skipped steps, losses '
+             f'{epoch["loss_curve"]}')
+    print(f'training CLI, default --dataset pascal_voc ({card}): '
+          f'{n_trainval} trainval images, {epoch["steps"]} steps, '
+          f'{epoch["eps_per_s"]:.2f} eps/s, {train_s:.1f} s, launches '
+          f'{train_launches}', flush=True)
+    with tempfile.TemporaryDirectory() as out_dir:
+        zero_launches()
+        t0 = time.perf_counter()
+        result = inference.main(
+            ['--dataset', 'pascal_voc', '--way', '2', '--shot', '3', '--bs',
+             str(BATCH), '--seed', str(seed), '--eval_dir', out_dir,
+             '--checkpath', trained['checkpoint'], '--set', 'DATA_DIR',
+             data_dir])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = read_launches()
+    chunks = result['timing']['chunks']
+    want = launch_counts(cisa_shots=2 * chunks, roi_align_fwd=chunks)
+    if eval_launches != want:
+        fail(f'VOC dataset CLI launches {eval_launches}, expected {want}')
+    aps = list(result['ap'].values())
+    if len(aps) != 20 or not np.isfinite(aps + [result['map']]).all():
+        fail(f'VOC dataset CLI: per-class AP {result["ap"]}')
+    print(f'dataset CLI on voc_2007_test ({card}): {n_test} images in '
+          f'{chunks} chunks, {result["timing"]["img_per_s"]:.2f} img/s, VOC '
+          f'mean AP {result["map"]:.4f} over 20 classes (not judged), '
+          f'launches {eval_launches}', flush=True)
+    return ({'voc_train_cli': train_launches, 'voc_cli': eval_launches},
+            dict(train_steps=epoch['steps'], train_eps_per_s=epoch['eps_per_s'],
+                 train_s=train_s, eval_s=eval_s, chunks=chunks,
+                 img_per_s=result['timing']['img_per_s'],
+                 mean_ap=result['map'], ap=result['ap']))
+
+
+def product_path(seed, card):
+    """Phase 12 (c): DAnA with attention_type 'product' (weights from
+    `seed` at its widths, the RPN conv and the R-CNN transform scaled by
+    PRODUCT_SCALE: the reason beside it) serves two requests as phase 4
+    does and takes one step as phase 5 does, each against the plain path
+    at their tolerances.  ->
+    ({path: launches}, summary)."""
+    from dana_tpu_torch.models import frameworks
+    from dana_tpu_torch.utils import config as cfg
+    config, _ = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    config = dataclasses.replace(config, attention_type='product')
+    params = frameworks.init_params(config, seed=seed)
+    for layer in (params['RCNN_rpn']['RPN_Conv'],
+                  params['rcnn_transform_layer']):
+        layer['weight'] = layer['weight'] * np.float32(PRODUCT_SCALE)
+    model = (config, params)
+    serving_launches, serving = serving_path(seed, model, 'product', n=2)
+    torch.cuda.empty_cache()
+    # one step: at lr 1e-3 the random-init product detector's first update
+    # grows its loss a thousandfold (3.5 -> 2742 in a CPU rehearsal at 256 x
+    # 320), which says nothing of the kernels
+    training_launches, training = training_path(seed, model, 'product',
+                                                steps=1)
+    torch.cuda.empty_cache()
+    print(f'product attention ({card}): ms per request {serving["req_ms"]}, '
+          f'ms per step {training["step_ms"]}', flush=True)
+    return ({'product_serving': serving_launches,
+             'product_training': training_launches},
+            dict(serving=serving, training=training))
+
+
+def remat_path(seed, card):
+    """Phase 12 (d): phase 5's first step with TPU.REMAT_BACKBONE False and
+    True, from the same weights, episode, draws and proposals: equal losses
+    and every trainable gradient within REMAT_TOL of the step's gradient
+    norm (the backward recomputes the same trunk forward); both peak
+    memories printed.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch.engine.train import LOSSES, Trainer
+    from dana_tpu_torch.utils import config as cfg
+    c = cfg.default_cfg()
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    batch = training_episodes(seed, 1, DEV)[0]
+    runs, by_path, record = {}, {}, {}
+    for remat in (False, True):
+        cfg.cfg_from_list(c, ['TPU.REMAT_BACKBONE', str(remat)])
+        conf = dataclasses.replace(
+            config, remat_backbone=cfg.dana_config(c, 2, 3).remat_backbone)
+        trainer = Trainer(params, conf, seed=seed)        # device='cuda'
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        with recorded_step(record if not remat else {},
+                           pinned=record if remat else None):
+            metrics = trainer.step(batch, draws=record.get('draws'))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        by_path[f'remat_{remat}'] = read_launches()
+        if by_path[f'remat_{remat}'] != want_launches(conf, 1, True):
+            fail(f'remat {remat} step launches {by_path[f"remat_{remat}"]}')
+        runs[remat] = dict(
+            metrics={k: float(metrics[k]) for k in (*LOSSES, 'loss')},
+            grads={n: p.grad.clone() for n, p in
+                   trainer.model.named_parameters() if p.requires_grad},
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            step_ms=step_ms)
+        del trainer
+        torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    if plain['metrics'] != remat['metrics']:
+        fail(f'remat step losses {remat["metrics"]} differ from '
+             f'{plain["metrics"]}')
+    norm = torch.sqrt(sum(g.norm() ** 2 for g in plain['grads'].values()))
+    gap = max((remat['grads'][n] - g).norm().item()
+              for n, g in plain['grads'].items()) / norm.item()
+    same = sum(torch.equal(remat['grads'][n], g)
+               for n, g in plain['grads'].items())
+    if not gap <= REMAT_TOL:
+        fail(f'remat step gradients differ by {gap:.3e} of the step\'s '
+             'gradient norm')
+    print(f'remat_backbone ({card}): losses equal, worst gradient gap '
+          f'{gap:.3e} of the step\'s gradient norm ({same} of '
+          f'{len(plain["grads"])} gradients bit for bit); peak memory '
+          f'{plain["peak_gib"]:.2f} GiB without, {remat["peak_gib"]:.2f} GiB '
+          f'with ({1 - remat["peak_gib"] / plain["peak_gib"]:.3f} less); '
+          f'step {plain["step_ms"]:.2f} / {remat["step_ms"]:.2f} ms (the '
+          'first step of each trainer)', flush=True)
+    return by_path, dict(
+        grad_gap=gap, grads_bit_equal=same, n_grads=len(plain['grads']),
+        peak_gib=plain['peak_gib'], remat_peak_gib=remat['peak_gib'],
+        step_ms=plain['step_ms'], remat_step_ms=remat['step_ms'])
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -2317,13 +2663,28 @@ def main():
         bf16_train['phase_s'] = time.perf_counter() - t11
         print(f'phase 11 took {bf16_train["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+        # phase 12: the N-way evaluation, VOC through both CLIs, product
+        # attention and remat_backbone
+        t12 = time.perf_counter()
+        slice14_launches, slice14 = {}, {}
+        for part, path in (
+                ('multiway', lambda: multiway_path(args.seed, card, ckpt)),
+                ('voc', lambda: voc_cli_path(args.seed, card)),
+                ('product', lambda: product_path(args.seed, card)),
+                ('remat', lambda: remat_path(args.seed, card))):
+            part_launches, slice14[part] = path()
+            slice14_launches.update(part_launches)
+            torch.cuda.empty_cache()
+        slice14['phase_s'] = time.perf_counter() - t12
+        print(f'phase 12 took {slice14["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
                **fw_launches, **meta_launches, **slice9_launches,
                **slice9_cli_launches, **precision_launches,
                'recipe_cli': recipe_cli_launches, **bf16_train_launches,
-               **recipe_train_cli_launches}
+               **recipe_train_cli_launches, **slice14_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -2338,6 +2699,7 @@ def main():
                       'recipe_cli_summary': recipe_cli,
                       'bf16_training_summary': bf16_train,
                       'recipe_train_cli_summary': recipe_train_cli,
+                      'slice14_summary': slice14,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'combine_backward': combine_backward,

@@ -9,7 +9,10 @@ What cv2 did, and what stands in for it here:
   * decoding: `imread_bgr` reads binary PPM (P6) and `.npy`
     (an HxWx3 uint8 BGR array) with numpy.  Any other format is handed to
     cv2, imported only then; without cv2 that raises ImportError naming
-    the file.  The port has no JPEG decoder of its own yet.
+    the file.  The format is told by the file's first bytes, whatever its
+    extension, as cv2.imread tells it, so a `.jpg` that holds PPM data
+    reads the same in both packages.  The port has no JPEG decoder of its
+    own; `image_size` reads a PPM's or a JPEG's size from its header.
   * resizing: `resize_linear` reproduces cv2.resize INTER_LINEAR on
     float32 in numpy: cv2's source coordinates are computed in double and
     rounded to float32, as cv2 does (`aten.upsample_bilinear2d`, whose
@@ -27,6 +30,7 @@ What cv2 did, and what stands in for it here:
 
 from __future__ import annotations
 
+import struct
 import threading
 from collections import OrderedDict
 
@@ -154,12 +158,21 @@ def write_ppm(path, im_bgr: np.ndarray) -> None:
         f.write(np.ascontiguousarray(im_bgr[:, :, ::-1], np.uint8).tobytes())
 
 
+NPY_MAGIC = b'\x93NUMPY'
+JPEG_MAGIC = b'\xff\xd8'
+
+
+def _signature(path) -> bytes:
+    with open(path, 'rb') as f:
+        return f.read(len(NPY_MAGIC))
+
+
 def _decode(path) -> np.ndarray:
-    """uint8 [h, w, 3] BGR, by the file's format."""
-    ext = path.rsplit('.', 1)[-1].lower() if '.' in path else ''
-    if ext == 'ppm':
+    """uint8 [h, w, 3] BGR, by the format the file's first bytes name."""
+    head = _signature(path)
+    if head.startswith(b'P6'):
         return read_ppm(path)
-    if ext == 'npy':
+    if head.startswith(NPY_MAGIC):
         im = np.load(path, allow_pickle=False)
         if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
             raise ValueError(f'{path}: an image .npy holds uint8 [h, w, 3] '
@@ -168,13 +181,46 @@ def _decode(path) -> np.ndarray:
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(f'{path}: decoding .{ext} images needs cv2, which '
-                          'is not installed (the port reads PPM and .npy '
+        raise ImportError(f'{path}: decoding this image needs cv2, which is '
+                          'not installed (the port reads PPM and .npy '
                           'itself)') from e
     im = cv2.imread(path, cv2.IMREAD_COLOR)
     if im is None:
         raise FileNotFoundError(path)
     return im
+
+
+def _jpeg_size(f):
+    """(width, height) from the first SOF segment of the JPEG stream `f`,
+    read just past its SOI marker."""
+    while True:
+        marker = f.read(2)
+        while marker[:1] == b'\xff' and marker[1:] == b'\xff':
+            marker = marker[1:] + f.read(1)         # fill bytes
+        if len(marker) < 2 or marker[0] != 0xff:
+            raise ValueError(f'{f.name}: no JPEG frame header')
+        kind = marker[1]
+        if 0xd0 <= kind <= 0xd9 or kind == 0x01:   # markers with no length
+            continue
+        (length,) = struct.unpack('>H', f.read(2))
+        # SOF0-SOF15 but DHT (c4), JPG (c8) and DAC (cc)
+        if 0xc0 <= kind <= 0xcf and kind not in (0xc4, 0xc8, 0xcc):
+            _, h, w = struct.unpack('>BHH', f.read(5))
+            return w, h
+        f.seek(length - 2, 1)
+
+
+def image_size(path) -> tuple[int, int]:
+    """(width, height) of a PPM or JPEG file, from its header alone."""
+    with open(path, 'rb') as f:
+        head = f.read(2)
+        if head == b'P6':
+            f.seek(0)
+            _, w, h, _ = _ppm_tokens(f, 4)
+            return int(w), int(h)
+        if head == JPEG_MAGIC:
+            return _jpeg_size(f)
+    raise ValueError(f'{path}: neither a binary PPM nor a JPEG file')
 
 
 def imread_bgr(path: str, cache: ImageCache | None = None) -> np.ndarray:

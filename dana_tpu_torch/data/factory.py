@@ -1,24 +1,26 @@
 """Dataset registry: name -> constructor, ported from the JAX package's
-`data/factory.py` for its COCO-format datasets.
+`data/factory.py`.
 
 Registered: the `synth_*` sets, the reference's COCO FSOD splits, the
-pre-generated episodes, COCO 2014, `coco_80_ft` and the ycb2d sets.
-Datasets are built lazily under the config's DATA_DIR; a missing
-annotation file raises when its dataset is built.  Pascal VOC, Visual
-Genome and ImageNet are not ported yet (ROADMAP Queue A 7): their names
-raise KeyError saying so.
+pre-generated episodes, COCO 2014, `coco_80_ft`, the ycb2d sets, Pascal
+VOC 2007 and 2012, Visual Genome and ImageNet.  Datasets are built lazily
+under the config's DATA_DIR; a missing annotation file raises when its
+dataset is built.  Visual Genome and ImageNet take their native parsers
+only where the full native layout exists, else the COCO-format file
+DATA_DIR/{vg,imagenet}/annotations/<split>.json.
 """
 
 from __future__ import annotations
 
 import os.path as osp
 
+from dana_tpu_torch.data import imagenet, vg
 from dana_tpu_torch.data.coco_split import (CocoFormatDataset,
                                             _coco_image_name, coco_split)
+from dana_tpu_torch.data.pascal_voc import pascal_voc
 from dana_tpu_torch.data.synth import synth_fsod
 
 _SETS = {}
-_UNPORTED = ('voc_', 'vg_', 'imagenet_')
 
 
 def _register(name, fn):
@@ -124,17 +126,62 @@ def _register_ycb2d():
         _register(f'ycb2d_{split}', lambda d, s=split: ycb2d(d, s))
 
 
+def _register_voc_vg_imagenet():
+    def generic(data_dir, root, split):
+        """The COCO-format fallback of Visual Genome and ImageNet."""
+        d = osp.join(data_dir, root)
+        return CocoFormatDataset(
+            f'{root}_{split}', osp.join(d, 'annotations', f'{split}.json'),
+            osp.join(d, 'images'))
+
+    def vg_ds(data_dir, version, split):
+        # the native parser only when its vocab and split file exist: a
+        # bare genome/ directory of images must not hide the fallback
+        genome = osp.join(data_dir, 'genome')
+        base = vg.SPLIT_FILES.get(split, (split, None))[0]
+        if osp.exists(osp.join(genome, version, 'objects_vocab.txt')) \
+                and osp.exists(osp.join(genome, base + '.txt')):
+            return vg.vg(version, split, data_dir=data_dir)
+        return generic(data_dir, 'vg', split)
+
+    def imagenet_ds(data_dir, split):
+        # the devkit parser covers train and val; other splits and
+        # incomplete layouts take the fallback
+        devkit = osp.join(data_dir, 'imagenet', 'ILSVRC_devkit')
+        data = osp.join(data_dir, 'imagenet', 'ILSVRC')
+        sets_file = osp.join(data, 'ImageSets', ('trainr' if split == 'train'
+                                                 else 'val') + '.txt')
+        if split in ('train', 'val') and osp.isdir(devkit) \
+                and osp.exists(sets_file):
+            return imagenet.imagenet(split, devkit, data)
+        return generic(data_dir, 'imagenet', split)
+
+    for split in ['train', 'val', 'minival', 'minitrain', 'smalltrain',
+                  'smallval']:
+        _register(f'vg_150-50-50_{split}',
+                  lambda d, s=split: vg_ds(d, '150-50-50', s))
+    for split in ['train', 'val', 'trainval1', 'trainval2', 'test']:
+        _register(f'imagenet_{split}', lambda d, s=split: imagenet_ds(d, s))
+    for year in ['2007', '2012']:
+        for split in ['train', 'val', 'trainval', 'test']:
+            _register(f'voc_{year}_{split}',
+                      lambda d, y=year, s=split: pascal_voc(s, y,
+                                                            data_dir=d))
+
+
 _register_synth()
 _register_coco()
 _register_ycb2d()
+_register_voc_vg_imagenet()
 
 
 def get_imdb(name: str, data_dir: str = 'data'):
     """Build the dataset registered under `name` (factory.py
     get_imdb:93-97); `data_dir` is the config's DATA_DIR."""
-    if name.startswith(_UNPORTED):
-        raise KeyError(f'{name}: Pascal VOC, Visual Genome and ImageNet are '
-                       'not ported yet (ROADMAP Queue A 7)')
     if name not in _SETS:
         raise KeyError(f'Unknown dataset: {name}')
     return _SETS[name](data_dir)
+
+
+def list_imdbs():
+    return list(_SETS)

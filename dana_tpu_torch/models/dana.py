@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from dana_tpu_torch.core.anchors import generate_anchors, shifted_anchors
 from dana_tpu_torch.models import layers as L
@@ -77,6 +78,9 @@ TRUNKS['vgg16'] = Trunk(vgg.VGG16, vgg.init_params, vgg.FEAT_DIM,
                         vgg.TAIL_DIM)
 ARCHES = tuple(TRUNKS)
 POOLING_MODES = ('align', 'pool', 'crop')
+# how an attention site merges the query map with its attended supports:
+# concatenated channels (2C) or their product (C)
+ATTENTION_TYPES = ('concat', 'product')
 
 
 # the activation dtypes the precision recipe takes
@@ -86,9 +90,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 @dataclasses.dataclass(frozen=True)
 class DanaConfig:
     """Model configuration (field names and defaults of the JAX
-    DanaConfig).  The port runs concat attention and positional encoding
-    on both attention sites: the JAX fields that select otherwise are not
-    ported.
+    DanaConfig).
+
+    `attention_type` 'concat' feeds the RPN and the R-CNN head's transform
+    the query map concatenated with its attended supports (2C channels),
+    'product' their elementwise product (C channels).  `pos_encoding` adds
+    the sinusoidal tables to the support tokens at both sites and to the
+    RoI tokens.  `remat_backbone` recomputes the trunk's activations in
+    the training backward instead of keeping them (DAnA and cisa, as in
+    the JAX package): the same losses and gradients for less memory.
 
     Precision (the JAX package's recipe): the parameters stay float32 and
     every layer casts them to its input's dtype.  The trunk runs in
@@ -98,11 +108,13 @@ class DanaConfig:
     or bfloat16.  The proposal layer and the postprocess take float32."""
     n_way: int = 2
     n_shot: int = 3
+    attention_type: str = 'concat'          # one of ATTENTION_TYPES
     rpn_reduce_dim: int = 256
     rcnn_reduce_dim: int = 256
     gamma: float = 0.1                      # channel_gamma (BA block)
     unary_gamma: float = 0.1
     semantic_enhance: bool = False          # use_BA_block
+    pos_encoding: bool = True
     arch: str = 'resnet50'                  # one of ARCHES
     pooling_size: int = 7
     pooling_mode: str = 'align'             # one of POOLING_MODES
@@ -138,6 +150,7 @@ class DanaConfig:
     compute_dtype: torch.dtype = torch.float32
     attention_dtype: torch.dtype | None = None
     head_dtype: torch.dtype | None = None
+    remat_backbone: bool = False
 
     def __post_init__(self):
         for name in ('compute_dtype', 'attention_dtype', 'head_dtype'):
@@ -153,6 +166,9 @@ class DanaConfig:
         if self.framework not in FRAMEWORKS:
             raise ValueError(f'framework {self.framework!r} is not one of '
                              f'{FRAMEWORKS}')
+        if self.attention_type not in ATTENTION_TYPES:
+            raise ValueError(f'attention_type {self.attention_type!r} is not '
+                             f'one of {ATTENTION_TYPES}')
         if self.pooling_mode not in POOLING_MODES:
             raise ValueError(f'pooling_mode {self.pooling_mode!r} is not one '
                              f'of {POOLING_MODES}')
@@ -190,7 +206,9 @@ class DanaConfig:
 
     @property
     def rpn_din(self):
-        return 2 * self.feat_dim
+        """Channels into the RPN and the R-CNN head's transform."""
+        return 2 * self.feat_dim if self.attention_type == 'concat' \
+            else self.feat_dim
 
 
 class DAnA(nn.Module):
@@ -314,9 +332,10 @@ def _cisa_attention(q_tokens, s_tokens, model: DAnA, prefix, reduce_dim,
 
 
 def _support_tokens(feat, pe):
-    """[B, shot, h, w, C] -> [B, shot, h*w, C] + PE."""
+    """[B, shot, h, w, C] -> [B, shot, h*w, C] (+ PE unless pe is None)."""
     b, s, h, w, c = feat.shape
-    return feat.reshape(b, s, h * w, c) + pe[:h * w]
+    tokens = feat.reshape(b, s, h * w, c)
+    return tokens if pe is None else tokens + pe[:h * w]
 
 
 def roi_tail(model, pooled_feat):
@@ -346,33 +365,40 @@ def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
     rest in config.head_dt."""
     b, r, ph, pw, c = pooled_feat.shape
     adt, hdt = config.attention_dt, config.head_dt
-    pe = _pe(config.pooling_size ** 2, pooled_feat, adt)
-    q = pooled_feat.reshape(b, r, ph * pw, c).to(adt) + pe[:ph * pw]
+    pe = _pe(config.pooling_size ** 2, pooled_feat, adt) \
+        if config.pos_encoding else None
+    q = pooled_feat.reshape(b, r, ph * pw, c).to(adt)
+    if pe is not None:
+        q = q + pe[:ph * pw]
     s_tokens = _support_tokens(support_pooled.to(adt), pe)
     dense = _cisa_attention(q, s_tokens, model, 'rcnn',
                             config.rcnn_reduce_dim, config.unary_gamma)
     q, dense = q.to(hdt), dense.to(hdt)
-    # concat([q, dense]) @ W^T == q @ W[:, :C]^T + dense @ W[:, C:]^T,
-    # without the [B,R,49,2C] concat
     tw = model.rcnn_transform_layer
-    w = tw.weight.to(hdt)
-    corr = (q @ w[:, :c].T + dense @ w[:, c:].T
-            + tw.bias.to(hdt))                                  # [B,R,49,64]
+    if config.attention_type == 'concat':
+        # concat([q, dense]) @ W^T == q @ W[:, :C]^T + dense @ W[:, C:]^T,
+        # without the [B,R,49,2C] concat
+        w = tw.weight.to(hdt)
+        corr = (q @ w[:, :c].T + dense @ w[:, c:].T
+                + tw.bias.to(hdt))                              # [B,R,49,64]
+    else:
+        corr = tw(q * dense)
     x = corr.reshape(b, r, -1)             # token-major: index q*64 + d
     x = F.relu(model.output_score_layer.linear1(x))
     cls_score = model.output_score_layer.linear2(x)
     return torch.softmax(cls_score, dim=-1), cls_score
 
 
-def support_maps(model, config: DanaConfig, support_ims):
+def support_maps(model, config: DanaConfig, support_ims, remat=False):
     """support_ims [B, n, H, W, 3] (H, W >= 224) -> the trunk's maps
-    [B, n, H/16, W/16, C] in config.compute_dtype."""
+    [B, n, H/16, W/16, C] in config.compute_dtype; `remat` as in
+    `trunk_base`."""
     b, n, sh, sw, c = support_ims.shape
     if sh < 224 or sw < 224:
         raise ValueError(f'support images must be >= 224px (got {sh}x{sw}):'
                          ' the fixed AvgPool2d(14) needs a >= 14x14 map')
-    feats = model.backbone.base(support_ims.reshape(b * n, sh, sw, c)
-                                .to(config.compute_dtype))
+    feats = trunk_base(model, support_ims.reshape(b * n, sh, sw, c)
+                       .to(config.compute_dtype), remat)
     return feats.reshape(b, n, *feats.shape[1:])
 
 
@@ -383,11 +409,12 @@ def pool14(x):
     return L.nchw_to_nhwc(L.avg_pool(L.nhwc_to_nchw(x), 14, 1))
 
 
-def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
+def extract_support_feats(model: DAnA, config: DanaConfig, support_ims,
+                          remat=False):
     """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,C],
     pooled [B,n,h-13,w-13,C]): the trunk, then AvgPool2d(14, 1), in
-    config.compute_dtype."""
-    feats = support_maps(model, config, support_ims)
+    config.compute_dtype; `remat` as in `trunk_base`."""
+    feats = support_maps(model, config, support_ims, remat)
     b, n = feats.shape[:2]
     pooled = pool14(feats.reshape(b * n, *feats.shape[2:]))
     return feats, pooled.reshape(b, n, *pooled.shape[1:])
@@ -395,18 +422,21 @@ def extract_support_feats(model: DAnA, config: DanaConfig, support_ims):
 
 def rpn_attention(model: DAnA, config: DanaConfig, base_feat, support_feat):
     """base_feat [B,h,w,C] attends support_feat [B,shot,hs,ws,C] (tokens
-    in config.attention_dt) -> concat correlation feature [B,h,w,2C] in
-    config.head_dt."""
+    in config.attention_dt) -> the correlation feature in config.head_dt:
+    the concat [B,h,w,2C], or under product attention base_feat times the
+    attended supports [B,h,w,C]."""
     b, h, w, c = base_feat.shape
     adt, hdt = config.attention_dt, config.head_dt
-    s_tokens = _support_tokens(support_feat.to(adt),
-                               _pe(20 * 20, base_feat, adt))
+    pe = _pe(20 * 20, base_feat, adt) if config.pos_encoding else None
+    s_tokens = _support_tokens(support_feat.to(adt), pe)
     se = model.rpn_channel_k_layer if config.semantic_enhance else None
     dense = _cisa_attention(base_feat.reshape(b, h * w, c).to(adt), s_tokens,
                             model, 'rpn', config.rpn_reduce_dim,
                             config.unary_gamma, se, config.gamma)
-    return torch.cat([base_feat.to(hdt), dense.reshape(b, h, w, c).to(hdt)],
-                     dim=-1)
+    dense = dense.reshape(b, h, w, c).to(hdt)
+    if config.attention_type == 'concat':
+        return torch.cat([base_feat.to(hdt), dense], dim=-1)
+    return base_feat.to(hdt) * dense
 
 
 def prep_query_images(config: DanaConfig, im_data):
@@ -419,13 +449,23 @@ def prep_query_images(config: DanaConfig, im_data):
     return im_data
 
 
-def query_features(model, config: DanaConfig, im_data):
+def trunk_base(model, x, remat=False):
+    """The trunk's base features of x; with `remat`, under activation
+    checkpointing: the backward recomputes the trunk's forward instead of
+    keeping its activations.  The frozen stages' parameters need no
+    gradient either way, so they do no backward work."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(model.backbone.base, x, use_reentrant=False)
+    return model.backbone.base(x)
+
+
+def query_features(model, config: DanaConfig, im_data, remat=False):
     """The queries' base features [B, H/16, W/16, C] in
     config.compute_dtype (`dana.trunk` range): the mean subtraction in
-    float32, then one cast."""
+    float32, then one cast; `remat` as in `trunk_base`."""
     with record_function('dana.trunk'):
-        return model.backbone.base(prep_query_images(config, im_data)
-                                   .float().to(config.compute_dtype))
+        return trunk_base(model, prep_query_images(config, im_data).float()
+                          .to(config.compute_dtype), remat)
 
 
 def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
@@ -573,10 +613,12 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
         raise ValueError('training needs n_way >= 2: a negative support way '
                          f'feeds the hard-mined loss (got n_way='
                          f'{config.n_way})')
-    base_feat = query_features(model, config, im_data)
+    remat = training and config.remat_backbone
+    base_feat = query_features(model, config, im_data, remat)
     if support_feats is None:
         with record_function('dana.support_trunk'):
-            support_feats = extract_support_feats(model, config, support_ims)
+            support_feats = extract_support_feats(model, config, support_ims,
+                                                  remat)
     sup_feat, sup_pooled = support_feats
     pos_feat = sup_feat[:, :config.n_shot]
     pos_pooled = sup_pooled[:, :config.n_shot]

@@ -88,3 +88,15 @@ def hard_mined_pair_ce(cls_logits, labels, neg_logits):
              + (-neg_logp[:, 0] * neg_pick).sum())
     count = n_fg + bg_pick.sum() + neg_pick.sum()
     return total / count.clamp(min=1)
+
+
+def triplet_loss(anchor, positive, negative, margin=1.0, p=2):
+    """The margin triplet loss, mean over the leading axes of [..., D]
+    embeddings: max(|a - pos|_p - |a - neg|_p + margin, 0).  The
+    reference's TripletLoss (lib/model/utils/losses.py:13) does not parse;
+    this is what it attempts, as the JAX package has it (no framework
+    calls it)."""
+    def dist(a, b):
+        return torch.sum(torch.abs(a - b) ** p, dim=-1) ** (1.0 / p)
+    return torch.clamp(dist(anchor, positive) - dist(anchor, negative)
+                       + margin, min=0.0).mean()

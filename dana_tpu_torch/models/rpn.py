@@ -166,6 +166,16 @@ def anchor_target(anchors, gt_boxes, im_info, u_fg, u_bg, *, batch_rois=256,
     return labels, targets, inside_w, outside_w
 
 
+def iou_anchor_target(anchors, gt_boxes, im_info, u_fg, u_bg, **kw):
+    """`anchor_target`'s four outputs and each anchor's best IoU with a gt
+    box [B,N], over all anchors, with no inside-image filter (reference
+    iou_anchor_target_layer.py:193-196; no framework calls it, in the
+    reference or the JAX package)."""
+    out = anchor_target(anchors, gt_boxes, im_info, u_fg, u_bg, **kw)
+    ov = iou_matrix_masked(anchors[None], gt_boxes)
+    return (*out, ov.max(dim=2).values)
+
+
 def proposal_target(rois, gt_boxes, u_fg_rank, u_fg, u_bg, *,
                     rois_per_image=128, fg_fraction=0.25, fg_thresh=0.5,
                     bg_thresh_hi=0.5, bg_thresh_lo=0.1,

@@ -107,24 +107,30 @@ def read_pth(path):
     return payload
 
 
-def load_checkpoint(path, config):
-    """`.pth` or `.dkpt` -> (config.framework's module on the CPU, payload
-    without its 'model' entry).  Refuses a checkpoint that records another
-    detector."""
+def read_checkpoint(path):
+    """`.pth` or `.dkpt` -> its payload ('model' a flat state dict or a
+    param tree)."""
     if path.endswith('.pth'):
-        payload = read_pth(path)
-        build = load_reference_state_dict
-    elif path.endswith('.dkpt') or osp.isfile(path):
-        payload = read_dkpt(path)
-        build = from_jax_params
-    else:
-        raise FileNotFoundError(
-            f'{path}: no checkpoint (an Orbax directory is not read by the '
-            'port)')
+        return read_pth(path)
+    if path.endswith('.dkpt') or osp.isfile(path):
+        return read_dkpt(path)
+    raise FileNotFoundError(
+        f'{path}: no checkpoint (an Orbax directory is not read by the '
+        'port)')
+
+
+def load_checkpoint(path, config, payload=None):
+    """`.pth` or `.dkpt` (or its `payload`, read already) ->
+    (config.framework's module on the CPU, payload without its 'model'
+    entry).  Refuses a checkpoint that records another detector."""
+    if payload is None:
+        payload = read_checkpoint(path)
     written = (payload.get('extra') or {}).get('framework')
     if written not in (None, config.framework):
         raise ValueError(f'{path}: a {written} checkpoint, not '
                          f'{config.framework}')
+    build = load_reference_state_dict if path.endswith('.pth') \
+        else from_jax_params
     model = build(payload.pop('model'), config)
     return model, payload
 

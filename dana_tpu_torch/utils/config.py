@@ -126,6 +126,9 @@ def default_cfg() -> AttrDict:
             'ATTENTION_DTYPE': '',
             'HEAD_DTYPE': 'float32',
             'PARAM_DTYPE': 'float32',
+            # recompute the trunk's activations in the training backward
+            # (DanaConfig.remat_backbone): less peak memory, the same step
+            'REMAT_BACKBONE': False,
         },
         'RESNET': {'FIXED_BLOCKS': 1},
         'MAX_NUM_GT_BOXES': 20,
@@ -246,6 +249,7 @@ def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA',
         compute_dtype=dtype_or_none(c.TPU.COMPUTE_DTYPE) or torch.float32,
         attention_dtype=dtype_or_none(c.TPU.ATTENTION_DTYPE),
         head_dtype=dtype_or_none(c.TPU.HEAD_DTYPE),
+        remat_backbone=c.TPU.REMAT_BACKBONE,
         pixel_means=tuple(np.asarray(c.PIXEL_MEANS).ravel().tolist()))
 
 

@@ -509,3 +509,31 @@ def test_recipe_training_step_launches(dev, recipe):
     launches, _ = chip_smoke.training_path(0, model, recipe, steps=1)
     assert launches == chip_smoke.launch_counts(cisa_shots_bf16=3,
                                                 roi_align_fwd_bf16=1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shot', chip_smoke.MULTIWAY_SHOTS)
+@pytest.mark.parametrize('site', ['rpn', 'roi'])
+def test_cisa_kernels_at_the_multiway_shots(dev, site, shot, dtype):
+    """K1 and K1-bf16 at the serving sites of the N-way evaluation's shot
+    counts (chip_smoke.py's BATCH groups; the RoI site keeps all S shots'
+    scores resident in float32, the bf16 scratch P is [G, Nq, S, Nsp]):
+    within TOL (float32) or one bf16 ulp of the plain version, one launch
+    of the dtype's kernel."""
+    nq, ns = {'rpn': (38 * 64, 400), 'roi': (300 * 49, 49)}[site]
+    g, d, c = chip_smoke.BATCH, 256, 1024
+    gen = torch.Generator(device=dev).manual_seed(shot)
+    q, k, v = (torch.randn(*sh, device=dev, generator=gen).to(dtype)
+               for sh in ((g, nq, d), (g, shot, ns, d), (g, shot, ns, c)))
+    u = torch.softmax(torch.randn(g, shot, ns, device=dev, generator=gen),
+                      -1).to(dtype)
+    attr = 'launches' if dtype == torch.float32 else 'launches_bf16'
+    before = getattr(ca.cisa_attention_shots, attr)
+    got = ca.cisa_attention_shots(q, k, v, u, 1 / 16, 0.1)
+    want = ca.cisa_attention_shots_plain(q, k, v, u, 1 / 16, 0.1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    else:
+        _bf16_close(got, want)
+    assert getattr(ca.cisa_attention_shots, attr) == before + 1

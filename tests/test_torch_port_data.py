@@ -263,10 +263,3 @@ def test_evaluate_detections_matches_jax(synth_root, tmp_path):
     np.testing.assert_allclose(got['stats'], want['stats'], rtol=0,
                                atol=1e-12)
     assert got['stats'][1] > 0.1
-
-
-def test_unported_datasets_name_the_roadmap_item():
-    from dana_tpu_torch.data.factory import get_imdb
-    for name in ('voc_2007_test', 'vg_150-50-50_val', 'imagenet_val'):
-        with pytest.raises(KeyError, match='Queue A 7'):
-            get_imdb(name)
