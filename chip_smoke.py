@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dana_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--parallel_only]
 
 Run from the repository root.  Phases, each of which fails the run:
   1. device: a CUDA card must be present; prints its name and power
@@ -181,7 +181,26 @@ Run from the repository root.  Phases, each of which fails the run:
      path, as phases 4 and 5 hold theirs; (d) phase 5's first step with
      TPU.REMAT_BACKBONE True against without: equal losses, gradients
      within REMAT_TOL of the step's gradient norm, both peak memories
-     printed.
+     printed;
+ 13. parallelism (dana_tpu_torch/parallel), on every card present, or on
+     cuda:0 named twice when there is one: (a) phase 4's predictor on a
+     --mGPUs grid (every card as data rows), tp=2 and sp=2 serves REQUESTS
+     requests, timed beside the unsharded predictor's in this call, peak
+     memory per device, K1 and K2 counted by device (2 and 1 a request on
+     each data row's first device), request 0 against the unsharded one on
+     its proposals at phase 4's tolerances (detections tie-aware); (b)
+     phase 5's first batch as a data-parallel step of 2 ranks
+     (tools/torch_dist_step.py; nccl on two cards, gloo when they share
+     one) whose kernels build cold in a fresh DANA_BUILD_DIR, in float32
+     (3 K1 and 1 K3 a rank) and in the default recipe (3 K1-bf16 and 1
+     K2-bf16 a rank), each held against the one-process step (losses at
+     LOSS_RTOL / PATH_TOL_BF16, parameters at GRAD_RTOL / GRAD_TOL_BF16 of
+     the step's update) and timed by rank beside it; (c) the training CLI
+     with --mGPUs --dist as 2 processes for an epoch of synth_test, then
+     the dataset CLI with --dist as 2 processes on its checkpoint against
+     the one-process CLI (detections tie-aware), launches counted by rank
+     (each rank is this script with --cli_rank).  --parallel_only runs
+     phases 1, 2 and 13 alone (run it on a host with four cards).
 """
 
 from __future__ import annotations
@@ -192,6 +211,7 @@ import dataclasses
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -1157,16 +1177,17 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     return diffs
 
 
-def serving_predictor(seed, model=None):
+def serving_predictor(seed, model=None, **grid):
     """The served detector: `model`, a (config, params) pair, by default
-    DAnA res50 2-way 3-shot with random weights from `seed`, on the card,
-    the supports of classes 0 and 1 encoded."""
+    DAnA res50 2-way 3-shot with random weights from `seed`, on the card
+    (or the `grid` Predictor keywords devices, tp, sp), the supports of
+    classes 0 and 1 encoded."""
     from dana_tpu_torch.engine.predict import Predictor
     from dana_tpu_torch.utils import config as cfg
     config, params = model or cfg.get_model('res50', way=2, shot=3,
                                             seed=seed)
     rng = np.random.default_rng(seed)
-    pred = Predictor(params, config)              # device='cuda'
+    pred = Predictor(params, config, **grid)      # device='cuda'
     means = np.asarray(cfg.PIXEL_MEANS, np.float32)
     for cls in range(2):
         sup = rng.integers(0, 256, (config.n_shot, SUPPORT_HW, SUPPORT_HW,
@@ -2540,6 +2561,447 @@ def remat_path(seed, card):
         step_ms=plain['step_ms'], remat_step_ms=remat['step_ms'])
 
 
+# --------------------------------------------------------------- phase 13
+
+# the data-parallel step (phase 13 (b)): the parameters after one step,
+# two ranks against one process, as a share of that step's whole update
+# (lr times the gradient with its weight decay): the ranks' gradient mean
+# sums in another order, and cuDNN's backward is not deterministic on the
+# card (float32: GRAD_RTOL; the recipe: GRAD_TOL_BF16)
+CHILD_TIMEOUT_S = 420
+
+
+def grid_devices(n=2):
+    """n devices for a serving grid: the first n cards, or cuda:0 named n
+    times when there are fewer (the sharding code runs all the same)."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device('cuda', i) for i in range(n)]
+    return [DEV] * n
+
+
+def parallel_modes():
+    """Phase 13 (a)'s grids: --mGPUs semantics (every card, data rows),
+    tp=2 and sp=2 -> {mode: Predictor keywords}."""
+    count = torch.cuda.device_count()
+    return {'mGPUs': dict(devices=grid_devices(max(2, count))),
+            'tp2': dict(devices=grid_devices(2), tp=2),
+            'sp2': dict(devices=grid_devices(2), sp=2)}
+
+
+@contextlib.contextmanager
+def row_pinned(record, pinned):
+    """`pinned_proposals` for a grid Predictor: its proposal layer runs
+    once per data row, and each call is handed its rows of the unsharded
+    request's proposals (their batch column made the row's own)."""
+    from dana_tpu_torch.models import rpn
+    real = rpn.proposal_layer
+    rois, scores, mask = pinned
+    start = [0]
+
+    def layer(probs_fg, deltas, *args, **kwargs):
+        out = real(probs_fg, deltas, *args, **kwargs)
+        record.append(((probs_fg, deltas), out))
+        s, b = start[0], probs_fg.shape[0]
+        start[0] += b
+        dev = probs_fg.device
+        r = rois[s:s + b].to(dev).clone()
+        r[..., 0] -= s
+        return r, scores[s:s + b].to(dev), mask[s:s + b].to(dev)
+    rpn.proposal_layer = layer
+    try:
+        yield
+    finally:
+        rpn.proposal_layer = real
+
+
+def compare_grid(pred, base, query, info, classes, label):
+    """Request 0 on a grid Predictor against the unsharded `base`, both on
+    the unsharded request's proposals: RPN scores and deltas, cls_prob and
+    bbox_pred at TOL, the detections tie-aware at BOX_ATOL (phase 4's
+    tolerances).  -> the max |diff| of each."""
+    rec0 = []
+    with pinned_proposals(rec0):
+        want = base.forward(query, info, classes)
+    (s0, d0), pinned = rec0[0]
+    with pinned_proposals([], pinned):
+        wd, wv = base.predict(query, info, classes)
+    rec = []
+    with row_pinned(rec, pinned):
+        got = pred.forward(query, info, classes)
+    with row_pinned([], pinned):
+        gd, gv = pred.predict(query, info, classes)
+    cat = [torch.cat([r[0][i].to(DEV) for r in rec]) for i in (0, 1)]
+    diffs = {'rpn_scores': check_close(f'{label} rpn scores', cat[0], s0),
+             'rpn_deltas': check_close(f'{label} rpn deltas', cat[1], d0)}
+    diffs.update({k: check_close(f'{label} {k}', got[k], want[k])
+                  for k in ('cls_prob', 'bbox_pred')})
+    (gd, gv), (wd, wv) = ([x.cpu().numpy() for x in d]
+                          for d in ((gd, gv), (wd, wv)))
+    for i in range(len(gd)):
+        match_detections(gd[i][gv[i]], wd[i][wv[i]], coord_atol=BOX_ATOL)
+    return diffs
+
+
+def _by_device():
+    """This process's launches of K1, K2 and K3 by (device, dtype)."""
+    from dana_tpu_torch.ops import cisa_attention, roi_align
+    return {name: {f'{d}/{t}': n for (d, t), n in
+                   fn.launches_by_device.items()}
+            for name, fn in (('cisa_shots',
+                              cisa_attention.cisa_attention_shots),
+                             ('roi_align_fwd', roi_align.roi_align),
+                             ('roi_align_pw', roi_align.roi_align_pw))}
+
+
+def _clear_by_device():
+    from dana_tpu_torch.ops import cisa_attention, roi_align
+    for fn in (cisa_attention.cisa_attention_shots, roi_align.roi_align,
+               roi_align.roi_align_pw):
+        fn.launches_by_device.clear()
+
+
+def grid_serving_path(seed, card):
+    """Phase 13 (a): phase 4's detector and requests on each grid of
+    `parallel_modes`, REQUESTS requests timed beside the unsharded
+    predictor's in this call, launches counted by device, request 0
+    against the unsharded request.  -> ({path: launches}, summary)."""
+    base = serving_predictor(seed)
+    requests = serving_requests(seed, REQUESTS)
+    by_path, summary = {}, {}
+    base_ms = []
+    for query, info, classes in requests:
+        t0 = time.perf_counter()
+        base.predict(query, info, classes)
+        torch.cuda.synchronize()
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+    summary['unsharded_req_ms'] = base_ms
+    for mode, kw in parallel_modes().items():
+        pred = serving_predictor(seed, **kw)
+        devs = sorted({str(d) for d in kw['devices']})
+        torch.cuda.synchronize()
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        zero_launches()
+        _clear_by_device()
+        req_ms = []
+        for query, info, classes in requests:
+            t0 = time.perf_counter()
+            dets, valid = pred.predict(query, info, classes)
+            torch.cuda.synchronize()
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            if dets.shape != (BATCH, 100, 5) or not torch.isfinite(
+                    dets).all():
+                fail(f'{mode}: bad detections {tuple(dets.shape)}')
+        launches, by_dev = read_launches(), _by_device()
+        peak = {d: torch.cuda.max_memory_allocated(d) / 2 ** 30
+                for d in devs}
+        rows = len(pred.rows)
+        want = launch_counts(cisa_shots=2 * rows * REQUESTS,
+                             roi_align_fwd=rows * REQUESTS)
+        if launches != want:
+            fail(f'{mode} launches {launches}, expected {want}')
+        leads = [str(r.lead) for r in pred.rows]
+        want_dev = {d: leads.count(d) * REQUESTS for d in set(leads)}
+        for name, per in (('cisa_shots', 2), ('roi_align_fwd', 1)):
+            got = {k.split('/')[0]: v for k, v in by_dev[name].items()}
+            if got != {d: per * n for d, n in want_dev.items()}:
+                fail(f'{mode} {name} launches by device {got}, expected '
+                     f'{per} a request on each data row\'s first device '
+                     f'{want_dev}')
+        diffs = compare_grid(pred, base, *requests[0], label=mode)
+        by_path[f'{mode}_serving'] = launches
+        summary[mode] = dict(grid=repr(pred.grid), devices=[
+            str(d) for d in kw['devices']], req_ms=req_ms, peak_gib=peak,
+            launches_by_device=by_dev, path_diffs=diffs)
+        print(f'{mode} ({card}, {torch.cuda.device_count()} device(s) '
+              f'seen): {pred.grid} over {[str(d) for d in kw["devices"]]}, '
+              f'ms per request {req_ms} (unsharded in this call: '
+              f'{base_ms}), peak memory {peak} GiB, launches by device '
+              f'{by_dev}; request 0 against the unsharded one: max |diff| '
+              f'{diffs}, detections equal (tie-aware)', flush=True)
+        del pred
+        torch.cuda.empty_cache()
+    return by_path, summary
+
+
+def run_children(cmds, tmp, tag, env=None):
+    """Start every command (output to a file, not a pipe: a rank blocked
+    on a full pipe would strand its peer in a collective), wait for all,
+    kill all at CHILD_TIMEOUT_S; fail unless each exits 0.  -> their
+    outputs."""
+    procs = []
+    for i, cmd in enumerate(cmds):
+        log = open(os.path.join(tmp, f'{tag}{i}.log'), 'w+')
+        procs.append((subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, **(env or {})),
+            cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    outs, deadline = [], time.time() + CHILD_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    for (p, _), out in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f'a {tag} process exited {p.returncode}:\n{out[-4000:]}')
+    return outs
+
+
+def dp_step_path(seed, card, tmp):
+    """Phase 13 (b): phase 5's detector and first batch of 4 episodes as
+    one data-parallel step of 2 ranks (tools/torch_dist_step.py: nccl on
+    two cards, gloo when they share one), started with a cold kernel
+    build directory, in float32 and in the default recipe, each against
+    the one-process step from the same weights and generator seed; then 3
+    timed steps each way.  -> ({path: launches}, summary)."""
+    from dana_tpu_torch.engine.train import LOSSES, Trainer
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    batch = {k: v.cpu().numpy()
+             for k, v in training_episodes(seed, 1, DEV)[0].items()}
+    runs = [dict(label='float32', config=config, trainer=dict(seed=seed)),
+            dict(label='default_recipe',
+                 config=_recipe(config, 'default_recipe'),
+                 trainer=dict(seed=seed))]
+    inputs = os.path.join(tmp, 'dp_inputs.pkl')
+    with open(inputs, 'wb') as f:
+        pickle.dump(dict(params=params, batch=batch, runs=runs,
+                         lr=cfg.TRAIN_LEARNING_RATE), f)
+    build_dir = os.path.join(tmp, 'cold_build')
+    t0 = time.perf_counter()
+    harness = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'tools', 'torch_dist_step.py')
+    run_children([[sys.executable, harness, '--inputs', inputs, '--out',
+                   os.path.join(tmp, f'dp_rank{r}.pkl'), '--rank', str(r),
+                   '--world', '2', '--init', f'file://{tmp}/dp_rdzv',
+                   '--time_steps', '3'] for r in (0, 1)], tmp, 'dp_rank',
+                 env={'DANA_BUILD_DIR': build_dir})
+    ranks_s = time.perf_counter() - t0
+    built = sorted(os.listdir(build_dir))
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f'dp_rank{r}.pkl'), 'rb') as f:
+            ranks.append(pickle.load(f))
+    by_path, summary = {}, dict(ranks_s=ranks_s, cold_build=built,
+                                backend=ranks[0]['backend'],
+                                devices=[r['device'] for r in ranks])
+    for run in runs:
+        label, conf = run['label'], run['config']
+        f32 = _float32(conf)
+        torch.cuda.reset_peak_memory_stats()
+        one = Trainer(params, conf, seed=seed, lr=cfg.TRAIN_LEARNING_RATE)
+        p0 = {n: p.detach().clone() for n, p in one.model.named_parameters()
+              if p.requires_grad}
+        m = {k: float(v) for k, v in one.step(batch).items()}
+        update = torch.sqrt(sum((p.detach() - p0[n]).norm() ** 2
+                                for n, p in one.model.named_parameters()
+                                if n in p0)).item()
+        # every rank holds the parameters of the one-process step, and
+        # the ranks hold the same ones
+        worst = 0.0
+        for r, rank in enumerate(ranks):
+            dp = rank['runs'][label]
+            for n, p in one.model.named_parameters():
+                if n in p0:
+                    gap = (torch.from_numpy(dp['params'][n]).to(DEV)
+                           - p.detach()).norm().item() / max(update, 1e-30)
+                    worst = max(worst, gap)
+            if worst > (GRAD_RTOL if f32 else GRAD_TOL_BF16):
+                fail(f'{label} data-parallel step: rank {r}\'s parameters '
+                     f'{worst:.3e} of the step\'s update from the '
+                     'one-process step\'s')
+        sums = [rank['runs'][label]['param_abs_sum'] for rank in ranks]
+        if abs(sums[1] - sums[0]) > 1e-12 * abs(sums[0]):
+            fail(f'{label} data-parallel step: the ranks\' parameters '
+                 f'differ (absolute sums {sums})')
+        for r in ranks:
+            got = r['runs'][label]
+            for k in (*LOSSES, 'loss'):
+                a, b = got['metrics'][k], m[k]
+                ok = (abs(a - b) <= LOSS_RTOL * abs(b) if f32
+                      else abs(a - b) <= PATH_TOL_BF16 * (1 + abs(b)))
+                if not ok:
+                    fail(f'{label} data-parallel step {k}: rank {a}, one '
+                         f'process {b}')
+            if got['metrics']['skipped'] != 0.0 or got['metrics'][
+                    'fg_cnt'] != m['fg_cnt']:
+                fail(f'{label}: rank metrics {got["metrics"]}, one process '
+                     f'{m}')
+            k1 = 'cisa_shots' + ('' if f32 else '_bf16')
+            roi = 'roi_align_pw' if f32 else 'roi_align_fwd_bf16'
+            counts = got['launches']
+            if counts[k1] != 3 or counts[roi] != 1 or sum(
+                    v for k, v in counts.items()
+                    if not k.endswith('_by_device')) != 4:
+                fail(f'{label}: a rank launched {counts}; expected 3 {k1} '
+                     f'and 1 {roi}')
+        one_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.step(batch)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        by_path[f'dp_{label}_training'] = launch_counts(**{
+            k: sum(r['runs'][label]['launches'][k] for r in ranks)
+            for k in (('cisa_shots', 'roi_align_pw') if f32 else
+                      ('cisa_shots_bf16', 'roi_align_fwd_bf16'))})
+        summary[label] = dict(
+            step_ms=[r['runs'][label]['step_ms'] for r in ranks],
+            one_process_step_ms=one_ms,
+            peak_gib=[r['runs'][label]['peak_gib'] for r in ranks],
+            metrics=ranks[0]['runs'][label]['metrics'], one_process=m,
+            param_rel_diff=worst,
+            launches=[r['runs'][label]['launches'] for r in ranks])
+        print(f'{label} data-parallel step ({card}, '
+              f'{torch.cuda.device_count()} device(s) seen, '
+              f'{summary["backend"]} over {summary["devices"]}): 2 ranks x 2 '
+              f'episodes, ms per step by rank {summary[label]["step_ms"]}, '
+              f'one process x 4 episodes {one_ms}; peak GiB by rank '
+              f'{summary[label]["peak_gib"]}, one process {one_peak:.2f}; '
+              f'losses equal the one-process step\'s, both ranks\' '
+              f'parameters within {worst:.3e} of its update and equal to '
+              f'each other; launches by rank '
+              f'{summary[label]["launches"]}', flush=True)
+        del one
+        torch.cuda.empty_cache()
+    print(f'data-parallel ranks took {ranks_s:.1f} s, the kernels built '
+          f'cold by both at once: {built}', flush=True)
+    return by_path, summary
+
+
+def cli_rank_main(which, argv):
+    """A rank of phase 13 (c): the CLI's main on argv, then its launches
+    by kernel as the last line of its output."""
+    from dana_tpu_torch import inference, train
+    zero_launches()
+    _clear_by_device()
+    out = (train if which == 'train' else inference).main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    steps = sum(e['steps'] for e in out['epochs']) \
+        if which == 'train' and out else None
+    print(json.dumps({'launches': read_launches(), 'by_device': _by_device(),
+                      'steps': steps}), flush=True)
+
+
+def dist_cli_path(seed, card, tmp):
+    """Phase 13 (c): the training CLI with --mGPUs --dist as 2 processes
+    for an epoch of synth_test (5 steps of 4 episodes), then the dataset
+    CLI with --dist as 2 processes serving its checkpoint over synth_test,
+    against the one-process dataset CLI on the same checkpoint (detections
+    tie-aware).  -> ({path: launches}, summary)."""
+    from dana_tpu_torch import inference
+    from dana_tpu_torch.data.synth import synth_fsod
+    synth_fsod('test', num_images=20)
+    synth_fsod('train')
+    me = os.path.abspath(__file__)
+    save = os.path.join(tmp, 'run_dp')
+    t0 = time.perf_counter()
+    outs = run_children([[sys.executable, me, '--cli_rank', 'train',
+                          '--dataset', 'synth_test', '--way', '2', '--shot',
+                          '3', '--bs', str(TRAIN_BATCH), '--epochs', '1',
+                          '--nw', '4', '--dlog', '--disp_interval', '5',
+                          '--seed', str(seed), '--save_dir', save,
+                          '--mGPUs', '--dist', '--coordinator',
+                          f'file://{tmp}/train_rdzv', '--num_procs', '2',
+                          '--proc_id', str(r)] for r in (0, 1)], tmp,
+                        'train_rank')
+    train_s = time.perf_counter() - t0
+    train_counts = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    steps = train_counts[0]['steps']
+    for c in train_counts:
+        if c['steps'] != steps or c['launches'] != launch_counts(
+                cisa_shots=3 * steps, roi_align_pw=steps):
+            fail(f'--dist training rank: {c}, expected 3 K1 and 1 K3 for '
+                 f'each of {steps} steps')
+    ckpts = [os.path.join(dp, f) for dp, _, fs in os.walk(save)
+             for f in fs if f.endswith('.dkpt')]
+    if len(ckpts) != 1:
+        fail(f'--dist training wrote {ckpts}, expected the chief\'s one')
+    argv = ['--dataset', 'synth', '--way', '2', '--shot', '3', '--bs',
+            str(BATCH), '--seed', str(seed), '--checkpath', ckpts[0]]
+    one_dir, pair_dir = os.path.join(tmp, 'eval_one'), os.path.join(
+        tmp, 'eval_dp')
+    inference.main(argv + ['--eval_dir', one_dir])
+    t0 = time.perf_counter()
+    outs = run_children([[sys.executable, me, '--cli_rank', 'inference',
+                          *argv, '--eval_dir', pair_dir, '--dist',
+                          '--coordinator', f'file://{tmp}/eval_rdzv',
+                          '--num_procs', '2', '--proc_id', str(r)]
+                         for r in (0, 1)], tmp, 'eval_rank')
+    eval_s = time.perf_counter() - t0
+    eval_counts = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    chunks = []
+    for r, o in enumerate(outs):
+        hit = re.search(rf'^rank {r}: (\d+) of the chunks', o, re.M)
+        chunks.append(int(hit.group(1)) if hit else None)
+    for c, n in zip(eval_counts, chunks):
+        if n is None or c['launches'] != launch_counts(cisa_shots=2 * n,
+                                                       roi_align_fwd=n):
+            fail(f'--dist eval rank: {c}, expected 2 K1 and 1 K2 for each '
+                 f'of its {n} chunks')
+    with open(os.path.join(one_dir, 'detections.pkl'), 'rb') as f:
+        one = pickle.load(f)
+    with open(os.path.join(pair_dir, 'detections.pkl'), 'rb') as f:
+        pair = pickle.load(f)
+    cells = 0
+    for ca, cb in zip(one, pair):
+        for da, db in zip(ca, cb):
+            if isinstance(da, np.ndarray) and len(da):
+                match_detections(da, db, coord_atol=BOX_ATOL)
+                cells += 1
+            elif isinstance(db, np.ndarray) and len(db):
+                fail('--dist eval detected where one process did not')
+    by_path = {f'dist_train_rank{r}': c['launches']
+               for r, c in enumerate(train_counts)}
+    by_path.update({f'dist_eval_rank{r}': c['launches']
+                    for r, c in enumerate(eval_counts)})
+    summary = dict(train_s=train_s, steps=steps, eval_s=eval_s,
+                   chunks=chunks, cells=cells,
+                   train_launches=train_counts, eval_launches=eval_counts)
+    print(f'--dist CLIs ({card}): training 2 ranks x {steps} steps in '
+          f'{train_s:.1f} s, launches by rank {train_counts}; dataset CLI 2 '
+          f'ranks ({chunks} chunks) in {eval_s:.1f} s, launches by rank '
+          f'{eval_counts}; merged detections equal the one-process run\'s '
+          f'in {cells} cells (tie-aware)', flush=True)
+    return by_path, summary
+
+
+def parallel_path(seed, card):
+    """Phase 13: (a) grid_serving_path, (b) dp_step_path, (c)
+    dist_cli_path.  -> ({path: launches}, summary)."""
+    by_path, summary = {}, {}
+    t0 = time.perf_counter()
+    part, summary['serving'] = grid_serving_path(seed, card)
+    by_path.update(part)
+    summary['serving_s'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        part, summary['dp_step'] = dp_step_path(seed, card, tmp)
+        by_path.update(part)
+        summary['dp_step_s'] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        part, summary['dist_cli'] = dist_cli_path(seed, card, tmp)
+        by_path.update(part)
+        summary['dist_cli_s'] = time.perf_counter() - t1
+    summary['phase_s'] = time.perf_counter() - t0
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -2555,8 +3017,12 @@ def synth_root(tmp):
 
 
 def main():
+    if sys.argv[1:2] == ['--cli_rank']:
+        return cli_rank_main(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--parallel_only', action='store_true',
+                    help='phases 1, 2 and 13 alone (e.g. on several cards)')
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2587,6 +3053,15 @@ def main():
             if 'ptxas info    : Used' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
 
+    if args.parallel_only:
+        with tempfile.TemporaryDirectory() as tmp, synth_root(tmp):
+            by_path, parallel = parallel_path(args.seed, card)
+        print(json.dumps({'parallel_summary': parallel,
+                          'launches_by_path': by_path}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
+        return
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     with torch.inference_mode():
@@ -2678,13 +3153,19 @@ def main():
         slice14['phase_s'] = time.perf_counter() - t12
         print(f'phase 12 took {slice14["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+        # phase 13: data, tensor and spatial parallelism, multi-process
+        # training and evaluation
+        parallel_launches, parallel = parallel_path(args.seed, card)
+        print(f'phase 13 took {parallel["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
                **fw_launches, **meta_launches, **slice9_launches,
                **slice9_cli_launches, **precision_launches,
                'recipe_cli': recipe_cli_launches, **bf16_train_launches,
-               **recipe_train_cli_launches, **slice14_launches}
+               **recipe_train_cli_launches, **slice14_launches,
+               **parallel_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -2700,6 +3181,7 @@ def main():
                       'bf16_training_summary': bf16_train,
                       'recipe_train_cli_summary': recipe_train_cli,
                       'slice14_summary': slice14,
+                      'parallel_summary': parallel,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'combine_backward': combine_backward,

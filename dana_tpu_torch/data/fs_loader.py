@@ -241,19 +241,30 @@ class EpisodicBatcher:
     what a straight run would.  With num_workers > 1 a thread pool
     assembles the episodes, `lookahead` batches ahead of the consumer
     (file reads and numpy's array passes release the interpreter lock for
-    part of their time; the rest competes with the consumer's thread)."""
+    part of their time; the rest competes with the consumer's thread).
+
+    batch_size is the global batch.  In a run of `process_count` processes
+    (parallel/distributed.py) each passes its `process_id`: the batches'
+    indices are the same on every process (seeded), and each assembles
+    only its row block [id B/P, (id+1) B/P) of every batch, so the ranks'
+    rows in rank order are the one-process batches.  A bucket shorter than
+    the batch (drop_last False) is cycled to fill it, so the blocks stay
+    equal."""
 
     def __init__(self, loader: FewShotLoader, batch_size, shuffle=True,
                  seed=0, drop_last=True, process_id=0, process_count=1,
                  num_workers=0, lookahead=2):
-        if process_count > 1 or process_id:
-            raise ValueError('multi-process row slicing is not ported yet '
-                             '(ROADMAP Queue A 8: multi-GPU)')
+        if batch_size % max(1, process_count):
+            raise ValueError(
+                f'global batch {batch_size} must divide evenly over '
+                f'{process_count} processes')
         self.loader = loader
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.process_id = process_id
+        self.process_count = max(1, process_count)
         self.num_workers = int(num_workers)
         self.lookahead = max(1, int(lookahead))
         self.epoch = 0
@@ -291,7 +302,9 @@ class EpisodicBatcher:
 
     def __iter__(self):
         self.epoch += 1
-        rows = self.index_batches(self.epoch)
+        per = self.batch_size // self.process_count
+        lo = self.process_id * per
+        rows = [b[lo:lo + per] for b in self.index_batches(self.epoch)]
         if self.num_workers <= 1:
             for batch_idx in rows:
                 yield self._stack([self.loader[i] for i in batch_idx])

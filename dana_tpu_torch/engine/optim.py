@@ -79,12 +79,26 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float):
         g['lr'] = lr * g['lr_mult']
 
 
+def _by_device(tensors):
+    """{device: [tensors on it]} in first-seen order (tensor parallelism
+    puts a layer's shards on several devices)."""
+    out = {}
+    for t in tensors:
+        out.setdefault(t.device, []).append(t)
+    return out
+
+
 def clip_gradients(grads, clip_norm: float):
     """Scale the gradients in place by min(1, clip_norm / total norm), the
     norm over all of them (the trainable parameters' only)."""
-    total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    torch._foreach_mul_(grads, (clip_norm / total.clamp(min=1e-12))
-                        .clamp(max=1.0))
+    groups = _by_device(grads)
+    lead = grads[0].device
+    total = torch.linalg.vector_norm(torch.cat(
+        [torch.stack(torch._foreach_norm(gs)).to(lead)
+         for gs in groups.values()]))
+    scale = (clip_norm / total.clamp(min=1e-12)).clamp(max=1.0)
+    for dev, gs in groups.items():
+        torch._foreach_mul_(gs, scale.to(dev))
 
 
 def nonfinite(loss, grads) -> torch.Tensor:
@@ -93,6 +107,10 @@ def nonfinite(loss, grads) -> torch.Tensor:
     the gradients (torch's AMP unscale with a scale of 1, which leaves
     them unchanged)."""
     found = (~torch.isfinite(loss.detach())).float().reshape(1)
-    torch._amp_foreach_non_finite_check_and_unscale_(
-        grads, found, torch.ones(1, device=loss.device))
+    for dev, gs in _by_device(grads).items():
+        f = found if dev == loss.device else torch.zeros(1, device=dev)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            gs, f, torch.ones(1, device=dev))
+        if f is not found:
+            found = torch.maximum(found, f.to(loss.device))
     return found

@@ -5,23 +5,51 @@ each class's supports once and serve from that cache; FSOD, Meta R-CNN
 and FGN take each request's support images and encode them with it, as
 the JAX CLI does.  Faster R-CNN is refused: its class-specific deltas
 [B, R, 8] meet the postprocess's 4 bbox stds, which the JAX package's
-postprocess cannot broadcast either."""
+postprocess cannot broadcast either.
+
+With a list of `devices` it serves on a (data, model) grid
+(`parallel.make_mesh_2d(devices, model=max(tp, sp))`), as the JAX CLI's
+--mGPUs, --tp and --sp do: each request's rows split over the data rows
+of the grid; on each row, tensor parallelism splits the wide projections
+and the RPN conv over the row's devices (`parallel.shard_params_tp`), or
+spatial parallelism splits the queries' H over them through the trunk
+(`parallel/spatial.py`), and the rest of the forward runs on the row's
+first device; the detections are concatenated on the first device.  The
+rows run one after another from this thread, and each row's proposal NMS
+syncs the host, so a request over several cards takes longer than on one
+(the dataset CLI's --dist runs one process per card instead)."""
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from dana_tpu_torch import parallel
 from dana_tpu_torch.engine.postprocess import postprocess_batch
 from dana_tpu_torch.models import dana, frameworks
+from dana_tpu_torch.parallel.spatial import shard_trunk_spatial
 from dana_tpu_torch.utils import config as cfg
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import from_jax_params
 
 
+class _Row:
+    """One data row of the serving grid: its devices, the model replica
+    on its first device (its wide layers split over the row under tp, its
+    trunk over the row under sp) and its support cache."""
+
+    def __init__(self, devices, model):
+        self.devices, self.model = devices, model
+        self.lead = devices[0]
+        self.cache = {}
+
+
 class Predictor:
-    """Predictor(params, config, device='cuda', postprocess=None).
+    """Predictor(params, config, device='cuda', postprocess=None,
+    devices=None, tp=1, sp=1).
 
     params: the JAX package's param tree (numpy leaves) of
     config.framework's detector, or its built module.  The device defaults
@@ -34,11 +62,18 @@ class Predictor:
     `postprocess` is the detection postprocess's keywords
     (`utils.config.postprocess_kwargs` of the CLI's tree; the built-in
     tree's when None).
+    `devices` (default [device]) with `tp` or `sp` > 1 serve on a grid
+    (module docstring): one replica and one support cache per device,
+    a request's B rows split over the grid's data rows (B % rows == 0).
     """
 
     def __init__(self, params, config: dana.DanaConfig, device='cuda',
-                 postprocess=None):
-        self.device = resolve_device(device)
+                 postprocess=None, devices=None, tp=1, sp=1):
+        devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = devices[0]
+        if tp > 1 and sp > 1:
+            raise ValueError('--tp and --sp both shard the mesh "model" '
+                             'axis — pick one latency mode')
         if config.framework == 'frcnn':
             raise ValueError(
                 'frcnn has no serving path: its class-specific deltas [B, R, '
@@ -49,10 +84,22 @@ class Predictor:
             use_full_f32()
         model = params if isinstance(params, nn.Module) \
             else from_jax_params(params, config)
-        self.model = model.to(self.device)
         self.config = config
         self.postprocess = postprocess or cfg.postprocess_kwargs()
-        self._sup_cache = {}
+        self.grid = parallel.make_mesh_2d(devices, model=max(tp, sp, 1))
+        replicas = dict(zip(devices, parallel.replicate(model, devices)))
+        self.rows = []
+        for row in self.grid.devices:
+            row = list(row)
+            m = replicas[row[0]]
+            if tp > 1:
+                m = parallel.shard_params_tp(copy.deepcopy(m), row)
+            if sp > 1:
+                m = shard_trunk_spatial(copy.deepcopy(m), row,
+                                        [replicas[d].backbone for d in row])
+            self.rows.append(_Row(row, m))
+        self.model = self.rows[0].model
+        self._sup_cache = self.rows[0].cache
 
     @property
     def caches_supports(self):
@@ -67,18 +114,21 @@ class Predictor:
         if not self.caches_supports:
             raise ValueError(f'{self.config.framework} keeps no support '
                              'cache: pass each request\'s support_ims')
-        ims = torch.as_tensor(support_ims, device=self.device)[None]
-        self._sup_cache[int(cls)] = dana.extract_support_feats(
-            self.model, self.config, ims)
+        for row in self.rows:
+            ims = torch.as_tensor(support_ims, device=row.lead)[None]
+            row.cache[int(cls)] = dana.extract_support_feats(
+                row.model, self.config, ims)
         return self._sup_cache[int(cls)]
 
     def has_supports(self, cls):
         return int(cls) in self._sup_cache
 
-    def batch_support_feats(self, classes):
+    def batch_support_feats(self, classes, cache=None):
         """Cached (feat [B,n,h,w,C], pooled [B,n,7,7,C]) for the query
-        batch's target classes."""
-        fs = [self._sup_cache[int(c)] for c in classes]
+        batch's target classes (from the first data row's cache, or
+        `cache`)."""
+        cache = self._sup_cache if cache is None else cache
+        fs = [cache[int(c)] for c in classes]
         return (torch.cat([f[0] for f in fs]), torch.cat([f[1] for f in fs]))
 
     @torch.inference_mode()
@@ -88,19 +138,65 @@ class Predictor:
         whose supports were encoded, for the siblings support_ims [B,
         n_shot, H, W, 3] float mean-subtracted -> (dets [B,100,5], valid
         [B,100]) on the device.  Host arrays or tensors; a tensor in pinned
-        memory is copied without blocking the host."""
+        memory is copied without blocking the host.  On a grid the rows
+        split over its data rows and the detections come back on the
+        first device."""
+        if len(self.rows) == 1:
+            return self._predict_row(self.rows[0], im_data, im_info, classes,
+                                     support_ims)
+        outs = [self._predict_row(row, *args)
+                for row, args in self._split(im_data, im_info, classes,
+                                             support_ims)]
+        return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                     for j in range(2))
+
+    @torch.inference_mode()
+    def forward(self, im_data, im_info, classes=None, support_ims=None):
+        """The detector's eval outputs before the postprocess (rois,
+        cls_prob, bbox_pred, cls_score, roi_mask), taken as `predict`
+        takes its request and gathered on the first device; each roi's
+        batch index is its row in the request."""
+        outs = []
+        for i, (row, args) in enumerate(self._split(im_data, im_info, classes,
+                                                    support_ims)):
+            out = self._forward_row(row, *args)[0]
+            out['rois'] = out['rois'].clone()
+            out['rois'][..., 0] += i * len(args[0])
+            outs.append(out)
+        return {k: torch.cat([o[k].to(self.device) for o in outs])
+                for k in outs[0]}
+
+    def _split(self, im_data, im_info, classes, support_ims):
+        """(row, its slice of the request) for every data row."""
+        b, n = len(im_data), len(self.rows)
+        if b % n:
+            raise ValueError(f'a request of {b} rows does not split over '
+                             f'the {n} data rows of the grid')
+        for i, row in enumerate(self.rows):
+            rs = slice(i * b // n, (i + 1) * b // n)
+            yield row, (im_data[rs], im_info[rs],
+                        None if classes is None else classes[rs],
+                        None if support_ims is None else support_ims[rs])
+
+    def _forward_row(self, row, im_data, im_info, classes, support_ims):
         with record_function('dana.upload'):
-            im_data = torch.as_tensor(im_data).to(self.device,
+            im_data = torch.as_tensor(im_data).to(row.lead,
                                                   non_blocking=True)
-            im_info = torch.as_tensor(im_info).to(self.device,
+            im_info = torch.as_tensor(im_info).to(row.lead,
                                                   non_blocking=True).float()
             if self.caches_supports:
-                kw = dict(support_feats=self.batch_support_feats(classes))
+                kw = dict(support_feats=self.batch_support_feats(
+                    classes, row.cache))
             else:
                 kw = dict(support_ims=torch.as_tensor(support_ims).to(
-                    self.device, non_blocking=True).float())
-        out = frameworks.forward(self.model, self.config, im_data, im_info,
+                    row.lead, non_blocking=True).float())
+        out = frameworks.forward(row.model, self.config, im_data, im_info,
                                  **kw)
+        return out, im_info
+
+    def _predict_row(self, row, im_data, im_info, classes, support_ims):
+        out, im_info = self._forward_row(row, im_data, im_info, classes,
+                                         support_ims)
         with record_function('dana.postprocess'):
             return postprocess_batch(
                 out['rois'], out['cls_prob'].float(),

@@ -30,8 +30,19 @@ a backbone name), with the config tree's POOLING_MODE, which a checkpoint
 overrides with the mode it was trained with; --ls serves at
 cfgs/res101_ls.yml's values (800 px queries, 1000 proposals an image).
 
+Several devices (dana_tpu_torch/parallel), as the JAX CLI: --mGPUs,
+--tp N or --sp N serve over `parallel.local_devices()` when it names more
+than one device, on a (data, model=N) grid of `Predictor(devices=, tp=,
+sp=)` (--tp with --sp is refused), --bs rounded up to a multiple of the
+data extent.  --dist --coordinator HOST:PORT --num_procs N --proc_id R
+(or torchrun's environment) splits the chunks over N processes, rank r
+taking chunks[r::N] on its own device; each writes
+`detections_rank{r}.pkl`, and after a barrier sized to the pass the chief
+merges them into `detections.pkl` and evaluates (the others return
+None).
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, int8 serving and the space-to-depth stem are refused
+Int8 serving and the space-to-depth stem are refused
 (utils/args.py), and so is --net frcnn: Faster R-CNN's
 class-specific deltas [B, R, 8] meet the postprocess's 4 bbox stds, which
 the JAX package's postprocess cannot broadcast either, so the JAX CLI
@@ -55,10 +66,10 @@ from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.data.inference_loader import InferenceLoader, SupportPool
 from dana_tpu_torch.engine.predict import Predictor
 from dana_tpu_torch.models import frameworks
+from dana_tpu_torch.parallel import distributed, local_devices
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
 from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import NETS, dana_config, postprocess_kwargs
-from dana_tpu_torch.utils.device import resolve_device
 
 
 def _checkpoint(args):
@@ -105,6 +116,23 @@ def _support_pool(args, c, imdb_, roidb, cache):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.tp > 1 and args.sp > 1:
+        raise SystemExit('--tp and --sp both shard the mesh "model" '
+                         'axis — pick one latency mode')
+    if not args.dist:
+        return evaluate(args)
+    group = distributed.init_distributed(args.coordinator, args.num_procs,
+                                         args.proc_id, device=args.device)
+    print(f'distributed eval: process {group.rank}/{group.size} on '
+          f'{distributed.rank_device(args.device)}', flush=True)
+    try:
+        return evaluate(args, group)
+    finally:
+        distributed.shutdown()
+
+
+def evaluate(args, group=distributed.SINGLE):
+    """The evaluation of the parsed flags on this rank of `group`."""
     if NETS[args.net] == 'frcnn':
         raise SystemExit(
             '--net frcnn: Faster R-CNN\'s class-specific deltas [B, R, 8] '
@@ -113,7 +141,20 @@ def main(argv=None):
             '(dana_tpu/engine/postprocess.py:38): its dataset CLI raises, so '
             'there is no serving path to port')
     c = load_cfg(args)
-    device = resolve_device(args.device)
+    rank, nproc = group.rank, group.size
+    # under --dist each rank serves on its own device
+    devices = [distributed.rank_device(args.device)] if group.distributed \
+        else local_devices(args.device)
+    tp, sp = max(1, args.tp), max(1, args.sp)
+    if not ((args.mGPUs or tp > 1 or sp > 1) and len(devices) > 1):
+        devices, tp, sp = devices[:1], 1, 1
+    if len(devices) > max(tp, sp) and len(set(devices)) > 1:
+        print('warning: the grid\'s data rows run one after another from '
+              'this process, and each row\'s proposal NMS syncs the host, '
+              'so a request takes longer over several cards than on one; '
+              'for throughput start one process per card with --dist',
+              flush=True)
+    device = devices[0]
 
     imdb_, roidb, _, _ = combined_roidb(args.imdbval_name, training=False,
                                         use_flipped=False, data_dir=c.DATA_DIR)
@@ -128,8 +169,8 @@ def main(argv=None):
         print(f'loaded checkpoint {path} (pooling {config.pooling_mode})')
     else:
         params = frameworks.init_params(config, seed=args.seed)
-    pred = Predictor(params, config, device=device,
-                     postprocess=postprocess_kwargs(c))
+    pred = Predictor(params, config, postprocess=postprocess_kwargs(c),
+                     devices=devices, tp=tp, sp=sp)
     # the siblings encode each chunk's support stack with it
     keys = ('im_data', 'im_info') if pred.caches_supports \
         else ('im_data', 'im_info', 'support_ims')
@@ -147,11 +188,22 @@ def main(argv=None):
         ship_uint8=c.TPU.SHIP_UINT8, with_supports='support_ims' in keys)
 
     eval_bs = max(1, args.batch_size)
+    if len(devices) > 1:
+        n_data = len(pred.rows)
+        eval_bs = max(eval_bs, n_data)
+        eval_bs += (-eval_bs) % n_data        # divisible by the data axis
+        print(f'parallel eval: data={n_data} x model={tp} x spatial={sp} '
+              f'(bs {eval_bs})', flush=True)
     groups = {}
     for i in range(num_images):
         groups.setdefault(loader.bucket_of(i), []).append(i)
     chunks = [idxs[s:s + eval_bs] for _, idxs in sorted(groups.items())
               for s in range(0, len(idxs), eval_bs)]
+    if nproc > 1:
+        # the chunk list is the same on every rank: a strided split is
+        # disjoint and covering
+        chunks = chunks[rank::nproc]
+        print(f'rank {rank}: {len(chunks)} of the chunks', flush=True)
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(imdb_.num_classes)]
     pin = device.type == 'cuda'
@@ -225,6 +277,24 @@ def main(argv=None):
                   img_per_s=num_images / detect_s)
     out_dir = args.eval_dir or os.path.join(args.save_dir, 'eval')
     os.makedirs(out_dir, exist_ok=True)
+    if nproc > 1:
+        # the ranks' partials on the shared eval dir; the chief merges them
+        # after a barrier sized to the whole pass (its skew is unbounded)
+        with open(os.path.join(out_dir, f'detections_rank{rank}.pkl'),
+                  'wb') as f:
+            pickle.dump(all_boxes, f)
+        distributed.barrier('eval_partials',
+                            timeout_ms=max(3_600_000, 60_000 * len(chunks)))
+        if rank != 0:
+            return None
+        for r in range(1, nproc):
+            with open(os.path.join(out_dir, f'detections_rank{r}.pkl'),
+                      'rb') as f:
+                other = pickle.load(f)
+            for cls in range(len(all_boxes)):
+                for i in range(num_images):
+                    if len(other[cls][i]):
+                        all_boxes[cls][i] = other[cls][i]
     with open(os.path.join(out_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f)
     print(f'total detect time {detect_s:.1f}s '

@@ -49,6 +49,7 @@ from dana_tpu_torch.ops.cisa_attention import cisa_attention_shots
 from dana_tpu_torch.ops.grid_sample import roi_crop_pool
 from dana_tpu_torch.ops.roi_align import roi_align, roi_align_train
 from dana_tpu_torch.ops.roi_pool import roi_pool
+from dana_tpu_torch.parallel.distributed import current_group
 
 
 FRAMEWORKS = ('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn')
@@ -510,9 +511,13 @@ def trunk(model, config: DanaConfig, base_feat, corr_feat, im_info,
 
     with record_function('dana.targets'):
         if isinstance(draws, torch.Generator):
+            # under data parallelism every rank draws the global batch's
+            # draws from the same generator and keeps its rows
+            g = current_group()
             draws = rpn_lib.uniform_draws(
-                draws, probs_fg.shape[0], probs_fg.shape[1],
+                draws, probs_fg.shape[0] * g.size, probs_fg.shape[1],
                 rois.shape[1] + gt_boxes.shape[1], config.rois_per_image)
+            draws = {k: g.rows(v) for k, v in draws.items()}
         with torch.no_grad():
             labels, at_targets, at_in_w, at_out_w = rpn_lib.anchor_target(
                 anchors, gt_boxes if rpn_gt_boxes is None else rpn_gt_boxes,

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dana_tpu_torch.parallel.distributed import current_group
+
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d in its input's dtype: the weight and bias cast per call."""
@@ -69,7 +71,10 @@ class BatchNorm2d(nn.Module):
     the unbiased one enters the running variance, as torch's train-mode
     BatchNorm2d does), formed, applied and updated in float32 and cast back
     to x's dtype (the JAX package's `batchnorm_train`), else with the
-    stored statistics."""
+    stored statistics.  Under data parallelism (the step's BatchGroup) the
+    batch statistics are the global batch's: the count, then the sum and
+    the sum of squared deviations from the global mean, each summed over
+    the ranks with its gradient."""
 
     def __init__(self, c, eps=1e-5, momentum=0.1):
         super().__init__()
@@ -86,9 +91,26 @@ class BatchNorm2d(nn.Module):
             return frozen_batchnorm(x, self.weight, self.bias,
                                     self.running_mean, self.running_var,
                                     self.eps)
+        g = current_group()
+        if batch_stats and g.distributed:
+            return self._global_batch_norm(x.float(), g).to(x.dtype)
         return F.batch_norm(x.float(), self.running_mean, self.running_var,
                             self.weight, self.bias, training=batch_stats,
                             momentum=self.momentum, eps=self.eps).to(x.dtype)
+
+    def _global_batch_norm(self, x, g):
+        dims = (0, 2, 3)
+        n = g.all_sum(torch.tensor(float(x.numel() // x.shape[1]),
+                                   device=x.device))
+        mean = g.sum(x.sum(dims)) / n
+        centred = x - mean[:, None, None]
+        var = g.sum((centred * centred).sum(dims)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * n / (n - 1))
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return centred * scale[:, None, None] + self.bias[:, None, None]
 
 
 def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):

@@ -11,11 +11,22 @@ flows back through that cast.
 Ranks come from stable sorts, as `jnp.argsort` sorts: under saturated
 random-init scores many probabilities tie exactly, and an unstable sort
 would mine other background rois.
+
+Under data parallelism (parallel/distributed.py `BatchGroup`, the group
+the step entered) the two losses whose denominators or picks couple the
+images see the global batch: the masked cross-entropy divides by the
+global count, the hard mining ranks and counts over every rank's rois;
+each returns its local numerator times W over the global count, so the
+mean over the W ranks is the global batch's loss.  The smooth-L1 losses
+are means over equal rows per rank and need nothing.  On one process the
+group is the identity and nothing changes.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dana_tpu_torch.parallel.distributed import current_group
 
 
 def smooth_l1_loss(pred, targets, inside_w, outside_w, sigma=1.0,
@@ -45,7 +56,10 @@ def masked_cross_entropy(logits, labels, mask):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     m = mask.to(logits.dtype)
-    return (nll * m).sum() / m.sum().clamp(min=1.0)
+    g = current_group()
+    if not g.distributed:
+        return (nll * m).sum() / m.sum().clamp(min=1.0)
+    return (nll * m).sum() * g.size / g.all_sum(m.sum()).clamp(min=1.0)
 
 
 def _desc_rank(x):
@@ -66,28 +80,36 @@ def hard_mined_pair_ce(cls_logits, labels, neg_logits):
     mean over the selected rois.
 
     cls_logits [B,S,2] positive branch, labels [B,S] in {0,1}, neg_logits
-    [B,S,2] negative branch (all labelled 0)."""
+    [B,S,2] negative branch (all labelled 0).  Across ranks the batch is
+    every rank's rows in rank order: the picks are formed from the
+    gathered probabilities and labels, and this rank keeps its own."""
     m = labels.numel()
     logits = cls_logits.float().reshape(m, 2)
     neg = neg_logits.float().reshape(m, 2)
     fg = labels.reshape(m) > 0
-    n_fg = fg.sum()
-
-    bg_num_0 = (2 * n_fg).clamp(1, int(2 * m * 0.25))
-    bg_num_1 = torch.minimum(n_fg.clamp(min=1), bg_num_0)
+    g = current_group()
 
     with torch.no_grad():
         fg_prob = torch.softmax(logits, dim=-1)[:, 1]
-        bg_rank = _desc_rank(torch.where(fg, -torch.inf, fg_prob))
-        bg_pick = ~fg & (bg_rank < bg_num_0)
-        neg_pick = _desc_rank(torch.softmax(neg, dim=-1)[:, 1]) < bg_num_1
+        neg_prob = torch.softmax(neg, dim=-1)[:, 1]
+        all_fg = g.gather(fg)
+        n_fg = all_fg.sum()
+        bg_num_0 = (2 * n_fg).clamp(1, int(2 * all_fg.numel() * 0.25))
+        bg_num_1 = torch.minimum(n_fg.clamp(min=1), bg_num_0)
+        bg_rank = _desc_rank(torch.where(all_fg, -torch.inf,
+                                         g.gather(fg_prob)))
+        bg_pick = ~all_fg & (bg_rank < bg_num_0)
+        neg_pick = _desc_rank(g.gather(neg_prob)) < bg_num_1
+        count = n_fg + bg_pick.sum() + neg_pick.sum()
+        bg_pick, neg_pick = g.rows(bg_pick), g.rows(neg_pick)
 
     logp = torch.log_softmax(logits, dim=-1)
     neg_logp = torch.log_softmax(neg, dim=-1)
     total = ((-logp[:, 1] * fg).sum() + (-logp[:, 0] * bg_pick).sum()
              + (-neg_logp[:, 0] * neg_pick).sum())
-    count = n_fg + bg_pick.sum() + neg_pick.sum()
-    return total / count.clamp(min=1)
+    if not g.distributed:
+        return total / count.clamp(min=1)
+    return total * g.size / count.clamp(min=1)
 
 
 def triplet_loss(anchor, positive, negative, margin=1.0, p=2):

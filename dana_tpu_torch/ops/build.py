@@ -19,8 +19,8 @@ import time
 
 KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align')
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), '_build')
+BUILD_DIR = os.environ.get('DANA_BUILD_DIR') or os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 

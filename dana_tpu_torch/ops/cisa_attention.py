@@ -16,7 +16,8 @@ plain version, and `bf16_plan` is the host's tile and shared-memory plan.
 `cisa_attention` is the single-group form (no shot axis, no mean): the
 same kernels entered with S = 1 through views of k, v and u.  Each
 wrapper counts its float32 launches in `launches` and its bfloat16 ones
-in `launches_bf16`, one a call.
+in `launches_bf16`, one a call, and both in `launches_by_device`, keyed
+by (device, dtype name).
 
 Both are differentiable.  As in the JAX package, whose custom VJPs
 recompute the attention in plain XLA math, the backward recomputes the
@@ -26,6 +27,7 @@ q, k, v and u: the kernel serves the forward only.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 
@@ -324,18 +326,19 @@ def cisa_pv_bf16(p, v):
     return out
 
 
-def _count(wrapper, dtype):
+def _count(wrapper, device, dtype):
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
+    wrapper.launches_by_device[(str(device), str(dtype)[6:])] += 1
 
 
 def _shots_forward(q, k, v, unary_sm, scale, gamma):
     if q.device.type == 'cpu':
         return cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma)
     out = _launch(q, k, v, unary_sm, scale, gamma)
-    _count(cisa_attention_shots, q.dtype)
+    _count(cisa_attention_shots, q.device, q.dtype)
     return out
 
 
@@ -345,7 +348,7 @@ def _single_forward(q, k1, v1, unary_sm, scale, gamma):
         return cisa_attention_plain(q, k1[:, 0], v1[:, 0], unary_sm, scale,
                                     gamma)
     out = _launch(q, k1, v1, unary_sm, scale, gamma)
-    _count(cisa_attention, q.dtype)
+    _count(cisa_attention, q.device, q.dtype)
     return out
 
 
@@ -392,3 +395,5 @@ def cisa_attention(q, k, v, unary_sm, scale, gamma):
 
 cisa_attention_shots.launches = cisa_attention_shots.launches_bf16 = 0
 cisa_attention.launches = cisa_attention.launches_bf16 = 0
+cisa_attention_shots.launches_by_device = collections.Counter()
+cisa_attention.launches_by_device = collections.Counter()

@@ -29,7 +29,8 @@ rounded to bf16 once; its plain twin is `roi_align_combine_plain`.  The
 kernel does it as one tensor-core product a roi over the roi's kept taps,
 the rectangle `roi_tap_extent` gives; the axis weights are the same float32
 ones (rois taken in float32).  `roi_align` counts its float32 launches in
-`launches` and its bf16 ones in `launches_bf16`.
+`launches` and its bf16 ones in `launches_bf16`; both wrappers count
+every launch in `launches_by_device` too, keyed by (device, dtype name).
 `roi_align_train` is the training step's differentiable RoIAlign: it
 builds Wy / Wx once and keeps them for the backward (no gradient for the
 rois, which come from the sampler).  On a float32 map it pools with
@@ -43,6 +44,7 @@ math.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -277,10 +279,13 @@ def roi_align(feat, rois, output_size: int = 7,
         roi_align.launches_bf16 += 1
     else:
         roi_align.launches += 1
+    roi_align.launches_by_device[(str(feat.device), str(feat.dtype)[6:])] \
+        += 1
     return out
 
 
 roi_align.launches = roi_align.launches_bf16 = 0
+roi_align.launches_by_device = collections.Counter()
 
 
 def roi_align_pw(feat, wy, wx):
@@ -315,10 +320,12 @@ def roi_align_pw(feat, wy, wx):
             torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_pw')
     roi_align_pw.launches += 1
+    roi_align_pw.launches_by_device[(str(feat.device), 'float32')] += 1
     return out
 
 
 roi_align_pw.launches = 0
+roi_align_pw.launches_by_device = collections.Counter()
 
 
 class _RoIAlignTrain(torch.autograd.Function):

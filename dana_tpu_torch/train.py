@@ -47,8 +47,21 @@ parameters and the momentum stay float32, and so does every checkpoint,
 which records no dtype, as the JAX CLI's records none: a resumed run
 trains in the precision its own --set names.
 
+Several cards (dana_tpu_torch/parallel): --mGPUs, or --slices S, spawns
+one process per visible card (on one card it runs as one process, as the
+JAX CLI does on one device); --dist --coordinator HOST:PORT --num_procs N
+--proc_id R (or torchrun's environment) joins a group of N processes,
+each on `cuda:(local rank % cards)`, and needs --mGPUs or --slices (the
+JAX CLI's ValueError).  --bs stays the global batch: each process
+assembles its row block of every batch and the step is the global batch's
+(engine/train.py); --slices S arranges the W processes as S slices of
+W/S (W % S == 0), rows in rank order.  Only the chief (rank 0) logs and
+writes checkpoints, every rank resumes from the same one, and a
+preemption is voted every --disp_interval steps and at each epoch's end,
+so that every rank stops at the same step.
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Multi-GPU flags, Orbax checkpoints and the space-to-depth stem are refused
+Orbax checkpoints and the space-to-depth stem are refused
 (utils/args.py).  `main` returns a summary: the last
 checkpoint, whether the run was preempted, and per epoch its steps,
 seconds, episodes per second, the seconds the loop waited for a batch,
@@ -58,8 +71,10 @@ mean losses, the loss of every step and the skipped steps.
 from __future__ import annotations
 
 import os
+import pickle
 import signal
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +85,8 @@ from dana_tpu_torch.data.fs_loader import (EpisodicBatcher, FewShotLoader,
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.engine.train import Trainer
 from dana_tpu_torch.models import frameworks
+from dana_tpu_torch.parallel import (distributed, local_devices, make_mesh,
+                                     make_mesh_dcn)
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
 from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import dana_config
@@ -130,10 +147,11 @@ def make_loader(args, c, imdb_, roidb):
     return FewShotLoader(roidb, imdb_.num_classes, **kw)
 
 
-def make_trainer(args, c, config, params, lr, device):
+def make_trainer(args, c, config, params, lr, device, group=None):
     """The Trainer with the tree's SGD settings and trainable selection
     (root train.py:151-164)."""
     return Trainer(params, config, device=device, lr=lr, seed=args.seed,
+                   group=group,
                    clip_norm=args.clip_norm
                    or (10.0 if args.backbone == 'vgg16' else 0.0),
                    fixed_blocks=c.RESNET.FIXED_BLOCKS,
@@ -192,14 +210,16 @@ def _profiler(device):
     return prof
 
 
-def setup(args):
+def setup(args, group=distributed.SINGLE):
     """-> (config tree, batcher, trainer, first epoch to train) for the
-    parsed flags: the roidb, the loader and its batcher, the detector from
-    the seed or from the checkpoint --r names, its Trainer with the
-    restored momentum and generator, the batcher at the epoch before."""
+    parsed flags: the roidb, the loader and its batcher (this rank's rows
+    of `group`'s global batches), the detector from the seed or from the
+    checkpoint --r names, its Trainer with the restored momentum and
+    generator, the batcher at the epoch before."""
     c = load_cfg(args)
     config = dana_config(c, args.way, args.shot, args.net, args.backbone)
-    device = resolve_device(args.device)
+    device = distributed.rank_device(args.device) if group.distributed \
+        else resolve_device(args.device)
     np.random.seed(args.seed)
 
     imdb_, roidb, _, _ = combined_roidb(args.imdb_name,
@@ -209,6 +229,7 @@ def setup(args):
     loader = make_loader(args, c, imdb_, roidb)
     batcher = EpisodicBatcher(
         loader, args.batch_size, shuffle=True, seed=args.seed,
+        process_id=group.rank, process_count=group.size,
         num_workers=min(args.num_workers, os.cpu_count() or 1))
 
     if args.resume:
@@ -217,7 +238,7 @@ def setup(args):
     else:
         params = frameworks.init_params(config, seed=args.seed)
         lr, start_epoch = args.lr, args.start_epoch
-    trainer = make_trainer(args, c, config, params, lr, device)
+    trainer = make_trainer(args, c, config, params, lr, device, group)
     if args.resume:
         trainer.load_state(velocity, generator)
         print('restored the momentum buffers' if velocity is not None
@@ -227,12 +248,66 @@ def setup(args):
     return c, batcher, trainer, start_epoch
 
 
-def main(argv=None):
+def _spawned(rank, argv, world, init, out):
+    """A process of an --mGPUs / --slices run on one host."""
     args = parse_args(argv)
-    c, batcher, trainer, start_epoch = setup(args)
+    group = distributed.init_distributed(init, world, rank,
+                                         device=args.device)
+    try:
+        summary = run(args, group)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        with open(out, 'wb') as f:
+            pickle.dump(summary, f)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.dist:
+        group = distributed.init_distributed(
+            args.coordinator, args.num_procs, args.proc_id,
+            device=args.device)
+        print(f'distributed: process {group.rank}/{group.size} on '
+              f'{distributed.rank_device(args.device)}', flush=True)
+        try:
+            return run(args, group)
+        finally:
+            distributed.shutdown()
+    n = len(local_devices(args.device)) if args.mGPUs or args.slices > 1 \
+        else 1
+    if n == 1:
+        return run(args, distributed.SINGLE)
+    # one process per card, rendezvous through a file; rank 0's summary
+    # comes back through a pickle
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'summary.pkl')
+        torch.multiprocessing.spawn(
+            _spawned, args=(argv, n, f'file://{tmp}/rdzv', out), nprocs=n)
+        with open(out, 'rb') as f:
+            return pickle.load(f)
+
+
+def run(args, group=distributed.SINGLE):
+    """The training loop of the parsed flags on this rank of `group`."""
+    c, batcher, trainer, start_epoch = setup(args, group)
+    world, chief = group.size, group.rank == 0
+    slices = max(0, args.slices)
+    if slices > 1 and world > 1:
+        grid = make_mesh_dcn(slices, [trainer.device] * world)
+        print(f'multi-slice data-parallel: {slices} slices x '
+              f'{grid.shape["data"]} devices', flush=True)
+    elif args.mGPUs and world > 1:
+        grid = make_mesh([trainer.device] * world)
+        print(f'data-parallel over {grid.shape["data"]} devices', flush=True)
+    elif world > 1:
+        raise ValueError('--dist requires --mGPUs or --slices N: a '
+                         'multi-process batch must shard over a device '
+                         'mesh spanning all processes')
 
     logger = None
-    if not args.dlog:
+    if not args.dlog and chief:
         from dana_tpu_torch.utils.fsod_logger import FSODLogger
         logger = FSODLogger(os.path.join(args.save_dir, 'tb'),
                             pixel_means=c.PIXEL_MEANS)
@@ -242,6 +317,13 @@ def main(argv=None):
     guard = PreemptionGuard().install()
     summary = dict(checkpoint=None, preempted=False, epochs=[])
     global_step, prof = 0, None
+    # several processes vote on a stop (a collective) every disp_interval
+    # steps, all at the same step; one process reads its own flag
+    vote_every = max(1, args.disp_interval) if world > 1 else 1
+
+    def stop_requested():
+        return distributed.agree_stop(guard.requested) if world > 1 \
+            else guard.requested
     try:
         for epoch in range(start_epoch, args.max_epochs + 1):
             new_lr = decayed_lr(trainer.lr, epoch, args)
@@ -284,7 +366,7 @@ def main(argv=None):
                         loss_acc[k] = loss_acc.get(k, 0.0) + v
                     curve.append(m['loss'])
                     skipped += int(m['skipped'])
-                    if steps % args.disp_interval == 0:
+                    if steps % args.disp_interval == 0 and chief:
                         dt = time.perf_counter() - t0
                         msg = ', '.join(f'{k}: {loss_acc[k] / steps:.4f}'
                                         for k in sorted(loss_acc)
@@ -292,12 +374,12 @@ def main(argv=None):
                         print(f'[epoch {epoch:2d}][iter {steps:4d}] '
                               f'lr: {trainer.lr:.2e}, time/iter: '
                               f'{dt / steps:.3f}s, {msg}', flush=True)
-                    if guard.requested:
+                    if steps % vote_every == 0 and stop_requested():
                         preempted = True
                         break
             finally:
                 stream.close()
-            stop_after_epoch = not preempted and guard.requested
+            stop_after_epoch = not preempted and stop_requested()
             if prof is not None:
                 prof.__exit__(None, None, None)
                 prof.export_chrome_trace(args.profile)
@@ -324,16 +406,18 @@ def main(argv=None):
             if preempted:
                 base, ext = os.path.splitext(path)
                 path = f'{base}_preempt{ext}'
-            state = trainer.state()
-            ckpt_lib.save_checkpoint(
-                path, trainer.model, state['velocity'], epoch=ckpt_epoch,
-                step=steps - 1, lr=trainer.lr, pooling_mode=c.POOLING_MODE,
-                extra={'generator': state['generator'],
-                       'framework': trainer.config.framework})
             eps = steps * args.batch_size / secs
-            print(f'[epoch {epoch:2d}] saved {path} ({secs:.1f}s, {steps} '
-                  f'iters, {eps:.2f} episodes/s, waited {feed.wait_s:.2f}s '
-                  f'for batches)', flush=True)
+            if chief:
+                state = trainer.state()
+                ckpt_lib.save_checkpoint(
+                    path, trainer.model, state['velocity'], epoch=ckpt_epoch,
+                    step=steps - 1, lr=trainer.lr,
+                    pooling_mode=c.POOLING_MODE,
+                    extra={'generator': state['generator'],
+                           'framework': trainer.config.framework})
+                print(f'[epoch {epoch:2d}] saved {path} ({secs:.1f}s, '
+                      f'{steps} iters, {eps:.2f} episodes/s, waited '
+                      f'{feed.wait_s:.2f}s for batches)', flush=True)
             summary['checkpoint'] = path
             summary['epochs'].append(dict(
                 epoch=epoch, steps=steps, seconds=secs, eps_per_s=eps,

@@ -5,11 +5,15 @@ and dataset-name mapping, plus `--device`.
 
 Flags and settings that ask for what the port does not have yet are
 refused with the ROADMAP item that ports it, instead of being ignored.
+The parallel flags (--mGPUs, --tp, --sp, --slices, --dist with
+--coordinator, --num_procs, --proc_id) mean what they mean in the JAX
+CLIs; each CLI reads them (dana_tpu_torch/parallel).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from dana_tpu_torch.models.dana import POOLING_MODES
 from dana_tpu_torch.utils import config as config_lib
@@ -111,11 +115,24 @@ def parse_args(argv=None):
     return args
 
 
+def _check_dist(args):
+    """--dist joins a group of --num_procs processes as --proc_id (or
+    torchrun's WORLD_SIZE and RANK) through --coordinator."""
+    if not args.dist:
+        return
+    if args.num_procs is None and 'WORLD_SIZE' not in os.environ:
+        raise SystemExit('--dist needs --num_procs (or torchrun\'s '
+                         'WORLD_SIZE)')
+    if args.proc_id is None and 'RANK' not in os.environ:
+        raise SystemExit('--dist needs --proc_id (or torchrun\'s RANK)')
+    if args.num_procs is not None and args.proc_id is not None \
+            and not 0 <= args.proc_id < args.num_procs:
+        raise SystemExit(f'--proc_id {args.proc_id} is not below --num_procs '
+                         f'{args.num_procs}')
+
+
 def _refuse_unported(args):
-    if args.mGPUs or args.tp > 1 or args.sp > 1 or args.dist \
-            or args.slices > 1:
-        raise SystemExit('--mGPUs, --tp, --sp, --slices and --dist are not '
-                         'ported yet (ROADMAP Queue A 8: multi-GPU)')
+    _check_dist(args)
     if args.net not in config_lib.NETS:
         raise SystemExit(f'--net {args.net}: the port has '
                          f'{", ".join(config_lib.NETS)}')

@@ -167,8 +167,9 @@ def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
 
 
 @pytest.mark.parametrize('flags, match', [
-    (['--mGPUs'], 'Queue A 8'), (['--tp', '2'], 'Queue A 8'),
-    (['--sp', '2'], 'Queue A 8'), (['--dist'], 'Queue A 8'),
+    (['--tp', '2', '--sp', '2'], 'pick one latency mode'),
+    (['--dist'], '--num_procs'), (['--dist', '--num_procs', '2'], '--proc_id'),
+    (['--dist', '--num_procs', '2', '--proc_id', '2'], 'not below'),
     (['--net', 'frcnn'], 'postprocess'),
     (['--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 9'),
     (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),

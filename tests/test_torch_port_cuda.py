@@ -537,3 +537,49 @@ def test_cisa_kernels_at_the_multiway_shots(dev, site, shot, dtype):
     else:
         _bf16_close(got, want)
     assert getattr(ca.cisa_attention_shots, attr) == before + 1
+
+
+def _held(got, want):
+    if got.dtype == torch.bfloat16:
+        chip_smoke.check_bf16('kernel', got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_kernels_launch_on_every_card(dev):
+    """K1, K2 and K3 (and the bf16 forms) launched on each card present
+    (cuda:1 too when there is one) from one process: each wrapper enters
+    its tensors' device and stream, and counts the launch under that
+    device."""
+    for i in range(torch.cuda.device_count()):
+        d = torch.device('cuda', i)
+        gen = torch.Generator(device=d).manual_seed(i)
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(2, 100, 256, device=d, generator=gen).to(dt)
+            k = torch.randn(2, 3, 57, 256, device=d, generator=gen).to(dt)
+            v = torch.randn(2, 3, 57, 1024, device=d, generator=gen).to(dt)
+            u = torch.softmax(torch.randn(2, 3, 57, device=d, generator=gen),
+                              -1).to(dt)
+            key = (str(d), str(dt)[6:])
+            before = ca.cisa_attention_shots.launches_by_device[key]
+            got = ca.cisa_attention_shots(q, k, v, u, 0.0625, 0.1)
+            want = ca.cisa_attention_shots_plain(q, k, v, u, 0.0625, 0.1)
+            _held(got, want)
+            assert ca.cisa_attention_shots.launches_by_device[key] \
+                == before + 1
+            feat = torch.randn(2, 38, 64, 1024, device=d,
+                               generator=gen).to(dt)
+            rois = chip_smoke.serving_rois(2, 40, gen, d)
+            before = ra.roi_align.launches_by_device[key]
+            got = ra.roi_align(feat, rois.to(dt), 7, 1 / 16)
+            want = ra.roi_align_plain(feat, rois.to(dt), 7, 1 / 16)
+            _held(got, want)
+            assert ra.roi_align.launches_by_device[key] == before + 1
+        wy, wx = ra.roi_weights(rois, 38, 64, 7, 1 / 16)
+        feat = feat.float()
+        before = ra.roi_align_pw.launches_by_device[(str(d), 'float32')]
+        torch.testing.assert_close(ra.roi_align_pw(feat, wy, wx),
+                                   ra.roi_align_pw_plain(feat, wy, wx),
+                                   rtol=TOL, atol=TOL)
+        assert ra.roi_align_pw.launches_by_device[(str(d), 'float32')] \
+            == before + 1

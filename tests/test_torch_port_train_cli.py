@@ -180,9 +180,11 @@ def test_batches_match_jax(roidbs, tmp_path, workers, bs, drop_last):
 
 
 def test_batcher_refuses_process_slicing(roidbs):
+    """A global batch that does not split evenly over the processes is
+    refused (the JAX batcher's ValueError)."""
     loader = FewShotLoader(roidbs[1], roidbs[0].num_classes)
-    with pytest.raises(ValueError, match='Queue A 8'):
-        EpisodicBatcher(loader, 2, process_count=2)
+    with pytest.raises(ValueError, match='divide evenly over 2 processes'):
+        EpisodicBatcher(loader, 3, process_count=2)
 
 
 def _cli_config(tmp_path, *flags):
@@ -532,8 +534,9 @@ def test_prefetch_worker_errors_reach_the_caller(case):
 
 
 @pytest.mark.parametrize('flags, match', [
-    (['--ckpt_backend', 'orbax'], 'pickle'), (['--mGPUs'], 'Queue A 8'),
-    (['--dist'], 'Queue A 8'), (['--slices', '2'], 'Queue A 8')])
+    (['--ckpt_backend', 'orbax'], 'pickle'), (['--dist'], '--num_procs'),
+    (['--dist', '--num_procs', '2'], '--proc_id'),
+    (['--dist', '--num_procs', '2', '--proc_id', '2'], 'not below')])
 def test_train_cli_refuses_unported(tmp_path, flags, match):
     with pytest.raises(SystemExit, match=match):
         cli.main(_train_argv(tmp_path, *flags))
