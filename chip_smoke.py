@@ -200,7 +200,26 @@ Run from the repository root.  Phases, each of which fails the run:
      the dataset CLI with --dist as 2 processes on its checkpoint against
      the one-process CLI (detections tie-aware), launches counted by rank
      (each rank is this script with --cli_rank).  --parallel_only runs
-     phases 1, 2 and 13 alone (run it on a host with four cards).
+     phases 1, 2 and 13 alone (run it on a host with four cards);
+ 14. int8 serving (INT8): phase 4's detector quantized by
+     dana_tpu_torch/quant.py serves REQUESTS requests in three settings,
+     scope 'tail' in float32, scope 'tail' in the default recipe and scope
+     'all' in float32 (counters zeroed around each path: 2 K1 a request,
+     K2 once on a float32 map, on the recipe's bf16 map the int8 RoIAlign
+     once and K2-bf16 never, 10 int8 convs a request under 'tail' and 53
+     under 'all', plus 43 a class at `encode_supports`, and one
+     `torch._int_mm` for each conv and each image of the int8 RoIAlign);
+     request 0 against the plain path (the kernels' plain versions and the
+     int8 products as exact float64 ones, on the kernel path's proposals)
+     at phase 4's and phase 10's tolerances; the distance of its
+     detections from phase 4's float32 ones, and its request ms and peak
+     memory beside phases 4 and 10, printed; the identity BatchNorm exact
+     on the card; layer4's ten convs at the serving shapes as `_int_mm`
+     products, whole int8 convs and cuDNN float32 / bf16 convs, timed
+     beside the int8 bound (INT8_OPS_PER_S), and layer4 whole in each;
+     then the dataset CLI with --set TPU.QUANT_INT8 True serves phase 7's
+     checkpoint over synth_test (10 int8 convs and 1 K2 a chunk), printing
+     the JAX CLI's line, its AP beside phase 6's (not judged).
 """
 
 from __future__ import annotations
@@ -208,6 +227,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import pickle
@@ -345,7 +365,10 @@ def check_close(name, got, want, tol=TOL):
 def launch_counters():
     """{kernel name: (its wrapper, the attribute that counts its launches)}:
     a wrapper counts its float32 kernel's launches in `launches` and its
-    bf16 kernel's in `launches_bf16`."""
+    bf16 kernel's in `launches_bf16`.  The last three count int8 serving's
+    work (no hand kernel; phase 14): the int8 convs run, the int8
+    RoIAlign's calls and the `torch._int_mm` products that carry both."""
+    from dana_tpu_torch.models import layers
     from dana_tpu_torch.ops import cisa_attention, roi_align
     shots, single = cisa_attention.cisa_attention_shots, \
         cisa_attention.cisa_attention
@@ -355,7 +378,10 @@ def launch_counters():
             'cisa_attention': (single, 'launches'),
             'cisa_shots_bf16': (shots, 'launches_bf16'),
             'roi_align_fwd_bf16': (roi_align.roi_align, 'launches_bf16'),
-            'cisa_attention_bf16': (single, 'launches_bf16')}
+            'cisa_attention_bf16': (single, 'launches_bf16'),
+            'int8_conv': (layers.dynamic_int8_conv, 'runs'),
+            'roi_align_int8': (roi_align.roi_align_int8, 'runs'),
+            'int_mm': (layers.int8_matmul, 'launches')}
 
 
 def zero_launches():
@@ -1077,18 +1103,22 @@ def check_backward(dev, gen):
 @contextlib.contextmanager
 def plain_ops():
     """Route the detector through the plain versions on the card (for the
-    comparison only)."""
-    from dana_tpu_torch.models import dana
+    comparison only): the kernels', and the int8 products' exact float64
+    ones in place of `torch._int_mm`."""
+    from dana_tpu_torch.models import dana, layers
     from dana_tpu_torch.ops import cisa_attention, roi_align
-    saved = dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train
+    saved = (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
+             layers.int8_conv_acc, layers.int8_matmul)
     dana.cisa_attention_shots = cisa_attention.cisa_attention_shots_plain
     dana.roi_align = roi_align.roi_align_plain
     dana.roi_align_train = roi_align.roi_align_plain
+    layers.int8_conv_acc = layers.int8_conv_acc_plain
+    layers.int8_matmul = layers.int8_matmul_plain
     try:
         yield
     finally:
-        (dana.cisa_attention_shots, dana.roi_align,
-         dana.roi_align_train) = saved
+        (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
+         layers.int8_conv_acc, layers.int8_matmul) = saved
 
 
 def match_detections(da, db, coord_atol, score_tol=1e-4):
@@ -1204,13 +1234,16 @@ def serving_requests(seed, n):
              info, [(i + j) % 2 for j in range(BATCH)]) for i in range(n)]
 
 
-def want_launches(config, n, training):
+def want_launches(config, n, training, int8_convs=0, batch=BATCH):
     """The kernel launches of n requests (or training steps) of `config`:
     K1 at the two attention sites of DAnA and cisa (three in training: the
     RoI site again for the negative supports), in the attention dtype;
     RoIAlign once in align mode, in the compute dtype (K2 serving; in
     training K3 on a float32 map, K2-bf16 on a bf16 one), the single-group
-    CISA never."""
+    CISA never.  Int8 serving: `int8_convs` int8 convs a request, and with
+    config.roi_align_int8 on a bf16 map the int8 RoIAlign in place of
+    K2-bf16; each conv, and the RoIAlign once per image of `batch`, one
+    `torch._int_mm`."""
     from dana_tpu_torch.models.dana import CACHED_SUPPORTS
     align = n if config.pooling_mode == 'align' else 0
     sites = (3 if training else 2) \
@@ -1219,7 +1252,13 @@ def want_launches(config, n, training):
     roi = 'roi_align_fwd' + _suffix(config.compute_dtype)
     if training and config.compute_dtype == torch.float32:
         roi = 'roi_align_pw'
-    return launch_counts(**{k1: sites * n, roi: align})
+    if not training and config.roi_align_int8 \
+            and config.compute_dtype != torch.float32:
+        roi = 'roi_align_int8'
+    int_mm = int8_convs * n + (align * batch if roi == 'roi_align_int8'
+                               else 0)
+    return launch_counts(**{k1: sites * n, roi: align,
+                            'int8_conv': int8_convs * n, 'int_mm': int_mm})
 
 
 def _suffix(dtype):
@@ -1227,14 +1266,17 @@ def _suffix(dtype):
     return '_bf16' if dtype == torch.bfloat16 else ''
 
 
-def serving_path(seed, model=None, label='main path', tol=TOL, n=None):
-    """n requests of `model` (serving_predictor's default: the main path),
-    then request 0 again on the plain versions, held at `tol`
-    (compare_paths); -> (launches, summary)."""
+def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
+                 pred=None, keep=None):
+    """n requests of `model` (serving_predictor's default: the main path;
+    or of `pred`, a serving predictor built already), then request 0 again
+    on the plain versions, held at `tol` (compare_paths); `keep` (a dict)
+    gets request 0's detections under 'dets'.  -> (launches, summary)."""
+    from dana_tpu_torch import quant
     from dana_tpu_torch.ops import nms
 
     n = n or REQUESTS
-    pred = serving_predictor(seed, model)
+    pred = pred or serving_predictor(seed, model)
     requests = serving_requests(seed, n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1254,9 +1296,12 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None):
     print(f'{label}: {n} requests of {BATCH} x {QUERY_HW} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
-    want = want_launches(pred.config, n, training=False)
+    want = want_launches(pred.config, n, training=False,
+                         int8_convs=quant.count_int8(pred.model))
     if launches != want:
         fail(f'{label} launches {launches}, expected {want}')
+    if keep is not None:
+        keep['dets'] = outs[0]
 
     for dets, valid in outs:
         if dets.shape != (BATCH, 100, 5) or valid.shape != (BATCH, 100):
@@ -1464,11 +1509,12 @@ def training_path(seed, model=None, label='main path', steps=None):
 
 # ---------------------------------------------------------------- phase 6
 
-def cli_path(seed, checkpath, overrides=(), label='CLI path'):
+def cli_path(seed, checkpath, overrides=(), label='CLI path', int8_convs=0):
     """The dataset CLI over synth_test (written beside synth_train in the
     current DANA_SYNTH_ROOT) on the card, serving the checkpoint phase 7
-    wrote, with the config `overrides` (KEY VALUE ... for --set); ->
-    (launches, summary)."""
+    wrote, with the config `overrides` (KEY VALUE ... for --set) and
+    `int8_convs` int8 convs a chunk (TPU.QUANT_INT8); -> (launches,
+    summary), whose 'lines' are the CLI's printed lines that name int8."""
     from dana_tpu_torch import inference
     from dana_tpu_torch.data.imdb import combined_roidb
     from dana_tpu_torch.data.synth import synth_fsod
@@ -1490,9 +1536,12 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path'):
         zero_launches()
         nms.HOST_SYNCS = 0
         t0 = time.perf_counter()
-        result = inference.main(argv)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = inference.main(argv)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
+        sys.stdout.write(out.getvalue())
         launches = read_launches()
         syncs = nms.HOST_SYNCS
         with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
@@ -1501,7 +1550,8 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path'):
     chunks = timing['chunks']
     tree = cfg.default_cfg()
     cfg.cfg_from_list(tree, list(overrides))
-    want = want_launches(cfg.dana_config(tree, 2, 3), chunks, training=False)
+    want = want_launches(cfg.dana_config(tree, 2, 3), chunks, training=False,
+                         int8_convs=int8_convs)
     if launches != want:
         fail(f'{label} launches {launches}, expected {want} for {chunks} '
              'chunks')
@@ -1519,7 +1569,9 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path'):
                    img_per_s=timing['img_per_s'], timing=timing,
                    main_s=main_s, synth_s=synth_s, nms_syncs=syncs,
                    detections=n_det, stats=stats, checkpoint=checkpath,
-                   overrides=list(overrides))
+                   overrides=list(overrides),
+                   lines=[ln for ln in out.getvalue().splitlines()
+                          if 'int8' in ln])
     print(f'{label}: synth_test, {timing["images"]} images in {chunks} '
           f'chunks of {BATCH}, {timing["img_per_s"]:.2f} img/s over the set '
           f'(main {main_s:.1f} s), launches {launches}, timing {timing}, '
@@ -3002,6 +3054,188 @@ def parallel_path(seed, card):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 14
+
+# int8 serving (dana_tpu_torch/quant.py): label -> (TPU.QUANT_SCOPE, the
+# precision fields of the DanaConfig)
+INT8 = {'tail_float32': ('tail', {}),
+        'tail_default_recipe': ('tail', dict(
+            compute_dtype=torch.bfloat16, **PRECISION['default_recipe'])),
+        'all_float32': ('all', {})}
+# the int8 convs of ResNet-50 a scope quantizes, and of them those of the
+# support trunk (conv1..layer3), which `encode_supports` runs once a class
+INT8_CONVS = {'tail': (10, 0), 'all': (53, 43)}
+INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
+INT8_CLI_LINE = 'int8-quantized 10 convs (scope=tail) + int8 roi_align'
+
+
+def identity_bn_exact(dev):
+    """The identity BN entries of quant.py through the frozen BN on the
+    card: x back bit for bit, in float32 and in bf16."""
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.models import layers as L
+    bn = L.FrozenBatchNorm2d(64).to(dev)
+    for k, v in quant._identity_bn(64).items():
+        getattr(bn, k).copy_(torch.from_numpy(v))
+    x = torch.randn(8, 64, 9, 11, device=dev) * 30
+    for dt in (torch.float32, torch.bfloat16):
+        if not torch.equal(bn(x.to(dt)), x.to(dt)):
+            fail(f'the identity BatchNorm is not exact on the card in {dt}')
+
+
+def detection_shift(got, want):
+    """How far one request's detections `got` (dets, valid) are from
+    `want`: per image the counts, and over all images the mean IoU of each
+    of want's detections with its best match in got and the mean |score
+    difference| of those matches."""
+    from dana_tpu_torch.core.boxes import iou_matrix
+    (dg, vg), (dw, vw) = ([x.cpu() for x in d] for d in (got, want))
+    counts, ious, dscore = [], [], []
+    for i in range(len(dg)):
+        a, b = dg[i][vg[i]], dw[i][vw[i]]
+        counts.append((len(a), len(b)))
+        if len(a) and len(b):
+            iou = iou_matrix(b[:, :4], a[:, :4])
+            best, j = iou.max(1)
+            ious.append(best.mean().item())
+            dscore.append((b[:, 4] - a[j, 4]).abs().mean().item())
+    return dict(counts=counts, mean_best_iou=float(np.mean(ious)),
+                mean_score_diff=float(np.mean(dscore)))
+
+
+def layer4_int8_convs(seed, card):
+    """layer4's ten convs at the serving shapes (BATCH x 300 rois of 7x7x1024
+    pooled features) as `torch._int_mm` products (the NHWC patches and the
+    product, `int8_conv_acc`), as whole int8 convs (the activation's
+    quantization, the product and the rescale) and as cuDNN convs of the
+    same shapes in float32 (no TF32) and bf16, each timed by CUDA events
+    beside the product's bound at INT8_OPS_PER_S; then layer4 with its
+    spatial mean whole, float32 against int8 against bf16.  -> summary."""
+    import torch.nn.functional as F
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.models import layers as L
+    from dana_tpu_torch.utils import config as cfg
+    from dana_tpu_torch.utils.weights import from_jax_params
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    bb = from_jax_params(params, config).backbone.to(DEV)
+    qbb = from_jax_params(quant.quantize_params(params, 'tail'),
+                          config).backbone.to(DEV)
+    n = BATCH * config.test_post_nms
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rows, totals = {}, dict(int_mm_ms=0.0, int8_conv_ms=0.0, f32_ms=0.0,
+                            bf16_ms=0.0, bound_ms=0.0)
+    with torch.inference_mode():
+        for name, q in qbb.layer4.named_modules():
+            if not isinstance(q, L.QuantConv2d):
+                continue
+            f = bb.layer4.get_submodule(name)
+            cin = q.w_int8.shape[1]
+            hw = 7 if name in ('0.conv1', '0.downsample.0') else 4
+            x = torch.randn(n, hw, hw, cin, device=DEV, generator=gen) \
+                .abs().permute(0, 3, 1, 2)
+            xq, _ = L.quantize_activation(x)
+            o, _, kh, _ = q.w_int8.shape
+            ho = (hw + 2 * q.padding - kh) // q.stride + 1
+            m, k = n * ho * ho, cin * kh * kh
+            b_ms, b_by = bound_ms(m * k + k * o + 4 * m * o, 2 * m * k * o,
+                                  INT8_OPS_PER_S)
+            xb, wb = x.to(torch.bfloat16), f.weight.to(torch.bfloat16)
+            row = dict(
+                m=m, k=k, n=o,
+                int_mm_ms=cuda_ms(lambda: L.int8_conv_acc(
+                    xq, q.w_int8, q.stride, q.padding), 10),
+                int8_conv_ms=cuda_ms(lambda: q(x), 10),
+                f32_ms=cuda_ms(lambda: F.conv2d(
+                    x, f.weight, None, f.stride, f.padding), 10),
+                bf16_ms=cuda_ms(lambda: F.conv2d(
+                    xb, wb, None, f.stride, f.padding), 10),
+                bound_ms=b_ms, bound_by=b_by)
+            row['int_mm_tops'] = 2 * m * k * o / row['int_mm_ms'] / 1e9
+            rows[name] = row
+            for key in totals:
+                totals[key] += row[key]
+        pooled = torch.randn(n, 7, 7, 1024, device=DEV, generator=gen).abs()
+        tail = dict(f32_ms=cuda_ms(lambda: bb.tail(pooled), 5),
+                    int8_ms=cuda_ms(lambda: qbb.tail(pooled), 5),
+                    bf16_ms=cuda_ms(lambda: bb.tail(
+                        pooled.to(torch.bfloat16)), 5))
+    for name, row in rows.items():
+        print(f'layer4 {name} [{row["m"]} x {row["k"]}] x [{row["k"]} x '
+              f'{row["n"]}] ({card}): _int_mm {row["int_mm_ms"]:.4f} ms '
+              f'({row["int_mm_tops"]:.1f} TOPS), whole int8 conv '
+              f'{row["int8_conv_ms"]:.4f}, cuDNN float32 '
+              f'{row["f32_ms"]:.4f}, bf16 {row["bf16_ms"]:.4f}, bound '
+              f'{row["bound_ms"]:.4f} ({row["bound_by"]})', flush=True)
+    print(f'layer4 convs summed ({card}): {totals}; layer4 with its mean '
+          f'on {n} rois: {tail} ms', flush=True)
+    return dict(convs=rows, totals=totals, tail=tail)
+
+
+def int8_path(seed, card, f32_serving, f32_dets, recipe_serving, cli,
+              checkpath):
+    """Phase 14: phase 4's detector quantized (INT8) serves REQUESTS
+    requests per setting as phase 4 does, the int8 counters zeroed around
+    each: K1 2 a request, K2 1 on a float32 map (the int8 RoIAlign in its
+    place on a bf16 map, K2-bf16 never), the scope's int8 convs, one
+    `torch._int_mm` per conv and per image of the int8 RoIAlign; the two
+    classes' supports encoded under the same counters (INT8_CONVS); request
+    0 against the plain path (float64 int8 products) at phase 4's and
+    phase 10's tolerances; its detections' distance from phase 4's float32
+    ones printed.  Then layer4's convs timed (`layer4_int8_convs`) and the
+    dataset CLI with TPU.QUANT_INT8 over synth_test on phase 7's
+    checkpoint (JAX's line; its AP beside phase 6's).  -> ({path:
+    launches}, summary)."""
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.utils import config as cfg
+    t0 = time.perf_counter()
+    identity_bn_exact(DEV)
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    by_path, summary = {}, {}
+    for label, (scope, fields) in INT8.items():
+        conf = dataclasses.replace(config, roi_align_int8=True, **fields)
+        per_request, per_class = INT8_CONVS[scope]
+        zero_launches()
+        pred = serving_predictor(seed, (conf, quant.quantize_params(
+            params, scope)))
+        enc = read_launches()
+        if (enc['int8_conv'], enc['int_mm']) != (2 * per_class,) * 2 \
+                or quant.count_int8(pred.model) != per_request:
+            fail(f'int8 {label}: {quant.count_int8(pred.model)} int8 convs '
+                 f'and {enc} at encode_supports of 2 classes, expected '
+                 f'{per_request} and {per_class} a class')
+        keep = {}
+        tol = TOL if conf.compute_dtype == torch.float32 else PATH_TOL_BF16
+        by_path[f'int8_{label}'], summary[label] = serving_path(
+            seed, label=f'int8 {label}', tol=tol, pred=pred, keep=keep)
+        del pred
+        torch.cuda.empty_cache()
+        shift = detection_shift(keep['dets'], f32_dets)
+        summary[label]['shift_from_float32'] = shift
+        base = recipe_serving if fields else f32_serving
+        print(f'int8 {label} ({card}): ms per request '
+              f'{summary[label]["req_ms"]} (unquantized, phase '
+              f'{10 if fields else 4}: {base["req_ms"]}), peak memory '
+              f'{summary[label]["peak_gib"]:.2f} GiB (unquantized '
+              f'{base["peak_gib"]:.2f}); request 0 against phase 4\'s '
+              f'float32 detections: {shift} (printed, not judged)',
+              flush=True)
+    summary['layer4'] = layer4_int8_convs(seed, card)
+    torch.cuda.empty_cache()
+    by_path['int8_cli'], summary['cli'] = cli_path(
+        seed, checkpath, ('TPU.QUANT_INT8', 'True'), label='int8 CLI path',
+        int8_convs=INT8_CONVS['tail'][0])
+    if summary['cli']['lines'] != [INT8_CLI_LINE]:
+        fail(f'int8 CLI printed {summary["cli"]["lines"]}, expected '
+             f'[{INT8_CLI_LINE!r}]')
+    print(f'dataset CLI over synth_test with TPU.QUANT_INT8: AP '
+          f'{summary["cli"]["stats"][0]:.4f}, '
+          f'{summary["cli"]["img_per_s"]:.2f} img/s; float32 (phase 6): AP '
+          f'{cli["stats"][0]:.4f}, {cli["img_per_s"]:.2f} img/s (AP not '
+          'judged)', flush=True)
+    summary['phase_s'] = time.perf_counter() - t0
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -3094,7 +3328,8 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 4: the serving path
-    serving_launches, serving = serving_path(args.seed)
+    f32_dets = {}
+    serving_launches, serving = serving_path(args.seed, keep=f32_dets)
     torch.cuda.empty_cache()
     # phase 5: the training path
     training_launches, training = training_path(args.seed)
@@ -3158,6 +3393,12 @@ def main():
         parallel_launches, parallel = parallel_path(args.seed, card)
         print(f'phase 13 took {parallel["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+        # phase 14: int8 serving, then the dataset CLI with QUANT_INT8
+        int8_launches, int8 = int8_path(
+            args.seed, card, serving, f32_dets['dets'],
+            precision['default_recipe'], cli, ckpt)
+        print(f'phase 14 took {int8["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
@@ -3165,7 +3406,7 @@ def main():
                **slice9_cli_launches, **precision_launches,
                'recipe_cli': recipe_cli_launches, **bf16_train_launches,
                **recipe_train_cli_launches, **slice14_launches,
-               **parallel_launches}
+               **parallel_launches, **int8_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -3182,6 +3423,7 @@ def main():
                       'recipe_train_cli_summary': recipe_train_cli,
                       'slice14_summary': slice14,
                       'parallel_summary': parallel,
+                      'int8_summary': int8,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'combine_backward': combine_backward,

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 from dana_tpu_torch import parallel
 from dana_tpu_torch.engine.postprocess import postprocess_batch
 from dana_tpu_torch.models import dana, frameworks
+from dana_tpu_torch.models import layers as L
 from dana_tpu_torch.parallel.spatial import shard_trunk_spatial
 from dana_tpu_torch.utils import config as cfg
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
@@ -45,6 +46,24 @@ class _Row:
         self.devices, self.model = devices, model
         self.lead = devices[0]
         self.cache = {}
+
+
+def _refuse_int8_grid(model, rows, sp):
+    """An int8 model's quantized convs must each see the whole tensor the
+    JAX package's conv sees, whose activation scale is one max over it: a
+    grid's data rows split every conv's batch, and spatial blocks split
+    the trunk's convs (those outside layer4).  Both are refused."""
+    trunk = [name for name, m in model.backbone.named_modules()
+             if isinstance(m, L.QuantConv2d)]
+    split = rows > 1 or (sp > 1 and any(not n.startswith('layer4')
+                                        for n in trunk))
+    if trunk and split:
+        raise ValueError(
+            'an int8 model on a grid whose data rows or spatial blocks '
+            "split a quantized conv's input: its activation scale is one "
+            'max over the whole tensor, which the JAX package forms over '
+            'the global batch (ROADMAP Queue A 12); serve int8 on one '
+            'device per process')
 
 
 class Predictor:
@@ -65,6 +84,8 @@ class Predictor:
     `devices` (default [device]) with `tp` or `sp` > 1 serve on a grid
     (module docstring): one replica and one support cache per device,
     a request's B rows split over the grid's data rows (B % rows == 0).
+    An int8 model (dana_tpu_torch/quant.py) serves on one row, and under
+    sp only when its trunk below layer4 is float (`_refuse_int8_grid`).
     """
 
     def __init__(self, params, config: dana.DanaConfig, device='cuda',
@@ -84,6 +105,7 @@ class Predictor:
             use_full_f32()
         model = params if isinstance(params, nn.Module) \
             else from_jax_params(params, config)
+        _refuse_int8_grid(model, len(devices) // max(tp, sp, 1), sp)
         self.config = config
         self.postprocess = postprocess or cfg.postprocess_kwargs()
         self.grid = parallel.make_mesh_2d(devices, model=max(tp, sp, 1))

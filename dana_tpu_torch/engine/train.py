@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from dana_tpu_torch import quant
 from dana_tpu_torch.engine import optim
 from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.parallel.distributed import SINGLE
@@ -75,6 +76,9 @@ class Trainer:
         use_full_f32()
         model = params if isinstance(params, torch.nn.Module) \
             else from_jax_params(params, config)
+        if quant.count_int8(model):
+            raise ValueError('a quantized (int8) model serves only: train '
+                             'the float tree, as the JAX package does')
         self.model = optim.freeze_fixed(model.to(self.device), fixed_blocks)
         if finetune:
             optim.freeze_to_heads(self.model)

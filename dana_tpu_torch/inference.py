@@ -41,8 +41,16 @@ taking chunks[r::N] on its own device; each writes
 merges them into `detections.pkl` and evaluates (the others return
 None).
 
+--set TPU.QUANT_INT8 True serves int8, as the JAX CLI does: after the
+checkpoint loads, the trunk's convs in TPU.QUANT_SCOPE ('tail': layer4, the
+default; 'all': every conv) are quantized (dana_tpu_torch/quant.py) and
+RoIAlign on a map that is not float32 runs in int8; the CLI prints the
+JAX CLI's line.  Int8 on a grid that would split a quantized conv's input
+(--mGPUs, or --sp under scope 'all') is refused (utils/args.py
+`refuse_int8_grid`).
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Int8 serving and the space-to-depth stem are refused
+The space-to-depth stem is refused
 (utils/args.py), and so is --net frcnn: Faster R-CNN's
 class-specific deltas [B, R, 8] meet the postprocess's 4 bbox stds, which
 the JAX package's postprocess cannot broadcast either, so the JAX CLI
@@ -61,6 +69,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dana_tpu_torch import quant
 from dana_tpu_torch.data.blob import ImageCache
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.data.inference_loader import InferenceLoader, SupportPool
@@ -68,7 +77,7 @@ from dana_tpu_torch.engine.predict import Predictor
 from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.parallel import distributed, local_devices
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
-from dana_tpu_torch.utils.args import load_cfg, parse_args
+from dana_tpu_torch.utils.args import load_cfg, parse_args, refuse_int8_grid
 from dana_tpu_torch.utils.config import NETS, dana_config, postprocess_kwargs
 
 
@@ -114,6 +123,24 @@ def _support_pool(args, c, imdb_, roidb, cache):
                        target_size=c.TRAIN.SCALES[0], image_cache=cache)
 
 
+def quantize(params, scope):
+    """The int8 serving transform of the detector (a module, quantized in
+    place, or a param tree), with the JAX CLI's line; -> the quantized
+    detector."""
+    if isinstance(params, torch.nn.Module):
+        params = quant.quantize_model(params, scope)
+    else:
+        params = quant.quantize_params(params, scope)
+    n_q = quant.count_int8(params)
+    if n_q:
+        print(f'int8-quantized {n_q} convs (scope={scope}) + int8 roi_align')
+    else:
+        print(f'WARNING: TPU.QUANT_INT8 quantized 0 convs for this '
+              f'backbone/scope ({scope}) — only the int8 roi_align path is '
+              'active')
+    return params
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.tp > 1 and args.sp > 1:
@@ -141,6 +168,7 @@ def evaluate(args, group=distributed.SINGLE):
             '(dana_tpu/engine/postprocess.py:38): its dataset CLI raises, so '
             'there is no serving path to port')
     c = load_cfg(args)
+    refuse_int8_grid(args, c)
     rank, nproc = group.rank, group.size
     # under --dist each rank serves on its own device
     devices = [distributed.rank_device(args.device)] if group.distributed \
@@ -169,6 +197,8 @@ def evaluate(args, group=distributed.SINGLE):
         print(f'loaded checkpoint {path} (pooling {config.pooling_mode})')
     else:
         params = frameworks.init_params(config, seed=args.seed)
+    if c.TPU.QUANT_INT8:
+        params = quantize(params, c.TPU.QUANT_SCOPE)
     pred = Predictor(params, config, postprocess=postprocess_kwargs(c),
                      devices=devices, tp=tp, sp=sp)
     # the siblings encode each chunk's support stack with it

@@ -47,7 +47,8 @@ from dana_tpu_torch.models.losses import (hard_mined_pair_ce,
                                           smooth_l1_loss)
 from dana_tpu_torch.ops.cisa_attention import cisa_attention_shots
 from dana_tpu_torch.ops.grid_sample import roi_crop_pool
-from dana_tpu_torch.ops.roi_align import roi_align, roi_align_train
+from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_int8,
+                                          roi_align_train)
 from dana_tpu_torch.ops.roi_pool import roi_pool
 from dana_tpu_torch.parallel.distributed import current_group
 
@@ -152,6 +153,9 @@ class DanaConfig:
     attention_dtype: torch.dtype | None = None
     head_dtype: torch.dtype | None = None
     remat_backbone: bool = False
+    # int8 serving (TPU.QUANT_INT8): RoIAlign on a map that is not float32
+    # takes the JAX package's int8 path (`ops/roi_align.py roi_align_int8`)
+    roi_align_int8: bool = False
 
     def __post_init__(self):
         for name in ('compute_dtype', 'attention_dtype', 'head_dtype'):
@@ -552,8 +556,9 @@ def pool_rois(config: DanaConfig, base_feat, rois, training=False):
     """base_feat [B,h,w,C], float32 rois [B,R,5] -> [B,R,P,P,C] in
     config.head_dt, pooled by config.pooling_mode from the rois rounded to
     base_feat's dtype, each mode in its own range: RoIAlign
-    (`dana.roi_align`; K2 when serving; in training K3 from the axis
-    weights on a float32 map, K2-bf16 on a bf16 one), RoIPool
+    (`dana.roi_align`; K2 when serving, or under config.roi_align_int8 on
+    a map that is not float32 the int8 RoIAlign; in training K3 from the
+    axis weights on a float32 map, K2-bf16 on a bf16 one), RoIPool
     (`dana.roi_pool`) or the affine crop (`dana.roi_crop`)."""
     p, scale = config.pooling_size, 1.0 / config.feat_stride
     rois = rois.to(base_feat.dtype)
@@ -564,6 +569,8 @@ def pool_rois(config: DanaConfig, base_feat, rois, training=False):
             pooled = roi_crop_pool(base_feat, rois, p, scale)
         elif training:
             pooled = roi_align_train(base_feat, rois, p, scale)
+        elif config.roi_align_int8 and base_feat.dtype != torch.float32:
+            pooled = roi_align_int8(base_feat, rois, p, scale)
         else:
             pooled = roi_align(base_feat, rois.contiguous(), p, scale)
     return pooled.to(config.head_dt)

@@ -13,6 +13,9 @@ make from NHWC inputs with a permute (a channels_last view, so cuDNN
 keeps the NHWC memory order).  The trunk's BatchNorm is always frozen: an
 affine transform with stored running statistics, as in the reference
 detector; FGN's head has BatchNorms that train (`BatchNorm2d`).
+Int8 serving (dana_tpu_torch/quant.py) swaps a trunk conv for a
+`QuantConv2d`, the JAX package's dynamically quantized int8 conv: exact
+int32 sums, on the card through `torch._int_mm` (`int8_matmul`).
 
 The numpy `init_*` helpers draw in the same order as the JAX package's,
 so one seed gives both packages the same weights.
@@ -36,6 +39,147 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class QuantConv2d(nn.Module):
+    """An int8-quantized conv (dana_tpu_torch/quant.py): buffers `w_int8`
+    [O, C, kh, kw] int8, `w_scale` [O] float32 (per output channel) and
+    `bias` [O] float32 (a quantized conv always has one: its BN's folded
+    offset, or VGG16's own), under the name of the conv it replaces, so
+    the state dict keeps the reference module names.  forward runs
+    `dynamic_int8_conv`."""
+
+    def __init__(self, cin, cout, kernel_size, stride=1, padding=0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.register_buffer('w_int8', torch.zeros(
+            cout, cin, kernel_size, kernel_size, dtype=torch.int8))
+        self.register_buffer('w_scale', torch.zeros(cout))
+        self.register_buffer('bias', torch.zeros(cout))
+
+    def forward(self, x):
+        return dynamic_int8_conv(x, self.w_int8, self.w_scale, self.bias,
+                                 self.stride, self.padding)
+
+
+def quantize_activation(x):
+    """The dynamic per-tensor int8 quantization of the JAX package's int8
+    conv: sx = max(max|x|, 1e-6) / 127 over the whole tensor, xq =
+    clip(round(x / sx), -127, 127) (half to even) -> (xq int8 in x's
+    memory format, sx float32 0-d).  Divided by tensors, so every device
+    divides as IEEE does (PyTorch on CUDA turns a division by a Python
+    number into a product with its reciprocal)."""
+    xf = x.float()
+    lo, hi = torch.aminmax(xf)
+    amax = torch.maximum(-lo, hi)                  # max |x|, no |x| pass
+    sx = torch.clamp(amax, min=1e-6) / torch.full_like(amax, 127.0)
+    return (xf / sx).round_().clamp_(-127, 127).to(torch.int8), sx
+
+
+def im2col_nhwc(xq, kh, kw, stride, padding):
+    """[N, H, W, C] (any dtype) -> the conv's patches [N, Ho, Wo, kh*kw*C],
+    each patch ordered (kh, kw, C), zero padded by `padding`: one strided
+    slice per tap, concatenated (a 1x1 conv is its strided input)."""
+    n, h, w, c = xq.shape
+    if padding:
+        xq = F.pad(xq, (0, 0, padding, padding, padding, padding))
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    taps = [xq[:, i:i + stride * (ho - 1) + 1:stride,
+               j:j + stride * (wo - 1) + 1:stride]
+            for i in range(kh) for j in range(kw)]
+    return taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
+
+
+def int8_matmul(a, b):
+    """a [M, K] int8 times b [K, N] int8 -> [M, N] int32, exact:
+    `torch._int_mm` (cuBLASLt s8 x s8 -> s32) on CUDA tensors, its operands
+    laid out by `int_mm_operands`; the plain version, an exact float64
+    product, on CPU tensors.  Raises on M <= 16, which `_int_mm`
+    refuses."""
+    if a.device.type == 'cpu':
+        return int8_matmul_plain(a, b)
+    if a.shape[0] <= 16:
+        raise ValueError(f'int8_matmul: torch._int_mm needs more than 16 '
+                         f'rows (got {a.shape[0]})')
+    out = torch._int_mm(*int_mm_operands(a, b))
+    int8_matmul.launches += 1
+    return out[:, :b.shape[1]]
+
+
+int8_matmul.launches = 0
+
+
+def int_mm_operands(a, b):
+    """The operands `torch._int_mm` takes for a @ b: K and N zero padded to
+    multiples of 8 (cuBLASLt's int8 alignment; `_int_mm` refuses others),
+    a row-major, b column-major (on the H100's build the row-major b ran
+    7x slower: 1.54 against 0.22 ms at [38400, 4608] x [4608, 512])."""
+    dk, dn = -a.shape[1] % 8, -b.shape[1] % 8
+    if dk:
+        a = F.pad(a, (0, dk))
+    if dk or dn:
+        b = F.pad(b, (0, dn, 0, dk))
+    return a.contiguous(), b.t().contiguous().t()
+
+
+def int8_matmul_plain(a, b):
+    """a [M, K] int8 times b [K, N] int8 -> [M, N] int32 as a float64
+    product: every partial sum is an integer below 2**53 (|a b| <= 127**2
+    per term), so the product is exact in any order."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def int8_conv_acc(xq, w_int8, stride=1, padding=0):
+    """The int8 conv's exact int32 accumulators: xq [N, C, H, W] int8,
+    w_int8 [O, C, kh, kw] int8 -> [N, Ho, Wo, O] int32.  On CUDA tensors
+    one `int8_matmul` (`torch._int_mm`) of `conv_as_matmul`'s operands; on
+    CPU tensors the plain version."""
+    if xq.device.type == 'cpu':
+        return int8_conv_acc_plain(xq, w_int8, stride, padding)
+    cols, wmat, shape = conv_as_matmul(xq, w_int8, stride, padding)
+    return int8_matmul(cols, wmat).reshape(shape)
+
+
+def conv_as_matmul(xq, w_int8, stride, padding):
+    """The conv as one product: (the NHWC patches [N*Ho*Wo, kh*kw*C]
+    (`im2col_nhwc`), the weights [kh*kw*C, O], the output shape [N, Ho,
+    Wo, O])."""
+    o, c, kh, kw = w_int8.shape
+    cols = im2col_nhwc(xq.permute(0, 2, 3, 1), kh, kw, stride, padding)
+    n, ho, wo, k = cols.shape
+    # [O, kh*kw*C] rows (a view for a 1x1 conv), taken as [K, O]
+    wmat = w_int8.permute(0, 2, 3, 1).reshape(o, k).t()
+    return cols.reshape(n * ho * wo, k), wmat, (n, ho, wo, o)
+
+
+def int8_conv_acc_plain(xq, w_int8, stride=1, padding=0):
+    """`int8_conv_acc` as a float64 convolution of the int8 values, exact
+    for the same reason as `int8_matmul_plain` (|acc| <= 127**2 * C kh kw,
+    7.4e7 at 4608 terms); cuDNN is kept out on CUDA tensors (its float64
+    algorithms need not sum exactly)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(xq.double(), w_int8.double(), None, stride, padding)
+    return acc.to(torch.int32).permute(0, 2, 3, 1)
+
+
+def dynamic_int8_conv(x, w_int8, w_scale, bias, stride=1, padding=0):
+    """The JAX package's dynamically quantized int8 conv
+    (`layers._dynamic_int8_conv`) on NCHW x: `quantize_activation`, the
+    exact s8 x s8 -> s32 conv (`int8_conv_acc`), then acc * (sx * w_scale)
+    + bias in float32, cast back to x's dtype.  Returns an NCHW view of
+    NHWC memory (channels_last, as the trunk runs); counts each call in
+    `dynamic_int8_conv.runs`."""
+    xq, sx = quantize_activation(x)
+    acc = int8_conv_acc(xq, w_int8, stride, padding)
+    y = acc.float().mul_(sx * w_scale)
+    if bias is not None:
+        y = y.add_(bias)
+    dynamic_int8_conv.runs += 1
+    return nhwc_to_nchw(y.to(x.dtype))
+
+
+dynamic_int8_conv.runs = 0
 
 
 class Linear(nn.Linear):

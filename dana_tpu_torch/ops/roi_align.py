@@ -40,6 +40,12 @@ output gradient (`roi_align_pw_backward`); on a bf16 map it pools with
 bf16 combine path, bf16(sum bf16(Wy * Wx) * grad) with float32 sums
 (`roi_align_combine_backward`).  Both backward passes are plain tensor
 math.
+
+`roi_align_int8` is the JAX package's int8 serving RoIAlign, which it
+takes on a map that is not float32 under TPU.QUANT_INT8: the combined
+weights and the map quantized to int8 and one exact int32 product an
+image, which XLA computes outside any Pallas kernel; on the card the
+product is `torch._int_mm`.
 """
 
 from __future__ import annotations
@@ -201,6 +207,63 @@ def roi_align_plain(feat, rois, output_size: int = 7,
     if feat.dtype == torch.float32:
         return roi_align_pw_plain(feat, wy, wx)
     return roi_align_combine_plain(feat, wy, wx)
+
+
+def quantize_roi_weights(wy, wx):
+    """One image's axis weights Wy [R,P,H], Wx [R,P,W] (float32) -> the
+    JAX package's int8 RoIAlign weights: the combined weights Wy[p,h] *
+    Wx[q,w] [R,P,P,H,W] in float32, quantized per (roi, bin) row by its
+    exact max (sw = max(rowmax, 1e-8) / 127; the weights are >= 0, so no
+    clip) -> (wq int8 [R*P*P, H*W], sw float32 [R,P,P]).  A row's max is
+    the product of its two factors' maxes: float32 rounding is monotone,
+    so for factors >= 0 the largest rounded product is the rounded product
+    of the largest factors."""
+    r, p, h = wy.shape
+    comb = wy[:, :, None, :, None] * wx[:, None, :, None, :]
+    rowmax = wy.amax(-1)[:, :, None] * wx.amax(-1)[:, None, :]
+    sw = torch.clamp(rowmax, min=1e-8) / torch.full_like(rowmax, 127.0)
+    wq = comb.div_(sw[..., None, None]).round_().to(torch.int8)
+    return wq.reshape(r * p * p, -1), sw
+
+
+def quantize_map(f):
+    """One image's map [H,W,C] -> (fq int8 [H*W, C], sf float32 0-d): the
+    per-image scale sf = max(max|f|, 1e-8) / 127 and clip(round(f / sf),
+    -127, 127)."""
+    ff = f.float()
+    lo, hi = torch.aminmax(ff)
+    amax = torch.maximum(-lo, hi)
+    sf = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
+    fq = (ff / sf).round_().clamp_(-127, 127).to(torch.int8)
+    return fq.reshape(-1, f.shape[-1]), sf
+
+
+def roi_align_int8(feat, rois, output_size: int = 7,
+                   spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
+    """The JAX package's int8 serving RoIAlign (`roi_align(int8=True)` on a
+    map that is not float32): per image, the combined weights quantized per
+    (roi, bin) row (`quantize_roi_weights`) against the map quantized per
+    image (`quantize_map`), the exact int32 product (`layers.int8_matmul`:
+    `torch._int_mm` on CUDA tensors, its plain version on CPU tensors),
+    then acc * (sw * sf) cast to feat's dtype.  Same arguments and result
+    shape as `roi_align_plain`; counts each call in `roi_align_int8.runs`.
+    The weights are `roi_weights`' float32 axis weights, as the other
+    paths use."""
+    from dana_tpu_torch.models.layers import int8_matmul
+    b, h, w, c = feat.shape
+    wy, wx = roi_weights(rois, h, w, output_size, spatial_scale, max_samples)
+    outs = []
+    for i in range(b):
+        wq, sw = quantize_roi_weights(wy[i], wx[i])
+        fq, sf = quantize_map(feat[i])
+        acc = int8_matmul(wq, fq)
+        out = acc.float().reshape(*sw.shape, c) * (sw[..., None] * sf)
+        outs.append(out.to(feat.dtype))
+    roi_align_int8.runs += 1
+    return torch.stack(outs)
+
+
+roi_align_int8.runs = 0
 
 
 def _lib():

@@ -62,7 +62,8 @@ so that every rank stops at the same step.
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
 Orbax checkpoints and the space-to-depth stem are refused
-(utils/args.py).  `main` returns a summary: the last
+(utils/args.py); under TPU.QUANT_INT8 it trains the float tree, as the
+JAX CLI does (int8 is serving only).  `main` returns a summary: the last
 checkpoint, whether the run was preempted, and per epoch its steps,
 seconds, episodes per second, the seconds the loop waited for a batch,
 mean losses, the loss of every step and the skipped steps.

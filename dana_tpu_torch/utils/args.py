@@ -16,6 +16,7 @@ import argparse
 import os
 
 from dana_tpu_torch.models.dana import POOLING_MODES
+from dana_tpu_torch.quant import SCOPES as QUANT_SCOPES
 from dana_tpu_torch.utils import config as config_lib
 
 # the --ascale presets (reference utils.py:68-73)
@@ -149,6 +150,26 @@ def _refuse_unported(args):
                          'the .dkpt pickle only')
 
 
+def refuse_int8_grid(args, c):
+    """Int8 serving on a grid whose data rows or spatial blocks split a
+    quantized conv's input is refused: the activation scale is the max
+    over the whole tensor a conv sees, which JAX forms over the global
+    batch (GSPMD) and the port's rows and blocks would form each over its
+    own part.  --mGPUs serves a request's rows on the grid's data rows;
+    --sp splits the trunk's convs, quantized under scope 'all'.  --tp
+    splits no conv of the trunk, and under --dist each rank's chunk is its
+    own tensor in both packages."""
+    if not c.TPU.QUANT_INT8 or args.dist:
+        return
+    if args.mGPUs or (args.sp > 1 and c.TPU.QUANT_SCOPE == 'all'):
+        raise SystemExit(
+            'TPU.QUANT_INT8 with --mGPUs, or with --sp under QUANT_SCOPE '
+            "'all': the grid would split a quantized conv's input, whose "
+            'activation scale is one max over the whole tensor '
+            '(ROADMAP Queue A 12); serve int8 on one device per process '
+            '(--dist)')
+
+
 def load_cfg(args):
     """-> the config tree: the built-in res50 values (with --ls, those of
     res101_ls.yml), then the --ascale preset, then --set.  Refuses settings
@@ -160,9 +181,9 @@ def load_cfg(args):
     if args.set_cfgs_extra:
         config_lib.cfg_from_list(c, args.set_cfgs_extra)
     c.TRAIN.USE_FLIPPED = args.use_flip
-    if c.TPU.QUANT_INT8:
-        raise SystemExit('TPU.QUANT_INT8: int8 serving is not ported yet '
-                         '(ROADMAP Queue A 9)')
+    if c.TPU.QUANT_SCOPE not in QUANT_SCOPES:
+        raise SystemExit(f'TPU.QUANT_SCOPE {c.TPU.QUANT_SCOPE}: the scopes '
+                         f'are {", ".join(QUANT_SCOPES)}')
     if c.TPU.STEM_S2D:
         raise SystemExit('TPU.STEM_S2D: the port has no space-to-depth stem; '
                          'set TPU.STEM_S2D False')

@@ -17,6 +17,8 @@ CLIs take it from the payload into their config, as the JAX CLIs do.  A
 checkpoint whose `extra['framework']` (the port's writer records the
 detector there) names another detector than the config's is refused.
 
+`save_net_h5` / `load_net_h5` write and read the JAX package's HDF5
+weight dump (h5py is imported inside them only).
 `save_checkpoint` writes the `.dkpt` pickle with plain dicts, floats, ints,
 strings and numpy arrays only, so that both the JAX package's
 `load_checkpoint` and this module's restricted reader take it; its
@@ -189,3 +191,43 @@ def optimizer_velocity(payload):
 def checkpoint_path(save_dir, epoch, step, suffix='dkpt'):
     return osp.join(save_dir, 'train', 'checkpoints',
                     f'model_{epoch}_{step}.{suffix}')
+
+
+def save_net_h5(path, params):
+    """An HDF5 dump of the weights (reference net_utils.save_net): one
+    dataset per leaf of the JAX-layout tree (`to_jax_params` of a module,
+    or a tree), under the JAX package's flat 'a.b.c' keys, so either
+    package reads the other's file."""
+    import h5py
+    tree = to_jax_params(params) if isinstance(params, torch.nn.Module) \
+        else params
+    os.makedirs(osp.dirname(path) or '.', exist_ok=True)
+    with h5py.File(path, 'w') as f:
+        for key, v in _flat(tree):
+            f.create_dataset(key, data=np.asarray(v))
+
+
+def _flat(tree, prefix=''):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f'{prefix}{k}.')
+        else:
+            yield f'{prefix}{k}', v
+
+
+def load_net_h5(path):
+    """`save_net_h5`'s file (either package's) -> the nested JAX-layout
+    tree of numpy arrays, which `from_jax_params` takes."""
+    import h5py
+    out = {}
+
+    def visit(key, obj):
+        if isinstance(obj, h5py.Dataset):
+            *parts, leaf = key.split('.')
+            node = out
+            for p in parts:
+                node = node.setdefault(p, {})
+            node[leaf] = obj[()]
+    with h5py.File(path, 'r') as f:
+        f.visititems(visit)
+    return out

@@ -114,7 +114,12 @@ def default_cfg() -> AttrDict:
             # the port has no space-to-depth stem: False here (the JAX
             # package defaults to True), and the CLI refuses True
             'STEM_S2D': False,
+            # int8 serving (dana_tpu_torch/quant.py): the trunk's convs in
+            # QUANT_SCOPE ('tail': layer4; 'all': every conv) quantized
+            # after the checkpoint loads, and RoIAlign on a map that is not
+            # float32 in int8; the dataset CLI only (training runs float)
             'QUANT_INT8': False,
+            'QUANT_SCOPE': 'tail',
             # decoded training support crops kept by the episodic loaders
             'SUPPORT_CACHE': 2048,
             # the precision recipe, at the JAX package's defaults: the trunk
@@ -250,6 +255,7 @@ def dana_config(c: AttrDict, way: int, shot: int, net: str = 'DAnA',
         attention_dtype=dtype_or_none(c.TPU.ATTENTION_DTYPE),
         head_dtype=dtype_or_none(c.TPU.HEAD_DTYPE),
         remat_backbone=c.TPU.REMAT_BACKBONE,
+        roi_align_int8=bool(c.TPU.QUANT_INT8),
         pixel_means=tuple(np.asarray(c.PIXEL_MEANS).ravel().tolist()))
 
 

@@ -1,11 +1,14 @@
-"""The training CLI's logger, ported from the JAX package's
-`utils/fsod_logger.py` `FSODLogger` (reference fsod_logger.py:8-131).
+"""The loggers, ported from the JAX package's `utils/fsod_logger.py`
+(reference fsod_logger.py:8-131).
 
-`write` records the epoch's mean loss scalars and, with `save_im`, the
-first episode's query (its gt boxes drawn) and supports as images.  It
-writes through `torch.utils.tensorboard` when that imports and keeps the
-records in memory as well (`scalars`, `images`), so nothing depends on
-TensorBoard being there.
+`FSODLogger.write` records the epoch's mean loss scalars and, with
+`save_im`, the first episode's query (its gt boxes drawn, and predicted
+boxes in red when given) and supports as images; the training CLI uses it.
+`FSODInferenceLogger` records eval images, and with `write_attention` the
+RPN site's attention relevance (models/viz.py) over a query.  Both write
+through `torch.utils.tensorboard` when that imports and keep the records in
+memory as well (`scalars`, `images`), so nothing depends on TensorBoard
+being there.
 """
 
 from __future__ import annotations
@@ -51,17 +54,26 @@ class FSODLogger:
         else:
             self._tb = SummaryWriter(log_dir)
 
-    def write(self, step, losses: dict, batch=None, save_im=False):
-        """losses: {name: scalar}; batch: numpy im_data, gt_boxes and
-        support_ims of a batch, for the images with `save_im`."""
+    def write(self, step, losses: dict, batch=None, save_im=False,
+              predictions=None):
+        """losses: {name: scalar}; batch: numpy im_data and, when present,
+        gt_boxes and support_ims of a batch, for the images with
+        `save_im`; predictions [N, >=4] boxes of the first query, drawn in
+        red."""
         records = [('scalar', k, float(v)) for k, v in losses.items()]
         if save_im and batch is not None:
             im = _to_uint8(batch['im_data'][0], self.pixel_means)
-            records.append(('image', 'query',
-                            draw_boxes(im, batch['gt_boxes'][0])))
+            gt = batch.get('gt_boxes')
+            records.append(('image', 'query', draw_boxes(
+                im, np.zeros((0, 4)) if gt is None else gt[0])))
+            sups = batch.get('support_ims')
             records += [('image', f'support/{i}',
                          _to_uint8(s, self.pixel_means))
-                        for i, s in enumerate(batch['support_ims'][0])]
+                        for i, s in enumerate(
+                            [] if sups is None else sups[0])]
+            if predictions is not None:
+                records.append(('image', 'predictions', draw_boxes(
+                    im, predictions, color=(255, 0, 0))))
         for kind, tag, value in records:
             (self.scalars if kind == 'scalar' else self.images).append(
                 (step, tag, value))
@@ -77,3 +89,28 @@ class FSODLogger:
     def close(self):
         if self._tb is not None:
             self._tb.close()
+
+
+class FSODInferenceLogger(FSODLogger):
+    """The eval logger: query images with their predicted boxes, and the
+    RPN site's attention relevance over a query."""
+
+    def write(self, step, batch=None, predictions=None, save_im=True):
+        super().write(step, {}, batch=batch, save_im=save_im,
+                      predictions=predictions)
+
+    def write_attention(self, step, model, config, batch, tag='attention'):
+        """The relevance of batch['support_ims'][0] [n, sh, sw, 3] over
+        batch['im_data'][0] [H, W, 3] (mean-subtracted; models/viz.py),
+        overlaid on the query -> the RGB uint8 image it records."""
+        from dana_tpu_torch.models.viz import (overlay_heatmap,
+                                               rpn_attention_relevance)
+        q = np.asarray(batch['im_data'][0])
+        heat = rpn_attention_relevance(model, config, q,
+                                       np.asarray(batch['support_ims'][0]))
+        im = overlay_heatmap(_to_uint8(q, self.pixel_means), heat)
+        self.images.append((step, tag, im))
+        if self._tb is not None:
+            self._tb.add_image(tag, im, step, dataformats='HWC')
+            self._tb.flush()
+        return im

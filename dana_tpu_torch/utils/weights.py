@@ -6,6 +6,8 @@ a reference-format state dict (`RCNN_base.*`, `RCNN_top.*`, OIHW convs,
 [out, in] linears), as a released `.pth` holds it.  Both fill the module of
 `config.framework` (models/frameworks.py `build`) with a strict load, so
 every weight is consumed and none missing.
+A tree quantized for int8 serving (`quantize_params` of either package)
+keeps its int8 weights int8 both ways.
 `to_jax_params` turns a module back into the JAX param tree, and
 `velocity_to_jax` / `velocity_from_jax` carry SGD momentum buffers to and
 from the JAX package's velocity tree, in the same layout.  Every trunk
@@ -56,8 +58,9 @@ def _load(config: DanaConfig, state: dict) -> torch.nn.Module:
 
 def _from_jax_layout(v) -> torch.Tensor:
     """A JAX leaf -> the port's layout: HWIO -> OIHW, [in, out] -> [out,
-    in], float32."""
-    v = np.asarray(v, np.float32)
+    in]; float32, but int8 (a quantized conv's `w_int8`) stays int8."""
+    v = np.asarray(v)
+    v = v if v.dtype == np.int8 else v.astype(np.float32)
     if v.ndim == 4:
         v = v.transpose(3, 2, 0, 1)
     elif v.ndim == 2:
@@ -67,13 +70,14 @@ def _from_jax_layout(v) -> torch.Tensor:
 
 def _to_jax_layout(t: torch.Tensor) -> np.ndarray:
     """The port's tensor -> a JAX leaf: OIHW -> HWIO, [out, in] -> [in,
-    out], float32 numpy."""
+    out], float32 numpy (int8 stays int8)."""
     v = t.detach().cpu().numpy()
     if v.ndim == 4:
         v = v.transpose(2, 3, 1, 0)
     elif v.ndim == 2:
         v = v.T
-    return np.ascontiguousarray(v, np.float32)
+    return np.ascontiguousarray(
+        v, np.int8 if v.dtype == np.int8 else np.float32)
 
 
 def _unflatten(items) -> dict:
@@ -87,11 +91,22 @@ def _unflatten(items) -> dict:
     return tree
 
 
+def load_jax_tree(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """A strict load of a JAX-layout tree into `module`; -> module."""
+    module.load_state_dict({name: _from_jax_layout(v)
+                            for name, v in _flatten(tree)}, strict=True)
+    return module
+
+
 def from_jax_params(tree: dict, config: DanaConfig) -> torch.nn.Module:
     """JAX param tree (numpy leaves) -> config.framework's module on the
-    CPU."""
-    return _load(config, {name: _from_jax_layout(v)
-                          for name, v in _flatten(tree)})
+    CPU.  A tree quantized by `quant.quantize_params` (the JAX package's or
+    the port's) gives the int8 module: its quantized convs become
+    `QuantConv2d`s."""
+    from dana_tpu_torch.quant import swap_int8_convs
+    model = build(config)
+    swap_int8_convs(model, tree)
+    return load_jax_tree(model, tree).eval().requires_grad_(False)
 
 
 def to_jax_params(model: torch.nn.Module) -> dict:

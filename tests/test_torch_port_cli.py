@@ -59,12 +59,13 @@ def synth_root(tmp_path_factory):
     mp.undo()
 
 
-def _jax_cli(out, *flags, net='DAnA'):
+def _jax_cli(out, *flags, net='DAnA', extra_set=()):
     import inference as jax_cli
     ipp = cv2.ipp.useIPP()
     cv2.ipp.setUseIPP(False)
     try:
-        return out, jax_cli.main(_argv(out, *flags, net=net))
+        return out, jax_cli.main(_argv(out, *flags, net=net)
+                                 + list(extra_set))
     finally:
         cv2.ipp.setUseIPP(ipp)
 
@@ -136,6 +137,28 @@ def test_cli_fsod_matches_jax(synth_root, tmp_path):
     assert result['timing']['chunks'] == 5
 
 
+def test_cli_int8_matches_jax(synth_root, tmp_path, capsys):
+    """--set TPU.QUANT_INT8 True (scope 'tail': layer4 in int8, float32
+    maps, so the float32 RoIAlign) in both CLIs on the seed-5 weights: the
+    JAX CLI's line, and its detections and COCOeval stats at the float32
+    tolerances.  The int8 layer4 quantizes each chunk's pooled rois by one
+    max, so a pooled value that differs in its last float32 bits between
+    the packages could flip a quantized step at an exact half and move a
+    box by more than COORD_ATOL; at this size none does (the test would
+    name the box)."""
+    int8 = ['TPU.QUANT_INT8', 'True']
+    jax_run = _jax_cli(tmp_path / 'jax', extra_set=int8)
+    jax_line = [ln for ln in capsys.readouterr().out.splitlines()
+                if 'int8' in ln]
+    out = tmp_path / 'port'
+    result = port_cli.main(_argv(out, '--device', 'cpu') + int8)
+    port_line = [ln for ln in capsys.readouterr().out.splitlines()
+                 if 'int8' in ln]
+    assert port_line == jax_line == [
+        'int8-quantized 10 convs (scope=tail) + int8 roi_align']
+    _check_against_jax(jax_run, out, result)
+
+
 def _config():
     c = targs.load_cfg(targs.parse_args(BASE_ARGS))
     from dana_tpu_torch.utils.config import dana_config
@@ -171,7 +194,7 @@ def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
     (['--dist'], '--num_procs'), (['--dist', '--num_procs', '2'], '--proc_id'),
     (['--dist', '--num_procs', '2', '--proc_id', '2'], 'not below'),
     (['--net', 'frcnn'], 'postprocess'),
-    (['--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 9'),
+    (['--mGPUs', '--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 12'),
     (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
     (['--net', 'fsod', '--backbone', 'vgg16'], 'ResNet-only'),
     (['--backbone', 'res152'], 'the trunks are'),

@@ -583,3 +583,65 @@ def test_kernels_launch_on_every_card(dev):
                                    rtol=TOL, atol=TOL)
         assert ra.roi_align_pw.launches_by_device[(str(d), 'float32')] \
             == before + 1
+
+
+# (kernel, cin, cout, stride, padding, rows, map): layer4's conv2, its
+# strided first conv1, the stem (K = 147 padded to 152) and a channel count
+# that is no multiple of 8
+INT8_CONVS = {'layer4_conv2': (3, 512, 512, 1, 1, 300, 4),
+              'layer4_conv1_s2': (1, 1024, 512, 2, 0, 300, 7),
+              'stem': (7, 3, 64, 2, 3, 2, 96),
+              'ragged': (3, 20, 44, 1, 1, 5, 9)}
+
+
+@pytest.mark.parametrize('case', INT8_CONVS)
+def test_int8_conv_int_mm_matches_plain(dev, case):
+    """The int8 conv's `torch._int_mm` route (NHWC patches, padded operands)
+    against the exact float64 conv: the int32 accumulators bit for bit, and
+    the whole int8 conv the same."""
+    from dana_tpu_torch.models import layers as L
+    kh, cin, cout, stride, pad, n, hw = INT8_CONVS[case]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, hw, hw, cin, device=dev, generator=gen) \
+        .permute(0, 3, 1, 2)
+    w = torch.randint(-127, 128, (cout, cin, kh, kh), device=dev,
+                      dtype=torch.int8, generator=gen)
+    xq, sx = L.quantize_activation(x)
+    before = L.int8_matmul.launches
+    got = L.int8_conv_acc(xq, w, stride, pad)
+    assert L.int8_matmul.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got, L.int8_conv_acc_plain(xq, w, stride, pad))
+    scale = torch.rand(cout, device=dev, generator=gen) / 127
+    bias = torch.randn(cout, device=dev, generator=gen)
+    y = L.dynamic_int8_conv(x, w, scale, bias, stride, pad)
+    want = (L.int8_conv_acc_plain(xq, w, stride, pad).float()
+            * (sx * scale) + bias)
+    assert torch.equal(L.nchw_to_nhwc(y), want)
+
+
+def test_int8_roi_align_int_mm_matches_plain(dev):
+    """The int8 RoIAlign's per-image `torch._int_mm` products against the
+    exact float64 ones, at a serving bucket's bf16 map (2 images, 300
+    rois)."""
+    from dana_tpu_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(1)
+    feat = torch.randn(2, 38, 64, 1024, device=dev,
+                       generator=gen).to(torch.bfloat16)
+    rois = chip_smoke.serving_rois(2, 300, gen, dev)
+    before = L.int8_matmul.launches
+    got = ra.roi_align_int8(feat, rois)
+    assert L.int8_matmul.launches == before + 2
+    saved = L.int8_matmul
+    L.int8_matmul = L.int8_matmul_plain
+    try:
+        want = ra.roi_align_int8(feat, rois)
+    finally:
+        L.int8_matmul = saved
+    assert torch.equal(got, want)
+
+
+def test_int8_matmul_refuses_short_products(dev):
+    from dana_tpu_torch.models import layers as L
+    a = torch.ones(16, 8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match='more than 16 rows'):
+        L.int8_matmul(a, a.t())

@@ -11,9 +11,9 @@ Builds the predictor that chip_smoke.py drives (DAnA ResNet-50 2-way
 once; with --net, the detector that chip_smoke.py phase 8 serves: the
 siblings with a request's 8 x 3 supports, frcnn through its eval
 forward; with --backbone, on that trunk; --set overrides the built-in
-config tree, e.g. its POOLING_MODE) and sends requests of 8 uint8 608x1024
-queries through
-`Predictor.predict`: --iters of them untraced for the wall time per
+config tree, e.g. its POOLING_MODE, or TPU.QUANT_INT8 True for int8
+serving through the dataset CLI's quantization hook) and sends requests
+of 8 uint8 608x1024 queries through `Predictor.predict`: --iters of them untraced for the wall time per
 request, then --iters under torch.profiler, whose trace is written to
 --trace (it opens in Perfetto).  The stages are the `dana.*`
 record_function ranges of `models/dana.py` `forward` and
@@ -153,16 +153,22 @@ def profile(run, iters, trace, card, unit='request'):
             'copy_bytes': copy_bytes(trace, iters)}
 
 
-def model_for(net, backbone, overrides, seed):
+def model_for(net, backbone, overrides, seed, serving=True):
     """-> (config, params): the 2-way 3-shot detector `net` on `backbone`
     from the built-in config tree with the KEY VALUE `overrides`, random
-    weights from `seed` (get_model's, without overrides)."""
+    weights from `seed` (get_model's, without overrides); for `serving`
+    quantized by the dataset CLI's hook under TPU.QUANT_INT8 (training
+    takes the float tree, as the training CLI does)."""
+    from dana_tpu_torch import inference
     from dana_tpu_torch.models import frameworks
     from dana_tpu_torch.utils import config as cfg
     tree = cfg.default_cfg()
     cfg.cfg_from_list(tree, overrides or [])
     config = cfg.dana_config(tree, 2, 3, net, backbone)
-    return config, frameworks.init_params(config, seed=seed)
+    params = frameworks.init_params(config, seed=seed)
+    if serving and tree.TPU.QUANT_INT8:
+        params = inference.quantize(params, tree.TPU.QUANT_SCOPE)
+    return config, params
 
 
 def serving_call(chip_smoke, model, seed, query, info, classes):

@@ -92,7 +92,7 @@ def _source(args):
         from dana_tpu_torch.engine.train import Trainer
         from profile_torch_predict import model_for
         config, params = model_for(args.net, args.backbone, args.set,
-                                   args.seed)
+                                   args.seed, serving=False)
         trainer = Trainer(params, config, seed=args.seed)
         batch = chip_smoke.training_episodes(args.seed, 1, trainer.device)[0]
         if config.framework == 'meta':          # as chip_smoke.py phase 8
