@@ -55,13 +55,24 @@ Run from the repository root.  Phases, each of which fails the run:
      timed as above; the bf16 RoIAlign's backward on the card (one bf16
      product over the images, `roi_align_combine_backward`) held at one
      bf16 ulp against the same formula summed in float32 and timed beside
-     it and its bound;
+     it and its bound.  The NMS kernel (csrc/nms.cu; it replaces no Pallas
+     kernel) is held after phases 4 and 5, on the sorted boxes they gave
+     it (recorded in request 0 and step 0): serving proposals (B 8, N
+     6000, M 300, IoU 0.7), the detection postprocess (B 8, N 300, M 100,
+     IoU 0.3, score > 0.05) and training proposals (B 4, N 12000, M 2000),
+     each on that data and on adversarial cases at its shape (every box
+     twice: IoU exactly 1; IoUs exactly float32(thr); no valid box; M
+     reached in the first 64 boxes; N cut to no multiple of 64) and on
+     the whole NMS with every score tied: positions and masks equal to the
+     plain version's, timed beside it and its bound (the IoUs the data
+     needs at the float32 rate, or its bytes);
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
      encoded once.  The launch counters are zeroed just before and read
-     just after: 2 CISA and 1 RoIAlign launches a request, and the
-     single-group CISA (no site on this path or the next) never.  The
+     just after: 2 CISA, 1 RoIAlign and 2 NMS launches a request, and the
+     single-group CISA (no site on this path or the next) never; NMS
+     synchronises the host no time (`nms.HOST_SYNCS` 0).  The
      outputs must be finite and of the right shapes, and the first
      request, served again with the plain versions in place of the
      kernels (and the kernel path's proposals), must agree: the RPN's
@@ -70,8 +81,8 @@ Run from the repository root.  Phases, each of which fails the run:
   5. training: a Trainer on the same detector takes STEPS SGD steps on
      seeded episodes of TRAIN_BATCH uint8 608x1024 queries, 1-5 gt boxes
      each and 2x3 supports of 320px.  The counters are zeroed just before
-     and read just after: 3 CISA and 1 RoIAlign-from-weights launches a
-     step, no single-group CISA launch.  Losses must be finite, no step
+     and read just after: 3 CISA, 1 RoIAlign-from-weights and 1 NMS
+     launches a step, no single-group CISA launch, no NMS host sync.  Losses must be finite, no step
      skipped, fg rois sampled, every trainable parameter moved and every
      frozen one unchanged.  Step 0,
      run again on the plain versions from the same weights, draws and
@@ -219,7 +230,26 @@ Run from the repository root.  Phases, each of which fails the run:
      beside the int8 bound (INT8_OPS_PER_S), and layer4 whole in each;
      then the dataset CLI with --set TPU.QUANT_INT8 True serves phase 7's
      checkpoint over synth_test (10 int8 convs and 1 K2 a chunk), printing
-     the JAX CLI's line, its AP beside phase 6's (not judged).
+     the JAX CLI's line, its AP beside phase 6's (not judged);
+ 15. serving export (dana_tpu_torch/serve.py): phase 4's float32 detector
+     exported at the five query buckets plus its support encoder, and at
+     608x1024 in the default recipe, under int8 'tail' and traced on the
+     CPU for the card (export seconds, artifact bytes against the weights'
+     bytes; a file at 10% of the weights fails); every artifact served in
+     one fresh process (this script with --serve_child) that imports
+     dana_tpu_torch.serve and not the model code, the weights passed as an
+     argument: REQUESTS requests at 608x1024 and one at each other bucket,
+     one request of each other artifact, and a second seed's weights
+     through the first artifact, each against the live Predictor on the
+     same support features and queries (detections tie-aware at phase 4's
+     tolerance, phase 10's in the recipe; whether bit for bit is printed),
+     the CPU-traced program against the card-traced one on request 0 at
+     phase 4's tolerance, the encoder artifact against the live encoder
+     at 1e-4, launches counted in that process (2 K1, 1 K2 and 2 NMS a
+     request, in the recipe's dtypes; no NMS host sync), request times
+     (after an untimed first call) beside the live predictor's.
+Every phase that counts launches counts NMS too (the proposals, and the
+postprocess of a served request or a CLI chunk).
 """
 
 from __future__ import annotations
@@ -365,11 +395,12 @@ def check_close(name, got, want, tol=TOL):
 def launch_counters():
     """{kernel name: (its wrapper, the attribute that counts its launches)}:
     a wrapper counts its float32 kernel's launches in `launches` and its
-    bf16 kernel's in `launches_bf16`.  The last three count int8 serving's
-    work (no hand kernel; phase 14): the int8 convs run, the int8
-    RoIAlign's calls and the `torch._int_mm` products that carry both."""
+    bf16 kernel's in `launches_bf16`.  Three count int8 serving's work (no
+    hand kernel; phase 14): the int8 convs run, the int8 RoIAlign's calls
+    and the `torch._int_mm` products that carry both.  `nms` counts the
+    NMS kernel's launches (the op's CUDA implementation)."""
     from dana_tpu_torch.models import layers
-    from dana_tpu_torch.ops import cisa_attention, roi_align
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
     shots, single = cisa_attention.cisa_attention_shots, \
         cisa_attention.cisa_attention
     return {'cisa_shots': (shots, 'launches'),
@@ -381,7 +412,8 @@ def launch_counters():
             'cisa_attention_bf16': (single, 'launches_bf16'),
             'int8_conv': (layers.dynamic_int8_conv, 'runs'),
             'roi_align_int8': (roi_align.roi_align_int8, 'runs'),
-            'int_mm': (layers.int8_matmul, 'launches')}
+            'int_mm': (layers.int8_matmul, 'launches'),
+            'nms': (nms.nms_sorted, 'launches')}
 
 
 def zero_launches():
@@ -1098,27 +1130,171 @@ def check_backward(dev, gen):
     return out
 
 
+# ------------------------------------------------------------ phase 3 (NMS)
+
+# float32 operations of one IoU and its compare (core/boxes.py iou_matrix:
+# two maxima and two minima, two subtractions and two additions for w and
+# h, two clamps, the product, the union's addition and subtraction, the
+# division, the compare), and of one box's area, computed once a box (two
+# subtractions, two additions, the product)
+NMS_IOU_OPS = 15
+NMS_AREA_OPS = 5
+# boxes whose IoU with a 10x10 box at the same corner is exactly float32(thr)
+# ((x2 - x1, y2 - y1) of the box inside it: 5x6 = 30 and 7x10 = 70 of 100)
+# and a box just past it, per threshold of the main path
+NMS_EXACT = {0.3: ((4, 5), (5, 5)), 0.7: ((6, 9), (7, 9))}
+
+
+@contextlib.contextmanager
+def recorded_nms(record):
+    """Append every NMS walk's arguments (score-sorted boxes, validity, IoU
+    threshold, max_output, tile) to `record`; adds no launch."""
+    from dana_tpu_torch.ops import nms
+    real = nms.greedy_sorted
+
+    def walk(sboxes, svalid, thr, m, tile):
+        record.append((sboxes, svalid, thr, m, tile))
+        return real(sboxes, svalid, thr, m, tile)
+    nms.greedy_sorted = walk
+    try:
+        yield
+    finally:
+        nms.greedy_sorted = real
+
+
+def nms_ious(pos, keep, n):
+    """The IoUs the greedy walk needs on this data: every box before the
+    walk stops (at max_output kept, or at the end) against every kept box
+    before it.  -> (IoUs, boxes before the stop: the areas it needs)."""
+    full = keep.sum(1) == keep.shape[1]
+    stop = torch.where(full, pos[:, -1] + 1, n)
+    idx = torch.arange(n, device=pos.device)
+    # kept boxes strictly before each box i < stop
+    before = torch.searchsorted(torch.where(keep, pos, n).contiguous(),
+                                idx.expand(len(pos), -1).contiguous())
+    return (int(torch.where(idx[None] < stop[:, None], before, 0).sum()),
+            int(stop.sum()))
+
+
+def nms_exact_boxes(b, n, thr, dev):
+    """[b, n, 4] boxes in triples on a grid 20 px apart: a 10x10 box, one
+    whose IoU with it is exactly float32(thr), one just past thr."""
+    (bw, bh), (cw, ch) = NMS_EXACT[thr]
+    k = torch.arange(n, device=dev)
+    cell, j = k // 3, k % 3
+    x = (cell % 100).float() * 20
+    y = (cell // 100).float() * 20
+    w = torch.stack([torch.full_like(x, 9), torch.full_like(x, bw),
+                     torch.full_like(x, cw)])[j, k]
+    h = torch.stack([torch.full_like(y, 9), torch.full_like(y, bh),
+                     torch.full_like(y, ch)])[j, k]
+    return torch.stack([x, y, x + w, y + h], -1).expand(b, n, 4).contiguous()
+
+
+def nms_cases(sboxes, svalid, thr, m):
+    """The adversarial cases at a site's shape [B, N] and max_output M ->
+    {name: (sboxes, svalid, M)}: duplicates (every box twice in a row: IoU
+    exactly 1), an IoU of exactly float32(thr), no valid box, M reached in
+    the first 64 boxes (non-overlapping boxes, M 50), N cut to no multiple
+    of 64."""
+    b, n = svalid.shape
+    dev = sboxes.device
+    dup = sboxes.repeat_interleave(2, 1)[:, :n].contiguous()
+    k = torch.arange(n, device=dev)
+    corner = torch.stack([k % 100, k // 100], -1).float() * 20
+    apart = torch.cat([corner, corner + 9], -1).expand(b, n, 4).contiguous()
+    cut = n - 1 if n % 64 else n - 37
+    return {'duplicates': (dup, svalid, m),
+            'iou_at_thr': (nms_exact_boxes(b, n, thr, dev),
+                           torch.ones_like(svalid), m),
+            'no_valid': (sboxes, torch.zeros_like(svalid), m),
+            'full_in_64': (apart, torch.ones_like(svalid), min(m, 50)),
+            'ragged_n': (sboxes[:, :cut].contiguous(),
+                         svalid[:, :cut].contiguous(), m)}
+
+
+def check_nms(sites):
+    """The NMS kernel against its plain version at the main path's sites
+    (`sites`: {label: (sboxes, svalid, thr, M, tile)} recorded from
+    phase 4's request 0 and phase 5's step 0): positions and masks equal
+    on the site's own data, on every `nms_cases` case at its shape, and on
+    the whole NMS (sort and walk) with every score tied; timed beside the
+    plain version and the bound of the IoUs and areas the data needs.  ->
+    ({label: site}, the most slots in which one comparison differed)."""
+    from dana_tpu_torch.ops import nms
+    out, worst = {}, 0
+
+    def differing(got, want):
+        return int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+    for label, (sb, sv, thr, m, tile) in sites.items():
+        cases = {'site': (sb, sv, m), **nms_cases(sb, sv, thr, m)}
+        for name, (b_, v_, m_) in cases.items():
+            got = nms.nms_sorted(b_, v_, thr, m_, tile)
+            want = nms.nms_sorted_plain(b_, v_, thr, m_, tile)
+            diff = differing(got, want)
+            worst = max(worst, diff)
+            if diff:
+                fail(f'nms[{label}, {name}]: kernel and plain version keep '
+                     f'different boxes in {diff} of {got[0].numel()} slots')
+        tied = torch.full(sv.shape, 0.5, device=sb.device)
+        runs = []
+        for route in (nms.nms_sorted, nms.nms_sorted_plain):
+            saved, nms.greedy_sorted = nms.greedy_sorted, route
+            try:
+                runs.append(nms.nms_fixed_tiled(sb, tied, thr, m, sv, tile))
+            finally:
+                nms.greedy_sorted = saved
+        diff = differing(*runs)
+        worst = max(worst, diff)
+        if diff:
+            fail(f'nms[{label}, score ties]: the kernel route and the plain '
+                 f'route keep different boxes in {diff} slots')
+        pos, keep = nms.nms_sorted(sb, sv, thr, m, tile)
+        ious, areas = nms_ious(pos, keep, sv.shape[1])
+        nbytes = sb.numel() * 4 + sv.numel() + pos.numel() * 9
+        b_ms, b_by = bound_ms(nbytes, ious * NMS_IOU_OPS
+                              + areas * NMS_AREA_OPS)
+        site = dict(
+            shape=[*sv.shape, m], iou_threshold=thr,
+            ms=cuda_ms(lambda: nms.nms_sorted(sb, sv, thr, m, tile), 20),
+            plain_ms=cuda_ms(lambda: nms.nms_sorted_plain(sb, sv, thr, m,
+                                                          tile), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, ious=ious,
+            areas=areas, kept=keep.sum(1).tolist(), bytes=nbytes,
+            bitmask_bytes=sv.shape[0] * sv.shape[1]
+            * (-(-sv.shape[1] // 64)) * 8)
+        out[label] = site
+        print(f'nms[{label}] B {sv.shape[0]}, N {sv.shape[1]}, M {m}, IoU '
+              f'{thr}: kernel == plain on the site and on '
+              f'{list(cases)[1:]} and with '
+              f'tied scores; {site["ms"]:.4f} ms (plain '
+              f'{site["plain_ms"]:.4f}, bound {b_ms:.6f} by {b_by}: {ious} '
+              f'IoUs), kept per image {site["kept"]}', flush=True)
+    return out, worst
+
+
 # ---------------------------------------------------------------- phase 4
 
 @contextlib.contextmanager
 def plain_ops():
     """Route the detector through the plain versions on the card (for the
-    comparison only): the kernels', and the int8 products' exact float64
-    ones in place of `torch._int_mm`."""
+    comparison only): the kernels' (NMS's tiled fixed point included), and
+    the int8 products' exact float64 ones in place of `torch._int_mm`."""
     from dana_tpu_torch.models import dana, layers
-    from dana_tpu_torch.ops import cisa_attention, roi_align
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
     saved = (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
-             layers.int8_conv_acc, layers.int8_matmul)
+             layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted)
     dana.cisa_attention_shots = cisa_attention.cisa_attention_shots_plain
     dana.roi_align = roi_align.roi_align_plain
     dana.roi_align_train = roi_align.roi_align_plain
     layers.int8_conv_acc = layers.int8_conv_acc_plain
     layers.int8_matmul = layers.int8_matmul_plain
+    nms.greedy_sorted = nms.nms_sorted_plain
     try:
         yield
     finally:
         (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
-         layers.int8_conv_acc, layers.int8_matmul) = saved
+         layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted) = saved
 
 
 def match_detections(da, db, coord_atol, score_tol=1e-4):
@@ -1234,13 +1410,15 @@ def serving_requests(seed, n):
              info, [(i + j) % 2 for j in range(BATCH)]) for i in range(n)]
 
 
-def want_launches(config, n, training, int8_convs=0, batch=BATCH):
+def want_launches(config, n, training, int8_convs=0, batch=BATCH,
+                  postprocess=True):
     """The kernel launches of n requests (or training steps) of `config`:
     K1 at the two attention sites of DAnA and cisa (three in training: the
     RoI site again for the negative supports), in the attention dtype;
     RoIAlign once in align mode, in the compute dtype (K2 serving; in
     training K3 on a float32 map, K2-bf16 on a bf16 one), the single-group
-    CISA never.  Int8 serving: `int8_convs` int8 convs a request, and with
+    CISA never; NMS at the proposals, and again in the detection
+    postprocess of a served request (`postprocess`).  Int8 serving: `int8_convs` int8 convs a request, and with
     config.roi_align_int8 on a bf16 map the int8 RoIAlign in place of
     K2-bf16; each conv, and the RoIAlign once per image of `batch`, one
     `torch._int_mm`."""
@@ -1257,8 +1435,10 @@ def want_launches(config, n, training, int8_convs=0, batch=BATCH):
         roi = 'roi_align_int8'
     int_mm = int8_convs * n + (align * batch if roi == 'roi_align_int8'
                                else 0)
+    nms = n * (1 if training or not postprocess else 2)
     return launch_counts(**{k1: sites * n, roi: align,
-                            'int8_conv': int8_convs * n, 'int_mm': int_mm})
+                            'int8_conv': int8_convs * n, 'int_mm': int_mm,
+                            'nms': nms})
 
 
 def _suffix(dtype):
@@ -1267,11 +1447,12 @@ def _suffix(dtype):
 
 
 def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
-                 pred=None, keep=None):
+                 pred=None, keep=None, nms_record=None):
     """n requests of `model` (serving_predictor's default: the main path;
     or of `pred`, a serving predictor built already), then request 0 again
     on the plain versions, held at `tol` (compare_paths); `keep` (a dict)
-    gets request 0's detections under 'dets'.  -> (launches, summary)."""
+    gets request 0's detections under 'dets', `nms_record` (a list) request
+    0's NMS arguments (`recorded_nms`).  -> (launches, summary)."""
     from dana_tpu_torch import quant
     from dana_tpu_torch.ops import nms
 
@@ -1284,9 +1465,11 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
     zero_launches()
     nms.HOST_SYNCS = 0
     outs, req_ms = [], []
-    for query, info, classes in requests:
+    for i, (query, info, classes) in enumerate(requests):
         t0 = time.perf_counter()
-        dets, valid = pred.predict(query, info, classes)
+        with recorded_nms(nms_record) if i == 0 and nms_record is not None \
+                else contextlib.nullcontext():
+            dets, valid = pred.predict(query, info, classes)
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((dets, valid))
@@ -1300,6 +1483,8 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
                          int8_convs=quant.count_int8(pred.model))
     if launches != want:
         fail(f'{label} launches {launches}, expected {want}')
+    if syncs:
+        fail(f'{label}: NMS synchronised the host {syncs} times')
     if keep is not None:
         keep['dets'] = outs[0]
 
@@ -1435,11 +1620,14 @@ def compare_step(params, config, seed, batch, record, metrics, grads,
     return diffs, worst
 
 
-def training_path(seed, model=None, label='main path', steps=None):
+def training_path(seed, model=None, label='main path', steps=None,
+                  nms_record=None):
     """`steps` SGD steps of the Trainer on `model`, a (config, params) pair
     (by default the main path's detector), then step 0 again on the plain
-    versions; -> (launches, summary)."""
+    versions; `nms_record` (a list) gets step 0's NMS arguments.
+    -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
+    from dana_tpu_torch.ops import nms
     from dana_tpu_torch.utils import config as cfg
 
     config, params = model or cfg.get_model('res50', way=2, shot=3,
@@ -1452,10 +1640,13 @@ def training_path(seed, model=None, label='main path', steps=None):
     torch.cuda.reset_peak_memory_stats()
 
     zero_launches()
+    nms.HOST_SYNCS = 0
     metrics, step_ms, record = [], [], {}
     for i, batch in enumerate(episodes):
         t0 = time.perf_counter()
-        with recorded_step(record) if i == 0 else contextlib.nullcontext():
+        with recorded_step(record) if i == 0 else contextlib.nullcontext(), \
+                recorded_nms(nms_record) if i == 0 and nms_record is not None \
+                else contextlib.nullcontext():
             m = trainer.step(batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1463,13 +1654,17 @@ def training_path(seed, model=None, label='main path', steps=None):
             grads0 = head_grads(trainer.model)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = read_launches()
+    syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{label} training: {steps} steps of {TRAIN_BATCH} x {QUERY_HW} '
           f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
-          f'GiB, launches {launches}, metrics {metrics}', flush=True)
+          f'GiB, launches {launches}, NMS host syncs {syncs}, metrics '
+          f'{metrics}', flush=True)
     want = want_launches(config, steps, training=True)
     if launches != want:
         fail(f'{label} training launches {launches}, expected {want}')
+    if syncs:
+        fail(f'{label}: NMS synchronised the host {syncs} times')
     for m in metrics:
         if not all(np.isfinite(m[k]) for k in (*LOSSES, 'loss')):
             fail(f'{label}: non-finite training loss: {m}')
@@ -1555,6 +1750,8 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path', int8_convs=0):
     if launches != want:
         fail(f'{label} launches {launches}, expected {want} for {chunks} '
              'chunks')
+    if syncs:
+        fail(f'{label}: NMS synchronised the host {syncs} times')
     n_det = []
     for i, entry in enumerate(roidb):
         d = all_boxes[int(entry['gt_classes'][0])][i]
@@ -1684,7 +1881,8 @@ def train_cli_path(seed, trainer_step_ms):
     print(f'training CLI path: {[e["steps"] for e in epochs]} steps '
           f'(straight epochs 1-2, resumed epoch 2), launches {launches}, '
           f'peak memory {peak:.2f} GiB', flush=True)
-    want = launch_counts(cisa_shots=3 * steps, roi_align_pw=steps)
+    want = launch_counts(cisa_shots=3 * steps, roi_align_pw=steps,
+                         nms=steps)
     if launches != want:
         fail(f'training CLI launches {launches}, expected {want} for '
              f'{steps} steps')
@@ -1805,7 +2003,8 @@ def framework_serving(name, config, params, seed):
         req_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = want_launches(config, FW_REQUESTS, training=False)
+    want = want_launches(config, FW_REQUESTS, training=False,
+                         postprocess=name != 'frcnn')
     if launches != want:
         fail(f'{name} serving launches {launches}, expected {want}')
     for out in outs:
@@ -1934,7 +2133,7 @@ def meta_cli_path(seed, card):
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
     epoch = trained['epochs'][0]
-    want = launch_counts(roi_align_pw=epoch['steps'])
+    want = launch_counts(roi_align_pw=epoch['steps'], nms=epoch['steps'])
     if train_launches != want:
         fail(f'meta training CLI launches {train_launches}, expected {want}')
     if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
@@ -1951,7 +2150,8 @@ def meta_cli_path(seed, card):
         serve_s = time.perf_counter() - t0
     serve_launches = read_launches()
     timing = result['timing']
-    want = launch_counts(roi_align_fwd=timing['chunks'])
+    want = launch_counts(roi_align_fwd=timing['chunks'],
+                         nms=2 * timing['chunks'])
     if serve_launches != want:
         fail(f'meta dataset CLI launches {serve_launches}, expected {want}')
     stats = [float(x) for x in result['stats']]
@@ -2351,7 +2551,8 @@ def multiway_path(seed, card, checkpath):
         main_s = time.perf_counter() - t0
         launches = read_launches()
         images = result['timing']['images']
-        want = launch_counts(cisa_shots=2 * images, roi_align_fwd=images)
+        want = launch_counts(cisa_shots=2 * images, roi_align_fwd=images,
+                             nms=2 * images)
         if launches != want:
             fail(f'{label} evaluation launches {launches}, expected {want}')
         stats = [float(x) for x in result['stats']]
@@ -2481,7 +2682,7 @@ def voc_cli_path(seed, card):
     train_launches = read_launches()
     epoch = trained['epochs'][0]
     want = launch_counts(cisa_shots=3 * epoch['steps'],
-                         roi_align_pw=epoch['steps'])
+                         roi_align_pw=epoch['steps'], nms=epoch['steps'])
     if train_launches != want:
         fail(f'VOC training CLI launches {train_launches}, expected {want}')
     if epoch['skipped'] or not np.isfinite(epoch['loss_curve']).all():
@@ -2503,7 +2704,8 @@ def voc_cli_path(seed, card):
         eval_s = time.perf_counter() - t0
         eval_launches = read_launches()
     chunks = result['timing']['chunks']
-    want = launch_counts(cisa_shots=2 * chunks, roi_align_fwd=chunks)
+    want = launch_counts(cisa_shots=2 * chunks, roi_align_fwd=chunks,
+                         nms=2 * chunks)
     if eval_launches != want:
         fail(f'VOC dataset CLI launches {eval_launches}, expected {want}')
     aps = list(result['ap'].values())
@@ -2694,21 +2896,23 @@ def compare_grid(pred, base, query, info, classes, label):
     return diffs
 
 
+def _by_device_wrappers():
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    return (('cisa_shots', cisa_attention.cisa_attention_shots),
+            ('roi_align_fwd', roi_align.roi_align),
+            ('roi_align_pw', roi_align.roi_align_pw),
+            ('nms', nms.nms_sorted))
+
+
 def _by_device():
-    """This process's launches of K1, K2 and K3 by (device, dtype)."""
-    from dana_tpu_torch.ops import cisa_attention, roi_align
+    """This process's launches of K1, K2, K3 and NMS by (device, dtype)."""
     return {name: {f'{d}/{t}': n for (d, t), n in
                    fn.launches_by_device.items()}
-            for name, fn in (('cisa_shots',
-                              cisa_attention.cisa_attention_shots),
-                             ('roi_align_fwd', roi_align.roi_align),
-                             ('roi_align_pw', roi_align.roi_align_pw))}
+            for name, fn in _by_device_wrappers()}
 
 
 def _clear_by_device():
-    from dana_tpu_torch.ops import cisa_attention, roi_align
-    for fn in (cisa_attention.cisa_attention_shots, roi_align.roi_align,
-               roi_align.roi_align_pw):
+    for _, fn in _by_device_wrappers():
         fn.launches_by_device.clear()
 
 
@@ -2749,12 +2953,14 @@ def grid_serving_path(seed, card):
                 for d in devs}
         rows = len(pred.rows)
         want = launch_counts(cisa_shots=2 * rows * REQUESTS,
-                             roi_align_fwd=rows * REQUESTS)
+                             roi_align_fwd=rows * REQUESTS,
+                             nms=2 * rows * REQUESTS)
         if launches != want:
             fail(f'{mode} launches {launches}, expected {want}')
         leads = [str(r.lead) for r in pred.rows]
         want_dev = {d: leads.count(d) * REQUESTS for d in set(leads)}
-        for name, per in (('cisa_shots', 2), ('roi_align_fwd', 1)):
+        for name, per in (('cisa_shots', 2), ('roi_align_fwd', 1),
+                          ('nms', 2)):
             got = {k.split('/')[0]: v for k, v in by_dev[name].items()}
             if got != {d: per * n for d, n in want_dev.items()}:
                 fail(f'{mode} {name} launches by device {got}, expected '
@@ -2892,11 +3098,11 @@ def dp_step_path(seed, card, tmp):
             k1 = 'cisa_shots' + ('' if f32 else '_bf16')
             roi = 'roi_align_pw' if f32 else 'roi_align_fwd_bf16'
             counts = got['launches']
-            if counts[k1] != 3 or counts[roi] != 1 or sum(
-                    v for k, v in counts.items()
-                    if not k.endswith('_by_device')) != 4:
-                fail(f'{label}: a rank launched {counts}; expected 3 {k1} '
-                     f'and 1 {roi}')
+            if counts[k1] != 3 or counts[roi] != 1 or counts['nms'] != 1 \
+                    or sum(v for k, v in counts.items()
+                           if not k.endswith('_by_device')) != 5:
+                fail(f'{label}: a rank launched {counts}; expected 3 {k1}, '
+                     f'1 {roi} and 1 nms')
         one_ms = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2907,8 +3113,8 @@ def dp_step_path(seed, card, tmp):
         one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         by_path[f'dp_{label}_training'] = launch_counts(**{
             k: sum(r['runs'][label]['launches'][k] for r in ranks)
-            for k in (('cisa_shots', 'roi_align_pw') if f32 else
-                      ('cisa_shots_bf16', 'roi_align_fwd_bf16'))})
+            for k in (('cisa_shots', 'roi_align_pw', 'nms') if f32 else
+                      ('cisa_shots_bf16', 'roi_align_fwd_bf16', 'nms'))})
         summary[label] = dict(
             step_ms=[r['runs'][label]['step_ms'] for r in ranks],
             one_process_step_ms=one_ms,
@@ -2975,9 +3181,9 @@ def dist_cli_path(seed, card, tmp):
     steps = train_counts[0]['steps']
     for c in train_counts:
         if c['steps'] != steps or c['launches'] != launch_counts(
-                cisa_shots=3 * steps, roi_align_pw=steps):
-            fail(f'--dist training rank: {c}, expected 3 K1 and 1 K3 for '
-                 f'each of {steps} steps')
+                cisa_shots=3 * steps, roi_align_pw=steps, nms=steps):
+            fail(f'--dist training rank: {c}, expected 3 K1, 1 K3 and 1 '
+                 f'NMS for each of {steps} steps')
     ckpts = [os.path.join(dp, f) for dp, _, fs in os.walk(save)
              for f in fs if f.endswith('.dkpt')]
     if len(ckpts) != 1:
@@ -3000,10 +3206,10 @@ def dist_cli_path(seed, card, tmp):
         hit = re.search(rf'^rank {r}: (\d+) of the chunks', o, re.M)
         chunks.append(int(hit.group(1)) if hit else None)
     for c, n in zip(eval_counts, chunks):
-        if n is None or c['launches'] != launch_counts(cisa_shots=2 * n,
-                                                       roi_align_fwd=n):
-            fail(f'--dist eval rank: {c}, expected 2 K1 and 1 K2 for each '
-                 f'of its {n} chunks')
+        if n is None or c['launches'] != launch_counts(
+                cisa_shots=2 * n, roi_align_fwd=n, nms=2 * n):
+            fail(f'--dist eval rank: {c}, expected 2 K1, 1 K2 and 2 NMS '
+                 f'for each of its {n} chunks')
     with open(os.path.join(one_dir, 'detections.pkl'), 'rb') as f:
         one = pickle.load(f)
     with open(os.path.join(pair_dir, 'detections.pkl'), 'rb') as f:
@@ -3236,6 +3442,276 @@ def int8_path(seed, card, f32_serving, f32_dets, recipe_serving, cli,
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 15
+
+# phase 15: an artifact's detections against the live predictor's on the
+# same features and queries, phase 4's tolerance (phase 10's in the recipe)
+EXPORT_TOL = {'float32': TOL, 'default_recipe': PATH_TOL_BF16,
+              'int8_tail': TOL, 'seed1': TOL, 'cpu_traced': TOL}
+
+
+def serve_child_main(job_path):
+    """Phase 15's serving process: imports `dana_tpu_torch.serve` and
+    never the model code, loads each job's artifact and weights (a state
+    dict saved by the parent), encodes the job's supports with the
+    artifact's encoder and serves its requests (each query's row of the
+    support features assembled from the parent's per-class features: its
+    class first), each once untimed, then again timed, counting the
+    kernels' launches and NMS's host syncs around the timed requests;
+    writes the results beside the job file."""
+    from dana_tpu_torch import serve
+    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    counters = {'cisa_shots': cisa_attention.cisa_attention_shots,
+                'roi_align_fwd': roi_align.roi_align,
+                'nms': nms.nms_sorted}
+    jobs = torch.load(job_path)
+    results, loaded = {}, {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job['dir'] not in loaded:
+            loaded[job['dir']] = serve.load(job['dir'])
+        pred = loaded[job['dir']]
+        load_s = time.perf_counter() - t0
+        params = torch.load(job['weights'], map_location=pred.device)
+        enc = pred.encode(params, job['sup'])
+        feats = {c: tuple(t.to(pred.device) for t in f)
+                 for c, f in job['class_feats'].items()}
+        reqs = []
+        for im, info, classes in job['requests']:
+            rows = [tuple(torch.cat([feats[c][j], *(feats[o][j]
+                                                    for o in feats
+                                                    if o != c)], 1)
+                          for j in range(2)) for c in classes]
+            reqs.append((im, info, torch.cat([r[0] for r in rows]),
+                         torch.cat([r[1] for r in rows])))
+        for req in reqs:                  # each program's first call, untimed
+            pred(params, *req)
+        sync = torch.cuda.synchronize if pred.device.type == 'cuda' \
+            else (lambda: None)
+        for fn in counters.values():
+            fn.launches = 0
+            fn.launches_bf16 = 0
+        nms.HOST_SYNCS = 0
+        outs, req_ms = [], []
+        for req in reqs:
+            sync()
+            t0 = time.perf_counter()
+            dets, valid = pred(params, *req)
+            sync()
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append((dets.cpu(), valid.cpu()))
+        launches = {}
+        for name, fn in counters.items():
+            launches[name] = fn.launches
+            launches[name + '_bf16'] = getattr(fn, 'launches_bf16', 0)
+        results[job['label']] = dict(
+            outs=outs, req_ms=req_ms, load_s=load_s, launches=launches,
+            host_syncs=nms.HOST_SYNCS, meta=pred.meta,
+            encoded=tuple(t.cpu() for t in enc))
+    results['models_imported'] = 'dana_tpu_torch.models' in sys.modules
+    torch.save(results, job_path + '.out')
+    print(json.dumps({'jobs': [j['label'] for j in jobs],
+                      'models_imported': results['models_imported']}),
+          flush=True)
+
+
+def serving_export_path(seed, card, f32_serving):
+    """Phase 15: phase 4's float32 DAnA exported at the five buckets
+    (dana_tpu_torch/serve.py), plus the default recipe, int8 'tail' and
+    the same detector traced on the CPU for the card, each at the first
+    bucket; every artifact served in one fresh process (`serve_child_main`)
+    against the live Predictor on the same supports (its per-class
+    features) and the same queries (phase 4's uint8 requests, mean
+    subtracted to float32 as the artifacts take them), a second seed's
+    weights through the first artifact.  Both sides time each request
+    after an untimed first call of its program.  -> ({path: launches},
+    summary)."""
+    from dana_tpu_torch import quant, serve
+    from dana_tpu_torch.models import dana
+    from dana_tpu_torch.utils import config as cfg
+    from dana_tpu_torch.utils.weights import from_jax_params
+    t_phase = time.perf_counter()
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    means = np.asarray(cfg.PIXEL_MEANS, np.float32)
+    rng = np.random.default_rng(seed)
+    sups = [rng.integers(0, 256, (config.n_shot, SUPPORT_HW, SUPPORT_HW,
+                                  3)).astype(np.float32) - means
+            for _ in range(2)]
+    sup6 = torch.from_numpy(np.concatenate(sups)[None])
+    main_reqs = [(torch.from_numpy(q.astype(np.float32) - means),
+                  torch.from_numpy(info), classes)
+                 for q, info, classes in serving_requests(seed, REQUESTS)]
+    qrng = np.random.default_rng(seed + 5)
+    other_reqs = [(torch.from_numpy(qrng.integers(
+        0, 256, (BATCH, h, w, 3)).astype(np.float32) - means),
+        torch.tensor([[h, w, 1.0]] * BATCH), [j % 2 for j in range(BATCH)])
+        for h, w in OTHER_BUCKETS]
+    summary, jobs, live = {}, [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def export(label, model, conf, buckets, **kw):
+            out_dir = os.path.join(tmp, label)
+            t0 = time.perf_counter()
+            meta = serve.export_predictor(model, conf, out_dir,
+                                          buckets=buckets, batch_size=BATCH,
+                                          sup_size=SUPPORT_HW, device=DEV,
+                                          **kw)
+            secs = time.perf_counter() - t0
+            sizes = {f: os.path.getsize(os.path.join(out_dir, f))
+                     for f in sorted(os.listdir(out_dir))}
+            wbytes = sum(v.numel() * v.element_size()
+                         for v in model.state_dict().values())
+            if max(sizes.values()) >= wbytes / 10:
+                fail(f'{label} artifact: a file of {max(sizes.values())} '
+                     f'bytes against {wbytes} bytes of weights')
+            summary[label] = dict(export_s=secs, bytes=sizes,
+                                  weights_bytes=wbytes,
+                                  quantized=meta['quantized'])
+            print(f'{label}: exported {len(buckets)} buckets and the encoder '
+                  f'in {secs:.1f} s: {sum(sizes.values())} bytes in all, '
+                  f'largest file {max(sizes.values())} against {wbytes} '
+                  f'bytes of weights', flush=True)
+            return out_dir, meta
+
+        def live_run(label, pred, reqs, weights_file, out_dir):
+            """The live Predictor's detections and times on `reqs`, and the
+            job that serves them from `out_dir` with the same features."""
+            class_feats = {c: tuple(t.cpu() for t in
+                                    pred.batch_support_feats([c]))
+                           for c in (0, 1)}
+            outs, req_ms = [], []
+            for req in reqs:              # each bucket's first call, untimed
+                pred.predict(*req)
+            for im, info, classes in reqs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets, valid = pred.predict(im, info, classes)
+                torch.cuda.synchronize()
+                req_ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append((dets.cpu(), valid.cpu()))
+            live[label] = dict(outs=outs, req_ms=req_ms, config=pred.config)
+            jobs.append(dict(label=label, dir=out_dir, weights=weights_file,
+                             sup=sup6, class_feats=class_feats,
+                             requests=reqs))
+
+        def weights(label, model):
+            path = os.path.join(tmp, f'{label}.weights.pt')
+            torch.save(model.state_dict(), path)
+            return path
+
+        model = from_jax_params(params, config).to(DEV)
+        f32_dir, _ = export('float32', model, config,
+                            (QUERY_HW, *OTHER_BUCKETS))
+        w0 = weights('float32', model)
+        pred = serving_predictor(seed, (config, model))
+        with torch.inference_mode():
+            enc_live = [t.cpu() for t in dana.extract_support_feats(
+                model, config, sup6.to(DEV))]
+        live_run('float32', pred, main_reqs + other_reqs, w0, f32_dir)
+
+        conf_r = _recipe(config, 'default_recipe')
+        rec_dir, _ = export('default_recipe', model, conf_r, (QUERY_HW,))
+        live_run('default_recipe', serving_predictor(seed, (conf_r, model)),
+                 main_reqs[:1], w0, rec_dir)
+
+        cpu_dir, _ = export('cpu_traced', from_jax_params(params, config),
+                            config, (QUERY_HW,), trace_device='cpu')
+        live_run('cpu_traced', pred, main_reqs[:1], w0, cpu_dir)
+        del pred
+
+        conf_q = dataclasses.replace(config, roi_align_int8=True)
+        model_q = from_jax_params(quant.quantize_params(params, 'tail'),
+                                  conf_q).to(DEV)
+        q_dir, meta_q = export('int8_tail', model_q, conf_q, (QUERY_HW,))
+        if not meta_q['quantized']:
+            fail('int8 tail artifact: meta.json says not quantized')
+        live_run('int8_tail', serving_predictor(seed, (conf_q, model_q)),
+                 main_reqs[:1], weights('int8_tail', model_q), q_dir)
+        del model_q
+
+        _, params1 = cfg.get_model('res50', way=2, shot=3, seed=seed + 1)
+        model1 = from_jax_params(params1, config).to(DEV)
+        live_run('seed1', serving_predictor(seed, (config, model1)),
+                 main_reqs[:1], weights('seed1', model1), f32_dir)
+        del model, model1
+        torch.cuda.empty_cache()
+
+        job_path = os.path.join(tmp, 'serve_jobs.pt')
+        torch.save(jobs, job_path)
+        t0 = time.perf_counter()
+        out = run_children([[sys.executable, os.path.abspath(__file__),
+                             '--serve_child', job_path]], tmp, 'serve')[0]
+        child_s = time.perf_counter() - t0
+        served = torch.load(job_path + '.out')
+    if served.pop('models_imported'):
+        fail('the serving process imported dana_tpu_torch.models')
+    by_path = {}
+    for label, res in served.items():
+        conf, want = live[label]['config'], live[label]['outs']
+        n = len(want)
+        k1 = 'cisa_shots' + _suffix(conf.attention_dt)
+        roi = 'roi_align_fwd' + _suffix(conf.compute_dtype)
+        expect = {k: 0 for k in res['launches']}
+        expect.update({k1: 2 * n, 'nms': 2 * n})
+        if not (conf.roi_align_int8 and conf.compute_dtype != torch.float32):
+            expect[roi] = n
+        if res['launches'] != expect or res['host_syncs']:
+            fail(f'{label} artifact served with launches {res["launches"]} '
+                 f'and {res["host_syncs"]} NMS host syncs, expected '
+                 f'{expect} and none')
+        by_path[f'export_{label}'] = launch_counts(**{
+            k: v for k, v in res['launches'].items() if v})
+        exact = True
+        for i, ((dk, vk), (dl, vl)) in enumerate(zip(res['outs'], want)):
+            exact &= torch.equal(dk, dl) and torch.equal(vk, vl)
+            if dk.shape != dl.shape or not torch.isfinite(dk).all() \
+                    or not torch.equal(vk.sum(1), vl.sum(1)):
+                fail(f'{label} artifact request {i}: {vk.sum(1).tolist()} '
+                     f'detections per image against the live predictor\'s '
+                     f'{vl.sum(1).tolist()}')
+            for j in range(len(dk)):
+                match_detections(dk[j][vk[j]].numpy(), dl[j][vl[j]].numpy(),
+                                 coord_atol=BOX_ATOL,
+                                 score_tol=EXPORT_TOL[label])
+        summary.setdefault(label, {}).update(
+            req_ms=res['req_ms'], live_req_ms=live[label]['req_ms'],
+            load_s=res['load_s'], launches=res['launches'],
+            bit_for_bit=bool(exact))
+        print(f'{label} artifact in a fresh process ({card}): '
+              f'{n} requests, ms per request {res["req_ms"]} (live predictor '
+              f'in this call: {live[label]["req_ms"]}), loaded in '
+              f'{res["load_s"]:.1f} s, launches {res["launches"]}, NMS host '
+              f'syncs 0; detections == live (tie-aware at '
+              f'{EXPORT_TOL[label]}), bit for bit: {exact}', flush=True)
+    # the program traced on the CPU for the card against the one traced on
+    # the card: request 0, the same weights and features
+    (dc, vc), (dk, vk) = (served[k]['outs'][0]
+                          for k in ('cpu_traced', 'float32'))
+    same = torch.equal(dc, dk) and torch.equal(vc, vk)
+    if not torch.equal(vc.sum(1), vk.sum(1)):
+        fail('the CPU-traced artifact keeps other detections than the '
+             'card-traced one')
+    for j in range(len(dc)):
+        match_detections(dc[j][vc[j]].numpy(), dk[j][vk[j]].numpy(),
+                         coord_atol=BOX_ATOL, score_tol=TOL)
+    summary['cpu_traced']['equals_card_traced_bit_for_bit'] = same
+    print(f'CPU-traced artifact == card-traced artifact on request 0 '
+          f'(tie-aware at {TOL}), bit for bit: {same}', flush=True)
+    enc = served['float32']['encoded']
+    enc_err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(enc, enc_live))
+    if enc_err > TOL:
+        fail(f'the encoder artifact differs from the live encoder by '
+             f'{enc_err:.3e}')
+    summary['encoder_max_abs_err'] = enc_err
+    summary['child_s'] = child_s
+    summary['phase_s'] = time.perf_counter() - t_phase
+    print(f'encoder artifact == live encoder within {enc_err:.3e}; the '
+          f'serving process took {child_s:.1f} s: {out.strip()}; phase 4 '
+          f'served its uint8 requests in {f32_serving["req_ms"]} ms',
+          flush=True)
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -3253,6 +3729,8 @@ def synth_root(tmp):
 def main():
     if sys.argv[1:2] == ['--cli_rank']:
         return cli_rank_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ['--serve_child']:
+        return serve_child_main(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--parallel_only', action='store_true',
@@ -3328,11 +3806,20 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 4: the serving path
-    f32_dets = {}
-    serving_launches, serving = serving_path(args.seed, keep=f32_dets)
+    f32_dets, serve_nms, train_nms = {}, [], []
+    serving_launches, serving = serving_path(args.seed, keep=f32_dets,
+                                             nms_record=serve_nms)
     torch.cuda.empty_cache()
     # phase 5: the training path
-    training_launches, training = training_path(args.seed)
+    training_launches, training = training_path(args.seed,
+                                                nms_record=train_nms)
+    torch.cuda.empty_cache()
+    # phase 3's NMS kernel, at the sites phases 4 and 5 gave it
+    with torch.inference_mode():
+        nms_sites, nms_err = check_nms({'serving proposals': serve_nms[0],
+                                        'postprocess': serve_nms[1],
+                                        'training proposals': train_nms[0]})
+    del serve_nms, train_nms
     torch.cuda.empty_cache()
     # phases 7, then 6 on its checkpoint: the training CLI and the dataset
     # CLI, on synth sets written into a temporary DANA_SYNTH_ROOT
@@ -3399,6 +3886,10 @@ def main():
             precision['default_recipe'], cli, ckpt)
         print(f'phase 14 took {int8["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+    # phase 15: serving export
+    export_launches, export = serving_export_path(args.seed, card, serving)
+    print(f'phase 15 took {export["phase_s"]:.1f} s; the run '
+          f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
 
     by_path = {'serving': serving_launches, 'training': training_launches,
                'cli': cli_launches, 'train_cli': train_cli_launches,
@@ -3406,7 +3897,7 @@ def main():
                **slice9_cli_launches, **precision_launches,
                'recipe_cli': recipe_cli_launches, **bf16_train_launches,
                **recipe_train_cli_launches, **slice14_launches,
-               **parallel_launches, **int8_launches}
+               **parallel_launches, **int8_launches, **export_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -3424,6 +3915,7 @@ def main():
                       'slice14_summary': slice14,
                       'parallel_summary': parallel,
                       'int8_summary': int8,
+                      'export_summary': export,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'combine_backward': combine_backward,
@@ -3433,6 +3925,7 @@ def main():
                                        'cisa_attention': {'main': k4},
                                        'buckets': buckets,
                                        'widths': widths,
+                                       'nms': nms_sites,
                                        'bf16': {'cisa': k1b_sites,
                                                 'roi_align_fwd':
                                                     k2b_sites}}}),
@@ -3471,6 +3964,10 @@ def main():
             'dana_tpu_torch/ops/csrc/cisa_shots_bf16.cu',
             'dana_tpu/ops/cisa_attention.py:65', k1b_errs['single'],
             {'main': k1b_sites['single']}),
+        # replaces no Pallas kernel: the XLA NMS of nms_fixed_tiled
+        row('nms', 'dana_tpu_torch/ops/csrc/nms.cu',
+            'dana_tpu/ops/nms.py:116', nms_err,
+            nms_sites),
     ]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

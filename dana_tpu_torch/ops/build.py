@@ -17,7 +17,7 @@ import os
 import subprocess
 import time
 
-KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align')
+KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align', 'nms')
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.environ.get('DANA_BUILD_DIR') or os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), '_build')

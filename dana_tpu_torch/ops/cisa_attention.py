@@ -19,10 +19,14 @@ wrapper counts its float32 launches in `launches` and its bfloat16 ones
 in `launches_bf16`, one a call, and both in `launches_by_device`, keyed
 by (device, dtype name).
 
-Both are differentiable.  As in the JAX package, whose custom VJPs
-recompute the attention in plain XLA math, the backward recomputes the
-plain version under autograd and returns its vector-Jacobian product for
-q, k, v and u: the kernel serves the forward only.
+Both enter through one registered op, `dana_torch::cisa_shots`
+(`cisa_shots_op`), with a fake implementation, so a traced or exported
+program holds the kernel as one call; the op's CUDA implementation
+launches and counts.  Both are differentiable.  As in the JAX package,
+whose custom VJPs recompute the attention in plain XLA math, the backward
+recomputes the plain version under autograd and returns its
+vector-Jacobian product for q, k, v and u: the kernel serves the forward
+only.
 """
 
 from __future__ import annotations
@@ -334,33 +338,45 @@ def _count(wrapper, device, dtype):
     wrapper.launches_by_device[(str(device), str(dtype)[6:])] += 1
 
 
-def _shots_forward(q, k, v, unary_sm, scale, gamma):
-    if q.device.type == 'cpu':
-        return cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma)
-    out = _launch(q, k, v, unary_sm, scale, gamma)
-    _count(cisa_attention_shots, q.device, q.dtype)
-    return out
-
-
-def _single_forward(q, k1, v1, unary_sm, scale, gamma):
-    """cisa_attention's forward on the S = 1 views k1 [G,1,Ns,D], v1."""
-    if q.device.type == 'cpu':
-        return cisa_attention_plain(q, k1[:, 0], v1[:, 0], unary_sm, scale,
+@torch.library.custom_op('dana_torch::cisa_shots', mutates_args=())
+def cisa_shots_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  unary_sm: torch.Tensor, scale: float, gamma: float,
+                  single: bool) -> torch.Tensor:
+    """The kernels' forward as one registered op: q [G,Nq,D], k
+    [G,S,Ns,D], v [G,S,Ns,C], unary_sm [G,S,Ns] -> [G,Nq,C] in q's dtype.
+    CPU tensors: the plain version (`cisa_attention_plain` on the S = 1
+    views when `single`, else `cisa_attention_shots_plain`); CUDA tensors:
+    the kernel of q's dtype, one launch counted on `cisa_attention` when
+    `single`, else on `cisa_attention_shots`."""
+    if single:
+        return cisa_attention_plain(q, k[:, 0], v[:, 0], unary_sm, scale,
                                     gamma)
-    out = _launch(q, k1, v1, unary_sm, scale, gamma)
-    _count(cisa_attention, q.device, q.dtype)
+    return cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma)
+
+
+@cisa_shots_op.register_fake
+def _(q, k, v, unary_sm, scale, gamma, single):
+    return q.new_empty(q.shape[0], q.shape[1], v.shape[-1])
+
+
+@cisa_shots_op.register_kernel('cuda')
+def _(q, k, v, unary_sm, scale, gamma, single):
+    out = _launch(q, k, v, unary_sm, scale, gamma)
+    _count(cisa_attention if single else cisa_attention_shots, q.device,
+           q.dtype)
     return out
 
 
 class _CisaShots(torch.autograd.Function):
-    """forward: `fwd` (a kernel launch or, on the CPU, a plain version);
-    backward: the VJP of cisa_attention_shots_plain, recomputed."""
+    """forward: `cisa_shots_op` (a kernel launch or, on the CPU, a plain
+    version); backward: the VJP of cisa_attention_shots_plain,
+    recomputed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, unary_sm, scale, gamma, fwd):
+    def forward(ctx, q, k, v, unary_sm, scale, gamma, single):
         ctx.save_for_backward(q, k, v, unary_sm)
         ctx.scale, ctx.gamma = scale, gamma
-        return fwd(q, k, v, unary_sm, scale, gamma)
+        return cisa_shots_op(q, k, v, unary_sm, scale, gamma, single)
 
     @staticmethod
     def backward(ctx, grad):
@@ -375,11 +391,26 @@ class _CisaShots(torch.autograd.Function):
                 None)
 
 
+def _apply(q, k, v, unary_sm, scale, gamma, single):
+    """The op, under `_CisaShots` where a gradient is wanted (a traced
+    serving program holds the bare op).  Tensors on a device that is
+    neither the CPU nor a CUDA card are refused, never faked."""
+    ts = (q, k, v, unary_sm)
+    if any(t.device.type not in ('cpu', 'cuda') for t in ts):
+        raise ValueError('cisa_attention_shots: inputs must be CPU or CUDA '
+                         f'tensors (got {[str(t.device) for t in ts]})')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _CisaShots.apply(q, k, v, unary_sm, float(scale),
+                                float(gamma), single)
+    return cisa_shots_op(q, k, v, unary_sm, float(scale), float(gamma),
+                         single)
+
+
 def cisa_attention_shots(q, k, v, unary_sm, scale, gamma):
     """The shot-fused CISA core: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; differentiable in q, k, v and unary_sm.  Same
     arguments as `cisa_attention_shots_plain`."""
-    return _CisaShots.apply(q, k, v, unary_sm, scale, gamma, _shots_forward)
+    return _apply(q, k, v, unary_sm, scale, gamma, False)
 
 
 def cisa_attention(q, k, v, unary_sm, scale, gamma):
@@ -389,8 +420,7 @@ def cisa_attention(q, k, v, unary_sm, scale, gamma):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or unary_sm.dim() != 3:
         raise ValueError('cisa_attention: q, k, v and unary_sm are '
                          '[G,Nq,D], [G,Ns,D], [G,Ns,C], [G,1,Ns]')
-    return _CisaShots.apply(q, k[:, None], v[:, None], unary_sm, scale,
-                            gamma, _single_forward)
+    return _apply(q, k[:, None], v[:, None], unary_sm, scale, gamma, True)
 
 
 cisa_attention_shots.launches = cisa_attention_shots.launches_bf16 = 0

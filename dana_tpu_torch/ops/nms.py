@@ -1,27 +1,40 @@
-"""Fixed-slot greedy NMS in plain PyTorch (port of dana_tpu/ops/nms.py).
+"""Fixed-slot greedy NMS (port of dana_tpu/ops/nms.py).
 
-Both functions give exact greedy NMS over a stable descending score sort
-and return fixed output slots plus a mask, batched over a leading image
-axis.  A box is suppressed by a kept higher-scored box when their IoU
-(+1 convention) is strictly greater than the threshold.
+Both public functions give exact greedy NMS over a stable descending score
+sort and return fixed output slots plus a mask, batched over a leading
+image axis.  A box is suppressed by a kept higher-scored box when their
+IoU (+1 convention) is strictly greater than the threshold, compared in
+float32.
 
-The scan walks score-sorted boxes in tiles: each tile is suppressed by
-the boxes already kept, then within itself by the fixed point of
-keep <- live & ~any(M & keep), M the strictly-lower-triangular overlap
-mask of the tile.  That fixed point is unique and equals the greedy
-result; Jacobi iteration from `live` reaches it within the tile length.
-The scan stops once every image has `max_output` boxes.
+The sort runs here, the same call on every device; the greedy walk over
+the sorted boxes is one registered op, `dana_torch::nms_sorted`
+(`nms_sorted`), with a fake implementation, so a traced or exported
+program holds it as one call.  On CUDA tensors it launches the hand
+kernel `csrc/nms.cu` (a suppression bitmask, then a walk per image, no
+host synchronisation) and counts the launch in `nms_sorted.launches` and
+`nms_sorted.launches_by_device`; on CPU tensors it runs the plain version,
+`nms_sorted_plain`.
 
-The data-dependent loop ends cost host synchronisations: one per tile
-(all images full?) and one per nine fixed-point steps (converged?).
-`HOST_SYNCS` counts them.  No kernel is written for NMS yet.
+The plain version walks the sorted boxes in tiles: each tile is
+suppressed by the boxes already kept, then within itself by the fixed
+point of keep <- live & ~any(M & keep), M the strictly-lower-triangular
+overlap mask of the tile.  That fixed point is unique and equals the
+greedy result; Jacobi iteration from `live` reaches it within the tile
+length.  The scan stops once every image has `max_output` boxes.  Its
+data-dependent loop ends cost host synchronisations, one per tile (all
+images full?) and one per nine fixed-point steps (converged?), which
+`HOST_SYNCS` counts; the kernel costs none.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
+
 import torch
 
 from dana_tpu_torch.core.boxes import iou_matrix
+from dana_tpu_torch.ops import build
 
 HOST_SYNCS = 0
 _UNROLL = 9     # odd: the update is antitone, so orbits have period <= 2
@@ -46,9 +59,10 @@ def _fixed_point(mask, live):
     return keep
 
 
-def _greedy_sorted(sboxes, svalid, iou_threshold, max_output, tile):
-    """Greedy NMS over score-sorted boxes [B,N,4] with validity [B,N].
-    -> (positions [B,M] into the sorted axis, mask [B,M])."""
+def nms_sorted_plain(sboxes, svalid, iou_threshold, max_output, tile):
+    """Greedy NMS over score-sorted boxes [B,N,4] with validity [B,N], on
+    any device, in tiles of `tile` boxes.
+    -> (positions [B,M] int64 into the sorted axis, mask [B,M] bool)."""
     b, n = svalid.shape
     dev = sboxes.device
     pad = (-n) % tile
@@ -81,7 +95,84 @@ def _greedy_sorted(sboxes, svalid, iou_threshold, max_output, tile):
     return torch.where(out_mask, kept_pos[:, :m], 0), out_mask
 
 
+@torch.library.custom_op('dana_torch::nms_sorted', mutates_args=())
+def nms_sorted(sboxes: torch.Tensor, svalid: torch.Tensor,
+               iou_threshold: float, max_output: int,
+               tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over score-sorted boxes [B,N,4] float32 with validity
+    [B,N] bool -> (positions [B,M] int64 into the sorted axis, mask [B,M]
+    bool; padded slots 0 and False).  CPU tensors: `nms_sorted_plain` in
+    tiles of `tile`; CUDA tensors: the kernel, which ignores `tile`."""
+    return nms_sorted_plain(sboxes, svalid, iou_threshold, max_output, tile)
+
+
+@nms_sorted.register_fake
+def _(sboxes, svalid, iou_threshold, max_output, tile):
+    b = svalid.shape[0]
+    return (svalid.new_empty(b, max_output, dtype=torch.long),
+            svalid.new_empty(b, max_output, dtype=torch.bool))
+
+
+def _lib():
+    lib = build.load('nms')
+    if lib.nms_sorted_f32.argtypes is None:
+        lib.nms_sorted_f32.argtypes = ([ctypes.c_void_p] * 5
+                                       + [ctypes.c_int] * 3
+                                       + [ctypes.c_float, ctypes.c_void_p])
+        lib.nms_sorted_f32.restype = ctypes.c_int
+        lib.nms_sorted_max_boxes.restype = ctypes.c_int
+    return lib
+
+
+@nms_sorted.register_kernel('cuda')
+def _(sboxes, svalid, iou_threshold, max_output, tile):
+    if sboxes.device != svalid.device:
+        raise ValueError('nms_sorted: boxes and validity must be on one '
+                         f'device (got {sboxes.device}, {svalid.device})')
+    if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool:
+        raise TypeError('nms_sorted kernel takes float32 boxes and bool '
+                        f'validity (got {sboxes.dtype}, {svalid.dtype})')
+    b, n = svalid.shape
+    if sboxes.shape != (b, n, 4):
+        raise ValueError(f'nms_sorted: boxes {tuple(sboxes.shape)} do not '
+                         f'match validity {tuple(svalid.shape)}')
+    if not (sboxes.is_contiguous() and svalid.is_contiguous()) \
+            or sboxes.data_ptr() % 16:
+        raise ValueError('nms_sorted kernel reads contiguous boxes as '
+                         '16-byte float4 rows')
+    dev = sboxes.device
+    if b == 0 or n == 0 or max_output == 0:
+        return (torch.zeros(b, max_output, dtype=torch.long, device=dev),
+                torch.zeros(b, max_output, dtype=torch.bool, device=dev))
+    lib = _lib()
+    if n > lib.nms_sorted_max_boxes():
+        raise ValueError(f'nms_sorted kernel takes at most '
+                         f'{lib.nms_sorted_max_boxes()} boxes (got {n})')
+    # the kernel writes every slot of pos and keep, and reads only the
+    # words of the bitmask it wrote
+    pos = torch.empty(b, max_output, dtype=torch.long, device=dev)
+    keep = torch.empty(b, max_output, dtype=torch.bool, device=dev)
+    mask = torch.empty(b, n, -(-n // 64), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.nms_sorted_f32(
+            sboxes.data_ptr(), svalid.data_ptr(), mask.data_ptr(),
+            pos.data_ptr(), keep.data_ptr(), b, n, max_output,
+            float(iou_threshold),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, 'nms_sorted')
+    nms_sorted.launches += 1
+    nms_sorted.launches_by_device[(str(dev), 'float32')] += 1
+    return pos, keep
+
+
+nms_sorted.launches = 0
+nms_sorted.launches_by_device = collections.Counter()
+
+
 def _nms(boxes, scores, iou_threshold, max_output, valid, tile):
+    if boxes.device.type not in ('cpu', 'cuda'):
+        raise ValueError('nms: boxes must be CPU or CUDA tensors (got '
+                         f'{boxes.device})')
     single = boxes.dim() == 2
     if single:
         boxes, scores = boxes[None], scores[None]
@@ -93,17 +184,22 @@ def _nms(boxes, scores, iou_threshold, max_output, valid, tile):
     svalid = (torch.isfinite(s_sorted) if valid is not None
               else torch.ones_like(s_sorted, dtype=torch.bool))
     sboxes = boxes.gather(1, order[..., None].expand(-1, -1, 4))
-    pos, mask = _greedy_sorted(sboxes, svalid, iou_threshold, max_output,
-                               tile or boxes.shape[1])
+    pos, mask = greedy_sorted(sboxes, svalid, float(iou_threshold),
+                              max_output, tile or boxes.shape[1])
     idx = torch.where(mask, order.gather(1, pos), 0)
     if single:
         return idx[0], mask[0]
     return idx, mask
 
 
+# the greedy walk `_nms` calls: the registered op (chip_smoke.py routes its
+# plain comparison path through `nms_sorted_plain` here)
+greedy_sorted = nms_sorted
+
+
 def nms_fixed(boxes, scores, iou_threshold, max_output: int, valid=None):
-    """Greedy NMS, the whole candidate set as one tile (the detection
-    postprocess: at most a few hundred boxes).
+    """Greedy NMS, the whole candidate set as one tile of the plain version
+    (the detection postprocess: at most a few hundred boxes).
 
     boxes [(B,) N, 4], scores [(B,) N], valid optional [(B,) N] bool.
     -> (indices [(B,) max_output] int64 into the inputs, score-descending;
@@ -113,6 +209,7 @@ def nms_fixed(boxes, scores, iou_threshold, max_output: int, valid=None):
 
 def nms_fixed_tiled(boxes, scores, iou_threshold, max_output: int,
                     valid=None, tile: int = 512):
-    """The same result as nms_fixed, scanned in tiles of `tile` boxes with
-    an early exit (the proposal layer: thousands of candidates)."""
+    """The same result as nms_fixed, the plain version scanning tiles of
+    `tile` boxes with an early exit (the proposal layer: thousands of
+    candidates).  The kernel ignores `tile`."""
     return _nms(boxes, scores, iou_threshold, max_output, valid, tile)

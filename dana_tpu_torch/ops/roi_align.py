@@ -11,9 +11,12 @@ adaptive sample count by floor plus exact-product correction, capped at
 `max_samples`, and the clamp rules of the reference CUDA kernel).
 
 Two entries, each a hand-written kernel for CUDA tensors and its plain
-version for CPU tensors.  Their float32 kernels are in `csrc/roi_align.cu`
-and share one body that pools a row of bins (b, r, ph) from its kept taps;
-they differ in where the taps come from:
+version for CPU tensors; `roi_align` enters through one registered op,
+`dana_torch::roi_align` (`roi_align_op`), with a fake implementation, so
+a traced or exported serving program holds the kernel as one call.  Their
+float32 kernels are in `csrc/roi_align.cu` and share one body that pools
+a row of bins (b, r, ph) from its kept taps; they differ in where the
+taps come from:
   * `roi_align` (serving): the kernel builds Wy / Wx from the rois; plain
     twin `roi_align_plain`.
   * `roi_align_pw` (training): the kernel takes precomputed Wy / Wx; plain
@@ -299,15 +302,24 @@ def _check_body(name, feat, p):
     return lib
 
 
-def roi_align(feat, rois, output_size: int = 7,
-              spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
-    """RoIAlign forward: the CUDA kernel of feat's dtype for CUDA tensors
-    (float32 feat with float32 rois; bf16 feat with float32 or bf16 rois,
-    read as float32), the plain version for CPU tensors.  Same arguments
-    as `roi_align_plain`."""
-    if feat.device.type == 'cpu':
-        return roi_align_plain(feat, rois, output_size, spatial_scale,
-                               max_samples)
+@torch.library.custom_op('dana_torch::roi_align', mutates_args=())
+def roi_align_op(feat: torch.Tensor, rois: torch.Tensor, output_size: int,
+                 spatial_scale: float, max_samples: int) -> torch.Tensor:
+    """`roi_align` as one registered op: CPU tensors run `roi_align_plain`,
+    CUDA tensors the kernel of feat's dtype, one launch counted on
+    `roi_align`."""
+    return roi_align_plain(feat, rois, output_size, spatial_scale,
+                           max_samples)
+
+
+@roi_align_op.register_fake
+def _(feat, rois, output_size, spatial_scale, max_samples):
+    return feat.new_empty(feat.shape[0], rois.shape[1], output_size,
+                          output_size, feat.shape[-1])
+
+
+@roi_align_op.register_kernel('cuda')
+def _(feat, rois, output_size, spatial_scale, max_samples):
     if feat.device.type != 'cuda' or rois.device != feat.device:
         raise ValueError('roi_align: feat and rois must be on one CUDA '
                          f'device (got {feat.device}, {rois.device})')
@@ -345,6 +357,21 @@ def roi_align(feat, rois, output_size: int = 7,
     roi_align.launches_by_device[(str(feat.device), str(feat.dtype)[6:])] \
         += 1
     return out
+
+
+def roi_align(feat, rois, output_size: int = 7,
+              spatial_scale: float = 1.0 / 16.0, max_samples: int = 16):
+    """RoIAlign forward through `roi_align_op`: the CUDA kernel of feat's
+    dtype for CUDA tensors (float32 feat with float32 rois; bf16 feat with
+    float32 or bf16 rois, read as float32), the plain version for CPU
+    tensors; tensors on another device are refused.  Same arguments as
+    `roi_align_plain`."""
+    if feat.device.type not in ('cpu', 'cuda') \
+            or rois.device.type not in ('cpu', 'cuda'):
+        raise ValueError('roi_align: feat and rois must be CPU or CUDA '
+                         f'tensors (got {feat.device}, {rois.device})')
+    return roi_align_op(feat, rois, int(output_size), float(spatial_scale),
+                        int(max_samples))
 
 
 roi_align.launches = roi_align.launches_bf16 = 0

@@ -501,14 +501,15 @@ def test_roi_align_train_bf16_grad_matches_plain_autograd(dev):
 @pytest.mark.parametrize('recipe', ['default_recipe', 'pure_bf16'])
 def test_recipe_training_step_launches(dev, recipe):
     """One Trainer.step of chip_smoke.py phase 11's detector in the recipe:
-    3 bf16 K1 and 1 bf16 K2 launches and no float32 kernel, and step 0
-    agrees with the plain versions (chip_smoke.py's bf16 tolerances)."""
+    3 bf16 K1, 1 bf16 K2 and 1 NMS launches and no float32 kernel, and
+    step 0 agrees with the plain versions (chip_smoke.py's bf16
+    tolerances)."""
     from dana_tpu_torch.utils import config as cfg
     config, params = cfg.get_model('res50', way=2, shot=3, seed=0)
     model = (chip_smoke._recipe(config, recipe), params)
     launches, _ = chip_smoke.training_path(0, model, recipe, steps=1)
     assert launches == chip_smoke.launch_counts(cisa_shots_bf16=3,
-                                                roi_align_fwd_bf16=1)
+                                                roi_align_fwd_bf16=1, nms=1)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -645,3 +646,98 @@ def test_int8_matmul_refuses_short_products(dev):
     a = torch.ones(16, 8, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match='more than 16 rows'):
         L.int8_matmul(a, a.t())
+
+
+# the NMS sites of the main paths: (B, N, M, IoU threshold)
+NMS_SHAPES = {'serving': (8, 6000, 300, 0.7),
+              'postprocess': (8, 300, 100, 0.3),
+              'training': (4, 12000, 2000, 0.7)}
+
+
+def _rpn_like_boxes(b, n, gen, d):
+    """Score-sorted proposal-like boxes on a 608x1024 canvas: many
+    overlapping clusters, so suppression chains run deep."""
+    ctr = torch.rand(b, n, 2, device=d, generator=gen) * torch.tensor(
+        [1024.0, 608.0], device=d)
+    ctr = torch.round(ctr / 64) * 64 + torch.randn(
+        b, n, 2, device=d, generator=gen) * 6
+    wh = torch.exp(torch.rand(b, n, 2, device=d, generator=gen) * 3) * 16
+    return torch.cat([ctr - wh / 2, ctr + wh / 2], -1).contiguous()
+
+
+@pytest.mark.parametrize('site', NMS_SHAPES)
+def test_nms_kernel_matches_plain(dev, site):
+    """The NMS kernel against its plain version at the main paths' shapes,
+    on proposal-like boxes and on chip_smoke.py's adversarial cases:
+    positions and masks equal, one launch counted per call."""
+    from dana_tpu_torch.ops import nms
+    b, n, m, thr = NMS_SHAPES[site]
+    gen = torch.Generator(device=dev).manual_seed(n)
+    sb = _rpn_like_boxes(b, n, gen, dev)
+    sv = torch.rand(b, n, device=dev, generator=gen) > (
+        0.3 if site == 'postprocess' else 0.0)
+    cases = {'site': (sb, sv, m), **chip_smoke.nms_cases(sb, sv, thr, m)}
+    for name, (b_, v_, m_) in cases.items():
+        before = nms.nms_sorted.launches
+        got = nms.nms_sorted(b_, v_, thr, m_, 512)
+        assert nms.nms_sorted.launches == before + 1
+        want = nms.nms_sorted_plain(b_, v_, thr, m_, 512)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            name
+    assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+
+
+def test_custom_ops_opcheck_on_the_card(dev):
+    from dana_tpu_torch.ops import nms
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sb = _rpn_like_boxes(2, 300, gen, dev)
+    sv = torch.rand(2, 300, device=dev, generator=gen) > 0.2
+    torch.library.opcheck(nms.nms_sorted, (sb, sv, 0.7, 50, 512))
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 100, 256, device=dev, generator=gen).to(dt)
+        k = torch.randn(2, 3, 57, 256, device=dev, generator=gen).to(dt)
+        v = torch.randn(2, 3, 57, 1024, device=dev, generator=gen).to(dt)
+        u = torch.softmax(torch.randn(2, 3, 57, device=dev, generator=gen),
+                          -1).to(dt)
+        torch.library.opcheck(ca.cisa_shots_op, (q, k, v, u, 0.0625, 0.1,
+                                                 False))
+        feat = torch.randn(2, 38, 64, 1024, device=dev, generator=gen).to(dt)
+        rois = chip_smoke.serving_rois(2, 40, gen, dev)
+        torch.library.opcheck(ra.roi_align_op, (feat, rois, 7, 1 / 16, 16))
+
+
+def test_export_round_trip_on_the_card(dev, tmp_path):
+    """A tiny DAnA exported on the card (dana_tpu_torch/serve.py) launches
+    K1, K2 and NMS from the artifact, and equals the live model bit for
+    bit."""
+    from dana_tpu_torch import serve
+    from dana_tpu_torch.engine.postprocess import postprocess_batch
+    from dana_tpu_torch.models import dana
+    from dana_tpu_torch.ops import nms
+    from dana_tpu_torch.utils.weights import from_jax_params
+    config = dana.DanaConfig(n_way=2, n_shot=1, test_pre_nms=300,
+                             test_post_nms=50)
+    model = from_jax_params(dana.init_params(config, seed=0), config).to(dev)
+    out = str(tmp_path / 'artifact')
+    serve.export_predictor(model, config, out, buckets=((256, 320),),
+                           batch_size=2, sup_size=224, device=dev)
+    pred = serve.load(out)
+    assert pred.device.type == 'cuda'
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sup = torch.randn(1, 2, 224, 224, 3, device=dev, generator=gen) * 50
+    im = torch.randn(2, 256, 320, 3, device=dev, generator=gen) * 40
+    info = torch.tensor([[256.0, 320.0, 1.0]] * 2, device=dev)
+    params = model.state_dict()
+    counters = (ca.cisa_attention_shots, ra.roi_align, nms.nms_sorted)
+    before = [c.launches for c in counters]
+    feats = pred.encode(params, sup)
+    rows = tuple(torch.cat([f, f]) for f in feats)
+    got = pred(params, im, info, *rows)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 2]
+    with torch.inference_mode():
+        live = dana.extract_support_feats(model, config, sup)
+        o = dana.forward(model, config, im, info, support_feats=rows)
+        want = postprocess_batch(o['rois'], o['cls_prob'], o['bbox_pred'],
+                                 info)
+    assert all(torch.equal(a, b) for a, b in zip(feats, live))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -4,7 +4,7 @@
     python3 tools/profile_torch_predict.py [--seed 0] [--iters 10]
         [--net DAnA|cisa|frcnn|fsod|meta|fgn] [--backbone res50|res101|vgg16]
         [--set POOLING_MODE pool|crop ...]
-        [--trace .scratch/profile_torch_predict.trace.json]
+        [--trace .scratch/profile_torch_predict.trace.json] [--export]
 
 Builds the predictor that chip_smoke.py drives (DAnA ResNet-50 2-way
 3-shot, random weights from --seed, two classes' 320px supports encoded
@@ -24,6 +24,16 @@ through ctypes; a stage's host time includes any wait on the card.  Also
 printed: the kernels with the most device time, the device's idle share
 and the bytes of each kind of device copy.  The last line is one JSON
 object with the per-request numbers.
+
+With --export (DAnA and cisa), the same request is also served from an
+artifact of dana_tpu_torch/serve.py, exported in this process at the
+query's bucket with the weights as its argument, and profiled after the
+live predictor (trace: --trace with `.artifact` before its extension).
+Both sides take the query float32 and mean subtracted, as chip_smoke.py
+phase 15 serves it, and the artifact the request's support rows
+assembled beforehand (an exported program keeps no `dana.*` range of its
+own: its request is the one range `dana.request`).  Also printed: the
+kernels whose device time per request differs most between the two.
 """
 
 from __future__ import annotations
@@ -150,7 +160,48 @@ def profile(run, iters, trace, card, unit='request'):
             'wall_ms': statistics.median(walls),
             'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
             'idle_share': 1 - busy / traced_wall,
-            'copy_bytes': copy_bytes(trace, iters)}
+            'copy_bytes': copy_bytes(trace, iters), 'kernels': kernels}
+
+
+def artifact_call(live, model, query, info, classes, out_dir, sup_size):
+    """-> a function serving the request of `live.predict(query, info,
+    classes)` from an artifact of `model`, a (config, params) pair,
+    exported into `out_dir` at the query's bucket."""
+    from dana_tpu_torch import serve
+    from dana_tpu_torch.utils.weights import from_jax_params
+    config, params = model
+    net = from_jax_params(params, config).cuda()
+    t0 = time.perf_counter()
+    serve.export_predictor(net, config, out_dir, buckets=(query.shape[1:3],),
+                           batch_size=len(query), sup_size=sup_size)
+    print(f'exported in {time.perf_counter() - t0:.1f} s', flush=True)
+    art = serve.load(out_dir)
+    weights = art.weights(net.state_dict())
+    # each query's row holds every class's supports, its own class first,
+    # as chip_smoke.py phase 15 assembles them
+    feats = {c: live.batch_support_feats([c])
+             for c in range(config.n_way)}
+    rows = [[torch.cat([feats[c][j], *(feats[o][j] for o in feats
+                                       if o != c)], 1) for j in range(2)]
+            for c in classes]
+    feat, pooled = (torch.cat([r[j] for r in rows]) for j in range(2))
+
+    def request():
+        with torch.profiler.record_function('dana.request'):
+            return art(weights, query, info, feat, pooled)
+    return request
+
+
+def kernel_diff(live, art, n=15):
+    """Print the `n` kernels whose device ms per request differ most
+    between the live predictor and the artifact."""
+    print(f'{"live ms":>9s} {"calls":>6s} {"artifact ms":>11s} {"calls":>6s}'
+          '  kernel', flush=True)
+    none = (0.0, 0)
+    for k in sorted(set(live) | set(art), key=lambda k: -abs(
+            art.get(k, none)[0] - live.get(k, none)[0]))[:n]:
+        (a, ca), (b, cb) = live.get(k, none), art.get(k, none)
+        print(f'{a:9.3f} {ca:6g} {b:11.3f} {cb:6g}  {k[:80]}', flush=True)
 
 
 def model_for(net, backbone, overrides, seed, serving=True):
@@ -213,6 +264,9 @@ def main():
     add_model_args(ap)
     ap.add_argument('--trace', default=os.path.join(
         REPO, '.scratch', 'profile_torch_predict.trace.json'))
+    ap.add_argument('--export', action='store_true',
+                    help='also profile the request served from an exported '
+                         'artifact (DAnA and cisa)')
     args = ap.parse_args()
     card = card_name()
 
@@ -221,13 +275,37 @@ def main():
     build.build_all()
     query, info, classes = chip_smoke.serving_requests(args.seed, 1)[0]
     model = model_for(args.net, args.backbone, args.set, args.seed)
-    serve = serving_call(chip_smoke, model, args.seed, query, info, classes)
+    if args.export:
+        import tempfile
+        import numpy as np
+        from dana_tpu_torch.models import dana
+        from dana_tpu_torch.utils import config as cfg
+        if model[0].framework not in dana.CACHED_SUPPORTS:
+            sys.exit(f'--export: {args.net} takes each request\'s supports')
+        query = torch.from_numpy(query.astype(np.float32) - np.asarray(
+            cfg.PIXEL_MEANS, np.float32))
+        live = chip_smoke.serving_predictor(args.seed, model)
+        serve = lambda: live.predict(query, info, classes)  # noqa: E731
+    else:
+        serve = serving_call(chip_smoke, model, args.seed, query, info,
+                             classes)
 
-    def request():
-        serve()
-        torch.cuda.synchronize()
+    def synced(fn):
+        def request():
+            fn()
+            torch.cuda.synchronize()
+        return request
 
-    out = profile(request, args.iters, args.trace, card)
+    out = profile(synced(serve), args.iters, args.trace, card)
+    kernels = out.pop('kernels')
+    if args.export:
+        with tempfile.TemporaryDirectory() as tmp:
+            art = artifact_call(live, model, query, info, classes, tmp,
+                                chip_smoke.SUPPORT_HW)
+            root, ext = os.path.splitext(args.trace)
+            out = {'live': out, 'artifact': profile(
+                synced(art), args.iters, f'{root}.artifact{ext}', card)}
+        kernel_diff(kernels, out['artifact'].pop('kernels'))
     out.update(framework=model[0].framework, arch=model[0].arch,
                pooling_mode=model[0].pooling_mode)
     print(json.dumps(out))

@@ -42,12 +42,13 @@ import torch  # noqa: E402
 
 from dana_tpu_torch.engine.train import Trainer  # noqa: E402
 from dana_tpu_torch.models import dana  # noqa: E402
-from dana_tpu_torch.ops import cisa_attention, roi_align  # noqa: E402
+from dana_tpu_torch.ops import cisa_attention, nms, roi_align  # noqa: E402
 from dana_tpu_torch.parallel import distributed  # noqa: E402
 
 WRAPPERS = {'cisa_shots': cisa_attention.cisa_attention_shots,
             'roi_align_fwd': roi_align.roi_align,
-            'roi_align_pw': roi_align.roi_align_pw}
+            'roi_align_pw': roi_align.roi_align_pw,
+            'nms': nms.nms_sorted}
 
 
 def _launches():
