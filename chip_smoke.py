@@ -210,7 +210,15 @@ Run from the repository root.  Phases, each of which fails the run:
      with --mGPUs --dist as 2 processes for an epoch of synth_test, then
      the dataset CLI with --dist as 2 processes on its checkpoint against
      the one-process CLI (detections tie-aware), launches counted by rank
-     (each rank is this script with --cli_rank).  --parallel_only runs
+     (each rank is this script with --cli_rank); (d) phase 4's detector
+     quantized (scope 'tail' and 'all') on the --mGPUs grid, and 'all' at
+     sp=2, serves REQUESTS requests timed beside the one-device int8
+     predictor's in this call and (a)'s float32 grid, K1, K2, NMS and the
+     int8 products (`torch._int_mm`) counted by device, request 0 against
+     the one-device int8 request: every int8 conv's scale on every row
+     printed beside the one-device scale (within SCALE_RTOL), the data rows
+     at phase 4's tolerances on the one-device request's proposals
+     (detections tie-aware), sp bit for bit.  --parallel_only runs
      phases 1, 2 and 13 alone (run it on a host with four cards);
  14. int8 serving (INT8): phase 4's detector quantized by
      dana_tpu_torch/quant.py serves REQUESTS requests in three settings,
@@ -233,21 +241,25 @@ Run from the repository root.  Phases, each of which fails the run:
      the JAX CLI's line, its AP beside phase 6's (not judged);
  15. serving export (dana_tpu_torch/serve.py): phase 4's float32 detector
      exported at the five query buckets plus its support encoder, and at
-     608x1024 in the default recipe, under int8 'tail' and traced on the
-     CPU for the card (export seconds, artifact bytes against the weights'
-     bytes; a file at 10% of the weights fails); every artifact served in
+     608x1024 in the default recipe and under int8 'tail' (export seconds,
+     artifact bytes against the weights' bytes; a file at 10% of the
+     weights fails), then the float32 and int8 'tail' ones again by a
+     process that sees no card (this script with --export_child, under
+     CUDA_VISIBLE_DEVICES=''; its programs must name cuda:0 only); every
+     artifact served in
      one fresh process (this script with --serve_child) that imports
      dana_tpu_torch.serve and not the model code, the weights passed as an
      argument: REQUESTS requests at 608x1024 and one at each other bucket,
      one request of each other artifact, and a second seed's weights
      through the first artifact, each against the live Predictor on the
      same support features and queries (detections tie-aware at phase 4's
-     tolerance, phase 10's in the recipe; whether bit for bit is printed),
-     the CPU-traced program against the card-traced one on request 0 at
-     phase 4's tolerance, the encoder artifact against the live encoder
-     at 1e-4, launches counted in that process (2 K1, 1 K2 and 2 NMS a
-     request, in the recipe's dtypes; no NMS host sync), request times
-     (after an untimed first call) beside the live predictor's.
+     tolerance, phase 10's in the recipe; whether bit for bit is printed;
+     the card-less exports must be), the card-less float32 artifact bit
+     for bit against the one exported on this host on request 0, the
+     encoder artifact against the live encoder at 1e-4, launches counted
+     in that process (2 K1, 1 K2 and 2 NMS a request, in the recipe's
+     dtypes, and 10 int8 products under int8; no NMS host sync), request
+     times (after an untimed first call) beside the live predictor's.
 Every phase that counts launches counts NMS too (the proposals, and the
 postprocess of a served request or a CLI chunk).
 """
@@ -255,6 +267,7 @@ postprocess of a served request or a CLI chunk).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -265,6 +278,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2846,17 +2860,23 @@ def parallel_modes():
 def row_pinned(record, pinned):
     """`pinned_proposals` for a grid Predictor: its proposal layer runs
     once per data row, and each call is handed its rows of the unsharded
-    request's proposals (their batch column made the row's own)."""
+    request's proposals (their batch column made the row's own).  An int8
+    model's rows call it from threads of their own: a call takes the rows
+    of its thread's ScaleGroup index, and `record` gets the calls in row
+    order when the block ends."""
+    from dana_tpu_torch.models import layers as L
     from dana_tpu_torch.models import rpn
     real = rpn.proposal_layer
     rois, scores, mask = pinned
-    start = [0]
+    start, calls, lock = [0], {}, threading.Lock()
 
     def layer(probs_fg, deltas, *args, **kwargs):
         out = real(probs_fg, deltas, *args, **kwargs)
-        record.append(((probs_fg, deltas), out))
-        s, b = start[0], probs_fg.shape[0]
-        start[0] += b
+        b, row = probs_fg.shape[0], L.scale_group_row()
+        with lock:
+            s = start[0] if row is None else row * b
+            start[0] += b
+            calls[s] = ((probs_fg, deltas), out)
         dev = probs_fg.device
         r = rois[s:s + b].to(dev).clone()
         r[..., 0] -= s
@@ -2866,6 +2886,7 @@ def row_pinned(record, pinned):
         yield
     finally:
         rpn.proposal_layer = real
+        record.extend(calls[s] for s in sorted(calls))
 
 
 def compare_grid(pred, base, query, info, classes, label):
@@ -2897,15 +2918,17 @@ def compare_grid(pred, base, query, info, classes, label):
 
 
 def _by_device_wrappers():
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    from dana_tpu_torch.ops import cisa_attention, int8_mm, nms, roi_align
     return (('cisa_shots', cisa_attention.cisa_attention_shots),
             ('roi_align_fwd', roi_align.roi_align),
             ('roi_align_pw', roi_align.roi_align_pw),
-            ('nms', nms.nms_sorted))
+            ('nms', nms.nms_sorted),
+            ('int_mm', int8_mm.int8_matmul))
 
 
 def _by_device():
-    """This process's launches of K1, K2, K3 and NMS by (device, dtype)."""
+    """This process's launches of K1, K2, K3, NMS and the int8 products
+    (`torch._int_mm`) by (device, dtype)."""
     return {name: {f'{d}/{t}': n for (d, t), n in
                    fn.launches_by_device.items()}
             for name, fn in _by_device_wrappers()}
@@ -3237,14 +3260,192 @@ def dist_cli_path(seed, card, tmp):
     return by_path, summary
 
 
+# phase 13 (d): int8 on the grids, each against the one-device int8
+# request: label -> (TPU.QUANT_SCOPE, the Predictor's grid keywords)
+def int8_grid_modes():
+    data = grid_devices(max(2, torch.cuda.device_count()))
+    return {'mGPUs_int8_tail': ('tail', dict(devices=data)),
+            'mGPUs_int8_all': ('all', dict(devices=data)),
+            'sp2_int8_all': ('all', dict(devices=grid_devices(2), sp=2))}
+
+
+# a row's activation scale against the one-device request's, relative: the
+# float trunk under 'tail' runs cuDNN on each row's batch, whose sums may
+# take another order than on the whole batch
+SCALE_RTOL = 1e-5
+LAYER4_INT8_CONVS = 10      # layer4's, on each data row's first device
+
+
+@contextlib.contextmanager
+def recorded_scales(record):
+    """Every int8 conv's activation scale while the block runs, in call
+    order: record[row] for the calling thread's ScaleGroup row, or
+    record[None] outside a group (one device, and a row's spatial
+    blocks)."""
+    from dana_tpu_torch.models import layers as L
+    real, lock = L.quantize_activation, threading.Lock()
+
+    def quantize(x, amax=None):
+        xq, sx = real(x, amax)
+        with lock:
+            record.setdefault(L.scale_group_row(), []).append(sx)
+        return xq, sx
+    L.quantize_activation = quantize
+    try:
+        yield
+    finally:
+        L.quantize_activation = real
+
+
+def timed_requests(pred, requests, label):
+    """Each request served and timed (host clock to a synchronise) ->
+    ms per request; fails on detections of another shape or not finite."""
+    req_ms = []
+    for query, info, classes in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets, valid = pred.predict(query, info, classes)
+        torch.cuda.synchronize()
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        if dets.shape != (BATCH, 100, 5) or not torch.isfinite(dets).all():
+            fail(f'{label}: bad detections {tuple(dets.shape)}')
+    return req_ms
+
+
+def int8_grid_path(seed, card, float_grids):
+    """Phase 13 (d): phase 4's detector quantized (scope 'tail' and 'all')
+    on the --mGPUs grid, and 'all' at sp=2, each serving REQUESTS requests
+    timed beside the one-device int8 predictor's in this call (and the
+    float32 grid's of (a)), the kernels and the int8 products counted by
+    device; request 0 against the one-device request: every int8 conv's
+    activation scale on every row beside the one-device scale (within
+    SCALE_RTOL; under sp the blocks' scales equal); on the data rows the
+    RPN outputs and heads at TOL on the one-device request's proposals and
+    the detections tie-aware at BOX_ATOL (`compare_grid`, phase 4's
+    tolerances), under sp the outputs bit for bit.  -> ({path: launches},
+    summary)."""
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.utils import config as cfg
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    conf = dataclasses.replace(config, roi_align_int8=True)
+    requests = serving_requests(seed, REQUESTS)
+    by_path, summary, ones = {}, {}, {}
+    for label, (scope, kw) in int8_grid_modes().items():
+        tree = quant.quantize_params(params, scope)
+        if scope not in ones:
+            one = serving_predictor(seed, (conf, tree))
+            ones[scope] = (one, timed_requests(one, requests, scope))
+        one, one_ms = ones[scope]
+        pred = serving_predictor(seed, (conf, tree), **kw)
+        zero_launches()
+        _clear_by_device()
+        req_ms = timed_requests(pred, requests, label)
+        launches, by_dev = read_launches(), _by_device()
+        rows, blocks = len(pred.rows), kw.get('sp', 1)
+        trunk = INT8_CONVS[scope][0] - LAYER4_INT8_CONVS
+        convs = rows * (LAYER4_INT8_CONVS + trunk * blocks)
+        want = launch_counts(cisa_shots=2 * rows * REQUESTS,
+                             roi_align_fwd=rows * REQUESTS,
+                             nms=2 * rows * REQUESTS,
+                             int8_conv=convs * REQUESTS,
+                             int_mm=convs * REQUESTS)
+        if launches != want:
+            fail(f'{label} launches {launches}, expected {want}')
+        want_dev = {name: collections.Counter() for name in
+                    ('cisa_shots', 'roi_align_fwd', 'nms', 'int_mm')}
+        for row in pred.rows:
+            lead = str(row.lead)
+            for name, per in (('cisa_shots', 2), ('roi_align_fwd', 1),
+                              ('nms', 2), ('int_mm', LAYER4_INT8_CONVS)):
+                want_dev[name][lead] += per * REQUESTS
+            for d in (row.devices if blocks > 1 else [row.lead]):
+                want_dev['int_mm'][str(d)] += trunk * REQUESTS
+        for name, per_dev in want_dev.items():
+            got = {k.split('/')[0]: v for k, v in by_dev[name].items()}
+            if got != {d: n for d, n in per_dev.items() if n}:
+                fail(f'{label} {name} launches by device {got}, expected '
+                     f'{dict(per_dev)}')
+        one_sc, grid_sc = {}, {}
+        if blocks > 1:
+            with recorded_scales(one_sc):
+                want_out = one.forward(*requests[0])
+                want_det = one.predict(*requests[0])
+            with recorded_scales(grid_sc):
+                got_out = pred.forward(*requests[0])
+                got_det = pred.predict(*requests[0])
+            exact = all(torch.equal(got_out[k], want_out[k])
+                        for k in want_out) and all(
+                torch.equal(a, b) for a, b in zip(got_det, want_det))
+            if not exact:
+                fail(f'{label}: request 0 differs from the one-device int8 '
+                     'request (expected bit for bit)')
+            seq = [float(t) for t in grid_sc[None]]
+            n_trunk = trunk * blocks
+            if seq[:n_trunk:2] != seq[1:n_trunk:2]:
+                fail(f'{label}: the spatial blocks took different scales')
+            row_scales = {0: seq[:n_trunk:2] + seq[n_trunk:]}
+            one_scales = [float(t) for t in one_sc[None]]
+            diffs = dict(bit_for_bit=True)
+        else:
+            # the one-device request records outside a ScaleGroup, the
+            # rows inside it
+            with recorded_scales(grid_sc):
+                diffs = compare_grid(pred, one, *requests[0], label=label)
+            one_scales = [float(t) for t in grid_sc[None]]
+            row_scales = {r: [float(t) for t in grid_sc[r]]
+                          for r in range(rows)}
+        n = INT8_CONVS[scope][0]
+        one_scales = one_scales[:n]
+        worst = 0.0
+        for r, sc in row_scales.items():
+            sc = sc[:n]
+            if len(sc) != n or len(one_scales) != n:
+                fail(f'{label} row {r}: {len(sc)} int8 conv scales, the '
+                     f'one-device request {len(one_scales)}, expected {n}')
+            worst = max(worst, max(abs(a - b) / b
+                                   for a, b in zip(sc, one_scales)))
+            print(f'{label} row {r} scales (one device | this row): '
+                  + ' '.join(f'{b:.7g}|{a:.7g}'
+                             for a, b in zip(sc, one_scales)), flush=True)
+        if worst > SCALE_RTOL:
+            fail(f'{label}: a row\'s activation scale is {worst:.3e} '
+                 f'(relative) from the one-device request\'s, past '
+                 f'{SCALE_RTOL}')
+        float_ms = float_grids.get('sp2' if blocks > 1 else 'mGPUs',
+                                   {}).get('req_ms')
+        by_path[f'{label}_serving'] = launches
+        summary[label] = dict(
+            grid=repr(pred.grid), devices=[str(d) for d in kw['devices']],
+            req_ms=req_ms, one_device_int8_req_ms=one_ms,
+            float32_grid_req_ms=float_ms, launches_by_device=by_dev,
+            path_diffs=diffs, scale_max_rel_diff=worst,
+            scales={'one_device': one_scales, 'rows': row_scales})
+        print(f'{label} ({card}, {torch.cuda.device_count()} device(s) '
+              f'seen): {pred.grid} over {[str(d) for d in kw["devices"]]}, '
+              f'ms per request {req_ms} (one-device int8 {scope} in this '
+              f'call: {one_ms}; float32 on this grid, (a): {float_ms}), '
+              f'launches by device {by_dev}; request 0 against the '
+              f'one-device int8 request: {diffs}, scales within {worst:.3e} '
+              '(relative)', flush=True)
+        del pred
+        torch.cuda.empty_cache()
+    return by_path, summary
+
+
 def parallel_path(seed, card):
     """Phase 13: (a) grid_serving_path, (b) dp_step_path, (c)
-    dist_cli_path.  -> ({path: launches}, summary)."""
+    dist_cli_path, (d) int8_grid_path.  -> ({path: launches}, summary)."""
     by_path, summary = {}, {}
     t0 = time.perf_counter()
     part, summary['serving'] = grid_serving_path(seed, card)
     by_path.update(part)
     summary['serving_s'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    part, summary['int8_grids'] = int8_grid_path(seed, card, summary[
+        'serving'])
+    by_path.update(part)
+    summary['int8_grids_s'] = time.perf_counter() - t1
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
@@ -3447,7 +3648,42 @@ def int8_path(seed, card, f32_serving, f32_dets, recipe_serving, cli,
 # phase 15: an artifact's detections against the live predictor's on the
 # same features and queries, phase 4's tolerance (phase 10's in the recipe)
 EXPORT_TOL = {'float32': TOL, 'default_recipe': PATH_TOL_BF16,
-              'int8_tail': TOL, 'seed1': TOL, 'cpu_traced': TOL}
+              'int8_tail': TOL, 'seed1': TOL, 'cardless_float32': TOL,
+              'cardless_int8_tail': TOL}
+# exported by a process that sees no card (CUDA_VISIBLE_DEVICES=''), served
+# on the card bit for bit
+CARDLESS = ('cardless_float32', 'cardless_int8_tail')
+
+
+def export_child_main(out_dir, seed):
+    """Phase 15's exporting process, which sees no card: phase 4's float32
+    detector and its int8 'tail' form exported for the card at QUERY_HW
+    (dana_tpu_torch/serve.py traces on the CPU and places the programs on
+    cuda:0) into out_dir/<label>; prints each export's seconds and the
+    devices its predict program names."""
+    from dana_tpu_torch import quant, serve
+    from dana_tpu_torch.utils import config as cfg
+    from dana_tpu_torch.utils.weights import from_jax_params
+    if torch.cuda.is_available():
+        fail('the exporting process sees a card')
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=int(seed))
+    conf_q = dataclasses.replace(config, roi_align_int8=True)
+    report = {}
+    for label, conf, tree in (
+            (CARDLESS[0], config, params),
+            (CARDLESS[1], conf_q, quant.quantize_params(params, 'tail'))):
+        t0 = time.perf_counter()
+        out = os.path.join(out_dir, label)
+        meta = serve.export_predictor(
+            from_jax_params(tree, conf), conf, out, buckets=(QUERY_HW,),
+            batch_size=BATCH, sup_size=SUPPORT_HW, device='cuda')
+        secs = time.perf_counter() - t0
+        ep = torch.export.load(os.path.join(out, meta['buckets'][0]['file']))
+        report[label] = dict(export_s=secs, device=meta['device'],
+                             quantized=meta['quantized'],
+                             program_devices=sorted(
+                                 serve.program_devices(ep)))
+    print(json.dumps(report), flush=True)
 
 
 def serve_child_main(job_path):
@@ -3460,10 +3696,11 @@ def serve_child_main(job_path):
     kernels' launches and NMS's host syncs around the timed requests;
     writes the results beside the job file."""
     from dana_tpu_torch import serve
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    from dana_tpu_torch.ops import cisa_attention, int8_mm, nms, roi_align
     counters = {'cisa_shots': cisa_attention.cisa_attention_shots,
                 'roi_align_fwd': roi_align.roi_align,
-                'nms': nms.nms_sorted}
+                'nms': nms.nms_sorted,
+                'int_mm': int8_mm.int8_matmul}
     jobs = torch.load(job_path)
     results, loaded = {}, {}
     for job in jobs:
@@ -3517,15 +3754,17 @@ def serve_child_main(job_path):
 
 def serving_export_path(seed, card, f32_serving):
     """Phase 15: phase 4's float32 DAnA exported at the five buckets
-    (dana_tpu_torch/serve.py), plus the default recipe, int8 'tail' and
-    the same detector traced on the CPU for the card, each at the first
-    bucket; every artifact served in one fresh process (`serve_child_main`)
+    (dana_tpu_torch/serve.py), plus the default recipe and int8 'tail',
+    each at the first bucket, and the float32 and int8 'tail' ones again
+    from a process that sees no card (`export_child_main`); every artifact
+    served in one fresh process (`serve_child_main`)
     against the live Predictor on the same supports (its per-class
     features) and the same queries (phase 4's uint8 requests, mean
     subtracted to float32 as the artifacts take them), a second seed's
-    weights through the first artifact.  Both sides time each request
-    after an untimed first call of its program.  -> ({path: launches},
-    summary)."""
+    weights through the first artifact; the card-less exports bit for bit,
+    and the card-less float32 artifact against the one exported here.
+    Both sides time each request after an untimed first call of its
+    program.  -> ({path: launches}, summary)."""
     from dana_tpu_torch import quant, serve
     from dana_tpu_torch.models import dana
     from dana_tpu_torch.utils import config as cfg
@@ -3613,9 +3852,23 @@ def serving_export_path(seed, card, f32_serving):
         live_run('default_recipe', serving_predictor(seed, (conf_r, model)),
                  main_reqs[:1], w0, rec_dir)
 
-        cpu_dir, _ = export('cpu_traced', from_jax_params(params, config),
-                            config, (QUERY_HW,), trace_device='cpu')
-        live_run('cpu_traced', pred, main_reqs[:1], w0, cpu_dir)
+        # the card-less process exports while this one serves
+        t0 = time.perf_counter()
+        out = run_children([[sys.executable, os.path.abspath(__file__),
+                             '--export_child', tmp, str(seed)]], tmp,
+                           'export', env={'CUDA_VISIBLE_DEVICES': ''})[0]
+        cardless = json.loads(out.strip().splitlines()[-1])
+        for label, rep in cardless.items():
+            if rep['device'] != 'cuda:0' or rep['program_devices'] != [
+                    'cuda:0'] or rep['quantized'] != ('int8' in label):
+                fail(f'{label} exported without a card: {rep}')
+        summary['cardless_export'] = dict(cardless, process_s=(
+            time.perf_counter() - t0))
+        print(f'exported for the card by a process that sees none in '
+              f'{summary["cardless_export"]["process_s"]:.1f} s: {cardless}',
+              flush=True)
+        live_run(CARDLESS[0], pred, main_reqs[:1], w0,
+                 os.path.join(tmp, CARDLESS[0]))
         del pred
 
         conf_q = dataclasses.replace(config, roi_align_int8=True)
@@ -3624,9 +3877,12 @@ def serving_export_path(seed, card, f32_serving):
         q_dir, meta_q = export('int8_tail', model_q, conf_q, (QUERY_HW,))
         if not meta_q['quantized']:
             fail('int8 tail artifact: meta.json says not quantized')
-        live_run('int8_tail', serving_predictor(seed, (conf_q, model_q)),
-                 main_reqs[:1], weights('int8_tail', model_q), q_dir)
-        del model_q
+        pred_q = serving_predictor(seed, (conf_q, model_q))
+        wq = weights('int8_tail', model_q)
+        live_run('int8_tail', pred_q, main_reqs[:1], wq, q_dir)
+        live_run(CARDLESS[1], pred_q, main_reqs[:1], wq,
+                 os.path.join(tmp, CARDLESS[1]))
+        del model_q, pred_q
 
         _, params1 = cfg.get_model('res50', way=2, shot=3, seed=seed + 1)
         model1 = from_jax_params(params1, config).to(DEV)
@@ -3652,6 +3908,8 @@ def serving_export_path(seed, card, f32_serving):
         roi = 'roi_align_fwd' + _suffix(conf.compute_dtype)
         expect = {k: 0 for k in res['launches']}
         expect.update({k1: 2 * n, 'nms': 2 * n})
+        if res['meta']['quantized']:
+            expect['int_mm'] = INT8_CONVS['tail'][0] * n
         if not (conf.roi_align_int8 and conf.compute_dtype != torch.float32):
             expect[roi] = n
         if res['launches'] != expect or res['host_syncs']:
@@ -3682,20 +3940,20 @@ def serving_export_path(seed, card, f32_serving):
               f'{res["load_s"]:.1f} s, launches {res["launches"]}, NMS host '
               f'syncs 0; detections == live (tie-aware at '
               f'{EXPORT_TOL[label]}), bit for bit: {exact}', flush=True)
-    # the program traced on the CPU for the card against the one traced on
-    # the card: request 0, the same weights and features
+    # the artifacts exported without a card: bit for bit against the live
+    # predictor, and the float32 one against the one exported here
+    for label in CARDLESS:
+        if not summary[label]['bit_for_bit']:
+            fail(f'{label} artifact: not bit for bit against the live '
+                 'predictor')
     (dc, vc), (dk, vk) = (served[k]['outs'][0]
-                          for k in ('cpu_traced', 'float32'))
-    same = torch.equal(dc, dk) and torch.equal(vc, vk)
-    if not torch.equal(vc.sum(1), vk.sum(1)):
-        fail('the CPU-traced artifact keeps other detections than the '
-             'card-traced one')
-    for j in range(len(dc)):
-        match_detections(dc[j][vc[j]].numpy(), dk[j][vk[j]].numpy(),
-                         coord_atol=BOX_ATOL, score_tol=TOL)
-    summary['cpu_traced']['equals_card_traced_bit_for_bit'] = same
-    print(f'CPU-traced artifact == card-traced artifact on request 0 '
-          f'(tie-aware at {TOL}), bit for bit: {same}', flush=True)
+                          for k in (CARDLESS[0], 'float32'))
+    if not (torch.equal(dc, dk) and torch.equal(vc, vk)):
+        fail('the float32 artifact exported without a card differs from '
+             'the one exported on this host')
+    print('the artifacts exported without a card serve bit for bit against '
+          'the live predictor, and the float32 one equals the one exported '
+          'on this host on request 0', flush=True)
     enc = served['float32']['encoded']
     enc_err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(enc, enc_live))
@@ -3731,6 +3989,8 @@ def main():
         return cli_rank_main(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ['--serve_child']:
         return serve_child_main(sys.argv[2])
+    if sys.argv[1:2] == ['--export_child']:
+        return export_child_main(sys.argv[2], sys.argv[3])
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--parallel_only', action='store_true',

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dana_tpu_torch.utils.device import device_table, host_table
+
 
 def _wh_ctr(anchor):
     w = anchor[2] - anchor[0] + 1
@@ -44,11 +46,19 @@ def generate_anchors(base_size=16, ratios=(0.5, 1, 2),
 def shifted_anchors(feat_h: int, feat_w: int, stride: int,
                     base_anchors: np.ndarray, device='cpu') -> torch.Tensor:
     """Full anchor grid [feat_h*feat_w*A, 4] float32, shift-major and
-    anchor-minor: the flattened order is (h, w, a)."""
-    shift_x = np.arange(feat_w) * stride
-    shift_y = np.arange(feat_h) * stride
-    sx, sy = np.meshgrid(shift_x, shift_y)
-    shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()],
-                      axis=1)
-    grid = (base_anchors[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
-    return torch.as_tensor(grid.astype(np.float32), device=device)
+    anchor-minor: the flattened order is (h, w, a).  Built on `device`
+    (the base table through `host_table`, the shifts from `arange`), in
+    float64 as the numpy grid was, and kept per device
+    (`device_table`)."""
+    base_anchors = np.asarray(base_anchors, np.float64)
+
+    def build():
+        base = host_table(base_anchors, device, torch.float64)
+        sx = torch.arange(feat_w, dtype=torch.float64, device=device)
+        sy = torch.arange(feat_h, dtype=torch.float64, device=device)
+        sy, sx = torch.meshgrid(sy * stride, sx * stride, indexing='ij')
+        shifts = torch.stack([sx, sy, sx, sy], dim=-1).reshape(-1, 4)
+        return (base[None, :, :] + shifts[:, None, :]).reshape(-1, 4).float()
+    return device_table(('anchors', feat_h, feat_w, stride,
+                         base_anchors.shape, base_anchors.tobytes()),
+                        device, build)

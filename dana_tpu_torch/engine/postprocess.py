@@ -9,6 +9,7 @@ import torch
 
 from dana_tpu_torch.core.boxes import clip_boxes, decode_boxes
 from dana_tpu_torch.ops.nms import nms_fixed
+from dana_tpu_torch.utils.device import host_table
 
 
 def postprocess_batch(rois, cls_prob, bbox_pred, im_info,
@@ -19,8 +20,8 @@ def postprocess_batch(rois, cls_prob, bbox_pred, im_info,
     """-> (dets [B, max_per_image, 5] (x1, y1, x2, y2, score) in raw-image
     coordinates, valid [B, max_per_image])."""
     dev = rois.device
-    stds = torch.tensor(bbox_stds, dtype=torch.float32, device=dev)
-    means = torch.tensor(bbox_means, dtype=torch.float32, device=dev)
+    stds = host_table(bbox_stds, dev)
+    means = host_table(bbox_means, dev)
     im_info = im_info.float()
     deltas = bbox_pred.float() * stds + means
     boxes = decode_boxes(rois[..., 1:5].float(), deltas)

@@ -15,13 +15,17 @@ and the RPN conv over the row's devices (`parallel.shard_params_tp`), or
 spatial parallelism splits the queries' H over them through the trunk
 (`parallel/spatial.py`), and the rest of the forward runs on the row's
 first device; the detections are concatenated on the first device.  The
-rows run one after another from this thread, and each row's proposal NMS
-syncs the host, so a request over several cards takes longer than on one
-(the dataset CLI's --dist runs one process per card instead)."""
+rows of a float model run one after another from this thread, so a
+request over several cards takes longer than on one (the dataset CLI's
+--dist runs one process per card instead).  An int8 model's rows run
+together, a thread each: every quantized conv takes one activation scale,
+the max over all rows' inputs (`layers.ScaleGroup`), as the JAX package's
+conv forms it over the global batch."""
 
 from __future__ import annotations
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn as nn
@@ -48,24 +52,6 @@ class _Row:
         self.cache = {}
 
 
-def _refuse_int8_grid(model, rows, sp):
-    """An int8 model's quantized convs must each see the whole tensor the
-    JAX package's conv sees, whose activation scale is one max over it: a
-    grid's data rows split every conv's batch, and spatial blocks split
-    the trunk's convs (those outside layer4).  Both are refused."""
-    trunk = [name for name, m in model.backbone.named_modules()
-             if isinstance(m, L.QuantConv2d)]
-    split = rows > 1 or (sp > 1 and any(not n.startswith('layer4')
-                                        for n in trunk))
-    if trunk and split:
-        raise ValueError(
-            'an int8 model on a grid whose data rows or spatial blocks '
-            "split a quantized conv's input: its activation scale is one "
-            'max over the whole tensor, which the JAX package forms over '
-            'the global batch (ROADMAP Queue A 12); serve int8 on one '
-            'device per process')
-
-
 class Predictor:
     """Predictor(params, config, device='cuda', postprocess=None,
     devices=None, tp=1, sp=1).
@@ -84,8 +70,11 @@ class Predictor:
     `devices` (default [device]) with `tp` or `sp` > 1 serve on a grid
     (module docstring): one replica and one support cache per device,
     a request's B rows split over the grid's data rows (B % rows == 0).
-    An int8 model (dana_tpu_torch/quant.py) serves on one row, and under
-    sp only when its trunk below layer4 is float (`_refuse_int8_grid`).
+    An int8 model (dana_tpu_torch/quant.py) serves on any grid: its data
+    rows run in threads of a `layers.ScaleGroup` and its spatial blocks
+    share one scale (`spatial.halo_int8_conv`), so each quantized conv
+    takes the activation scale of the whole tensor, as the JAX package's
+    does on its mesh.
     """
 
     def __init__(self, params, config: dana.DanaConfig, device='cuda',
@@ -105,7 +94,9 @@ class Predictor:
             use_full_f32()
         model = params if isinstance(params, nn.Module) \
             else from_jax_params(params, config)
-        _refuse_int8_grid(model, len(devices) // max(tp, sp, 1), sp)
+        self.int8 = any(isinstance(m, L.QuantConv2d)
+                        for m in model.modules())
+        self._row_threads = None
         self.config = config
         self.postprocess = postprocess or cfg.postprocess_kwargs()
         self.grid = parallel.make_mesh_2d(devices, model=max(tp, sp, 1))
@@ -166,9 +157,8 @@ class Predictor:
         if len(self.rows) == 1:
             return self._predict_row(self.rows[0], im_data, im_info, classes,
                                      support_ims)
-        outs = [self._predict_row(row, *args)
-                for row, args in self._split(im_data, im_info, classes,
-                                             support_ims)]
+        outs = self._each_row(self._predict_row, im_data, im_info, classes,
+                              support_ims)
         return tuple(torch.cat([o[j].to(self.device) for o in outs])
                      for j in range(2))
 
@@ -178,15 +168,37 @@ class Predictor:
         cls_prob, bbox_pred, cls_score, roi_mask), taken as `predict`
         takes its request and gathered on the first device; each roi's
         batch index is its row in the request."""
-        outs = []
-        for i, (row, args) in enumerate(self._split(im_data, im_info, classes,
-                                                    support_ims)):
-            out = self._forward_row(row, *args)[0]
+        outs = self._each_row(lambda *a: self._forward_row(*a)[0], im_data,
+                              im_info, classes, support_ims)
+        per = len(im_data) // len(self.rows)
+        for i, out in enumerate(outs):
             out['rois'] = out['rois'].clone()
-            out['rois'][..., 0] += i * len(args[0])
-            outs.append(out)
+            out['rois'][..., 0] += i * per
         return {k: torch.cat([o[k].to(self.device) for o in outs])
                 for k in outs[0]}
+
+    def _each_row(self, fn, *request):
+        """fn(row, *its slice of the request) for every data row -> the
+        results in row order.  A float model's rows run one after another;
+        an int8 model's run together, a thread each in one
+        `layers.ScaleGroup`, so that each quantized conv takes the max over
+        every row's input."""
+        parts = list(self._split(*request))
+        if not self.int8 or len(parts) == 1:
+            return [fn(row, *args) for row, args in parts]
+        group = L.ScaleGroup(len(parts), self.device)
+
+        def run(i, row, args):
+            with torch.inference_mode(), group.join(i):
+                return fn(row, *args)
+        if self._row_threads is None:
+            # kept for the predictor's life: a fresh thread per request
+            # would set up the CPU's per-thread conv state again each time
+            self._row_threads = ThreadPoolExecutor(
+                len(parts), thread_name_prefix='dana-row')
+        futures = [self._row_threads.submit(run, i, row, args)
+                   for i, (row, args) in enumerate(parts)]
+        return [f.result() for f in futures]
 
     def _split(self, im_data, im_info, classes, support_ims):
         """(row, its slice of the request) for every data row."""

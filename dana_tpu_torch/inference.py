@@ -45,9 +45,10 @@ None).
 checkpoint loads, the trunk's convs in TPU.QUANT_SCOPE ('tail': layer4, the
 default; 'all': every conv) are quantized (dana_tpu_torch/quant.py) and
 RoIAlign on a map that is not float32 runs in int8; the CLI prints the
-JAX CLI's line.  Int8 on a grid that would split a quantized conv's input
-(--mGPUs, or --sp under scope 'all') is refused (utils/args.py
-`refuse_int8_grid`).
+JAX CLI's line.  With --mGPUs, or --sp under scope 'all', every quantized
+conv takes one activation scale over the whole request, as the JAX CLI's
+mesh forms it (engine/predict.py); under --dist each rank's chunk is its
+own tensor, in both packages.
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
 The space-to-depth stem is refused
@@ -77,7 +78,7 @@ from dana_tpu_torch.engine.predict import Predictor
 from dana_tpu_torch.models import frameworks
 from dana_tpu_torch.parallel import distributed, local_devices
 from dana_tpu_torch.utils import checkpoint as ckpt_lib
-from dana_tpu_torch.utils.args import load_cfg, parse_args, refuse_int8_grid
+from dana_tpu_torch.utils.args import load_cfg, parse_args
 from dana_tpu_torch.utils.config import NETS, dana_config, postprocess_kwargs
 
 
@@ -168,7 +169,6 @@ def evaluate(args, group=distributed.SINGLE):
             '(dana_tpu/engine/postprocess.py:38): its dataset CLI raises, so '
             'there is no serving path to port')
     c = load_cfg(args)
-    refuse_int8_grid(args, c)
     rank, nproc = group.rank, group.size
     # under --dist each rank serves on its own device
     devices = [distributed.rank_device(args.device)] if group.distributed \
@@ -177,11 +177,10 @@ def evaluate(args, group=distributed.SINGLE):
     if not ((args.mGPUs or tp > 1 or sp > 1) and len(devices) > 1):
         devices, tp, sp = devices[:1], 1, 1
     if len(devices) > max(tp, sp) and len(set(devices)) > 1:
-        print('warning: the grid\'s data rows run one after another from '
-              'this process, and each row\'s proposal NMS syncs the host, '
-              'so a request takes longer over several cards than on one; '
-              'for throughput start one process per card with --dist',
-              flush=True)
+        print('warning: the grid\'s data rows are driven from this one '
+              'process, so a request takes longer over several cards than '
+              'on one; for throughput start one process per card with '
+              '--dist', flush=True)
     device = devices[0]
 
     imdb_, roidb, _, _ = combined_roidb(args.imdbval_name, training=False,

@@ -51,6 +51,7 @@ from dana_tpu_torch.ops.roi_align import (roi_align, roi_align_int8,
                                           roi_align_train)
 from dana_tpu_torch.ops.roi_pool import roi_pool
 from dana_tpu_torch.parallel.distributed import current_group
+from dana_tpu_torch.utils.device import device_table, host_table
 
 
 FRAMEWORKS = ('DAnA', 'cisa', 'frcnn', 'fsod', 'meta', 'fgn')
@@ -290,10 +291,23 @@ def init_params(config: DanaConfig, seed: int = 0,
 
 
 def _pe(length, like, dtype):
-    """The positional table [length, C] of like's channels C, on like's
-    device, rounded to `dtype` (the JAX tables are in attention_dt)."""
-    return torch.tensor(positional_encoding(length, like.shape[-1]),
-                        device=like.device).to(dtype)
+    """The positional table [length, C] of like's channels C, computed on
+    like's device as `positional_encoding` computes it (float64, then
+    float32; equal to its table on the CPU, tests/test_torch_port_serve.py)
+    and rounded to `dtype` (the JAX tables are in attention_dt); kept per
+    device (`device_table`)."""
+    d, dev = like.shape[-1], like.device
+
+    def build():
+        position = torch.arange(length, dtype=torch.float64,
+                                device=dev)[:, None]
+        div = torch.exp(torch.arange(0, d, 2, dtype=torch.float64,
+                                     device=dev)
+                        * -(math.log(10000.0) / d))
+        angle = position * div
+        pe = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
+        return pe.reshape(length, d).float().to(dtype)
+    return device_table(('pe', length, d, dtype), dev, build)
 
 
 def _token_softmax(x):
@@ -448,9 +462,8 @@ def prep_query_images(config: DanaConfig, im_data):
     """uint8 BGR pixels get the Caffe mean subtraction on the device;
     float inputs pass through."""
     if im_data.dtype == torch.uint8:
-        means = torch.tensor(config.pixel_means, dtype=torch.float32,
-                             device=im_data.device)
-        return im_data.float() - means
+        return im_data.float() - host_table(config.pixel_means,
+                                            im_data.device)
     return im_data
 
 

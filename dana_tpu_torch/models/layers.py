@@ -15,7 +15,9 @@ affine transform with stored running statistics, as in the reference
 detector; FGN's head has BatchNorms that train (`BatchNorm2d`).
 Int8 serving (dana_tpu_torch/quant.py) swaps a trunk conv for a
 `QuantConv2d`, the JAX package's dynamically quantized int8 conv: exact
-int32 sums, on the card through `torch._int_mm` (`int8_matmul`).
+int32 sums, on the card through `torch._int_mm` (`int8_matmul`, the op
+`dana_torch::int8_mm`); on a grid its activation scale is the max over
+every data row's input (`ScaleGroup`).
 
 The numpy `init_*` helpers draw in the same order as the JAX package's,
 so one seed gives both packages the same weights.
@@ -23,13 +25,19 @@ so one seed gives both packages the same weights.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+import threading
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dana_tpu_torch.ops import build
+from dana_tpu_torch.ops.int8_mm import (int8_matmul,  # noqa: F401
+                                        int8_matmul_plain, int_mm_operands)
 from dana_tpu_torch.parallel.distributed import current_group
 
 
@@ -47,7 +55,8 @@ class QuantConv2d(nn.Module):
     `bias` [O] float32 (a quantized conv always has one: its BN's folded
     offset, or VGG16's own), under the name of the conv it replaces, so
     the state dict keeps the reference module names.  forward runs
-    `dynamic_int8_conv`."""
+    `dynamic_int8_conv`, whose activation scale is x's own max |x|, or
+    under a `ScaleGroup` the max over every data row's input."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0):
         super().__init__()
@@ -58,85 +67,137 @@ class QuantConv2d(nn.Module):
         self.register_buffer('bias', torch.zeros(cout))
 
     def forward(self, x):
+        amax = None if scale_group_row() is None \
+            else group_amax(activation_amax(x))
         return dynamic_int8_conv(x, self.w_int8, self.w_scale, self.bias,
-                                 self.stride, self.padding)
+                                 self.stride, self.padding, amax)
 
 
-def quantize_activation(x):
+def activation_amax(x):
+    """max |x| over the whole of x, float32 0-d (one `aminmax` pass, no
+    |x| tensor): the local half of the int8 conv's activation scale."""
+    lo, hi = torch.aminmax(x.float())
+    return torch.maximum(-lo, hi)
+
+
+def activation_scale(amax):
+    """The int8 conv's activation scale from max |x|: sx = max(amax, 1e-6)
+    / 127, divided by a tensor, so every device divides as IEEE does
+    (PyTorch on CUDA turns a division by a Python number into a product
+    with its reciprocal)."""
+    return torch.clamp(amax, min=1e-6) / torch.full_like(amax, 127.0)
+
+
+def quantize_at(x, sx):
+    """x quantized at the scale sx: clip(round(x / sx), -127, 127) (half
+    to even), int8 in x's memory format."""
+    return (x.float() / sx).round_().clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_activation(x, amax=None):
     """The dynamic per-tensor int8 quantization of the JAX package's int8
-    conv: sx = max(max|x|, 1e-6) / 127 over the whole tensor, xq =
-    clip(round(x / sx), -127, 127) (half to even) -> (xq int8 in x's
-    memory format, sx float32 0-d).  Divided by tensors, so every device
-    divides as IEEE does (PyTorch on CUDA turns a division by a Python
-    number into a product with its reciprocal)."""
+    conv -> (xq int8 in x's memory format, sx float32 0-d): sx from max |x|
+    over the whole tensor (`activation_amax`), or from `amax` when the
+    tensor the JAX conv sees is larger than x (a `ScaleGroup`'s max over
+    every part of it)."""
     xf = x.float()
-    lo, hi = torch.aminmax(xf)
-    amax = torch.maximum(-lo, hi)                  # max |x|, no |x| pass
-    sx = torch.clamp(amax, min=1e-6) / torch.full_like(amax, 127.0)
-    return (xf / sx).round_().clamp_(-127, 127).to(torch.int8), sx
+    sx = activation_scale(activation_amax(xf) if amax is None else amax)
+    return quantize_at(xf, sx), sx
+
+
+# a row that never reaches its next quantized conv fails the others' wait
+_BARRIER_TIMEOUT_S = 600.0
+
+
+class ScaleGroup:
+    """The data rows of one grid request, which a quantized conv sees as
+    one tensor: the JAX package's conv takes one activation scale over the
+    global batch (GSPMD reduces the max across the chips), so every row's
+    conv takes the max over all rows' inputs.  Each row runs in a thread of
+    its own, inside `join(index)`; at each quantized conv every row leaves
+    its local max |x| and waits at a barrier, then copies the rows' maxima
+    to the lead device, reduces them there and copies the result back to
+    its own, all in stream order (no host sync).  The slots alternate
+    between two sets: a row can be at most one conv ahead of another.  A
+    row that raises breaks the barrier, so the others raise too."""
+
+    def __init__(self, size, lead):
+        self.size, self.lead = int(size), torch.device(lead)
+        self._barrier = threading.Barrier(self.size,
+                                          timeout=_BARRIER_TIMEOUT_S)
+        self._slots = ([None] * self.size, [None] * self.size)
+        self._calls = threading.local()
+
+    @contextlib.contextmanager
+    def join(self, index):
+        """Run this thread's row `index` in the group."""
+        token = _SCALE_GROUP.set((self, int(index)))
+        self._calls.n = 0
+        try:
+            yield self
+        except BaseException:
+            self._barrier.abort()
+            raise
+        finally:
+            _SCALE_GROUP.reset(token)
+
+    def amax(self, index, local):
+        """The max over every row's `local` (0-d), on local's device."""
+        slots = self._slots[self._calls.n % 2]
+        self._calls.n += 1
+        slots[index] = local
+        self._barrier.wait()
+        lead = torch.stack([t.to(self.lead) for t in slots]).amax()
+        return lead.to(local.device)
+
+
+_SCALE_GROUP = contextvars.ContextVar('dana_int8_scale_group', default=None)
+
+
+def group_amax(local):
+    """max |x| of the tensor a quantized conv sees: `local`, or under a
+    `ScaleGroup` the max over every row's."""
+    joined = _SCALE_GROUP.get()
+    if joined is None:
+        return local
+    group, index = joined
+    return group.amax(index, local)
+
+
+def scale_group_row():
+    """The row index this thread serves in a `ScaleGroup`, or None."""
+    joined = _SCALE_GROUP.get()
+    return None if joined is None else joined[1]
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 def im2col_nhwc(xq, kh, kw, stride, padding):
     """[N, H, W, C] (any dtype) -> the conv's patches [N, Ho, Wo, kh*kw*C],
-    each patch ordered (kh, kw, C), zero padded by `padding`: one strided
-    slice per tap, concatenated (a 1x1 conv is its strided input)."""
+    each patch ordered (kh, kw, C), zero padded by `padding` (an int, or
+    (rows, columns)): one strided slice per tap, concatenated (a 1x1 conv
+    is its strided input)."""
     n, h, w, c = xq.shape
-    if padding:
-        xq = F.pad(xq, (0, 0, padding, padding, padding, padding))
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
+    ph, pw = _pair(padding)
+    if ph or pw:
+        xq = F.pad(xq, (0, 0, pw, pw, ph, ph))
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
     taps = [xq[:, i:i + stride * (ho - 1) + 1:stride,
                j:j + stride * (wo - 1) + 1:stride]
             for i in range(kh) for j in range(kw)]
     return taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
 
 
-def int8_matmul(a, b):
-    """a [M, K] int8 times b [K, N] int8 -> [M, N] int32, exact:
-    `torch._int_mm` (cuBLASLt s8 x s8 -> s32) on CUDA tensors, its operands
-    laid out by `int_mm_operands`; the plain version, an exact float64
-    product, on CPU tensors.  Raises on M <= 16, which `_int_mm`
-    refuses."""
-    if a.device.type == 'cpu':
-        return int8_matmul_plain(a, b)
-    if a.shape[0] <= 16:
-        raise ValueError(f'int8_matmul: torch._int_mm needs more than 16 '
-                         f'rows (got {a.shape[0]})')
-    out = torch._int_mm(*int_mm_operands(a, b))
-    int8_matmul.launches += 1
-    return out[:, :b.shape[1]]
-
-
-int8_matmul.launches = 0
-
-
-def int_mm_operands(a, b):
-    """The operands `torch._int_mm` takes for a @ b: K and N zero padded to
-    multiples of 8 (cuBLASLt's int8 alignment; `_int_mm` refuses others),
-    a row-major, b column-major (on the H100's build the row-major b ran
-    7x slower: 1.54 against 0.22 ms at [38400, 4608] x [4608, 512])."""
-    dk, dn = -a.shape[1] % 8, -b.shape[1] % 8
-    if dk:
-        a = F.pad(a, (0, dk))
-    if dk or dn:
-        b = F.pad(b, (0, dn, 0, dk))
-    return a.contiguous(), b.t().contiguous().t()
-
-
-def int8_matmul_plain(a, b):
-    """a [M, K] int8 times b [K, N] int8 -> [M, N] int32 as a float64
-    product: every partial sum is an integer below 2**53 (|a b| <= 127**2
-    per term), so the product is exact in any order."""
-    return (a.double() @ b.double()).to(torch.int32)
-
-
 def int8_conv_acc(xq, w_int8, stride=1, padding=0):
     """The int8 conv's exact int32 accumulators: xq [N, C, H, W] int8,
-    w_int8 [O, C, kh, kw] int8 -> [N, Ho, Wo, O] int32.  On CUDA tensors
-    one `int8_matmul` (`torch._int_mm`) of `conv_as_matmul`'s operands; on
-    CPU tensors the plain version."""
-    if xq.device.type == 'cpu':
-        return int8_conv_acc_plain(xq, w_int8, stride, padding)
+    w_int8 [O, C, kh, kw] int8, padding an int or (rows, columns) -> [N,
+    Ho, Wo, O] int32: one `int8_matmul` (the op `dana_torch::int8_mm`:
+    `torch._int_mm` on CUDA tensors, the exact float64 product on CPU
+    tensors) of `conv_as_matmul`'s operands, so a traced program holds the
+    same call for either device."""
     cols, wmat, shape = conv_as_matmul(xq, w_int8, stride, padding)
     return int8_matmul(cols, wmat).reshape(shape)
 
@@ -163,19 +224,21 @@ def int8_conv_acc_plain(xq, w_int8, stride=1, padding=0):
     return acc.to(torch.int32).permute(0, 2, 3, 1)
 
 
-def dynamic_int8_conv(x, w_int8, w_scale, bias, stride=1, padding=0):
+def dynamic_int8_conv(x, w_int8, w_scale, bias, stride=1, padding=0,
+                      amax=None):
     """The JAX package's dynamically quantized int8 conv
-    (`layers._dynamic_int8_conv`) on NCHW x: `quantize_activation`, the
-    exact s8 x s8 -> s32 conv (`int8_conv_acc`), then acc * (sx * w_scale)
-    + bias in float32, cast back to x's dtype.  Returns an NCHW view of
-    NHWC memory (channels_last, as the trunk runs); counts each call in
-    `dynamic_int8_conv.runs`."""
-    xq, sx = quantize_activation(x)
+    (`layers._dynamic_int8_conv`) on NCHW x: `quantize_activation` (at
+    max |x| of x, or `amax` when the conv's tensor is larger than x), the
+    exact s8 x s8 -> s32 conv (`int8_conv_acc`; padding an int or (rows,
+    columns)), then acc * (sx * w_scale) + bias in float32, cast back to
+    x's dtype.  Returns an NCHW view of NHWC memory (channels_last, as the
+    trunk runs); counts each call in `dynamic_int8_conv.runs`."""
+    xq, sx = quantize_activation(x, amax)
     acc = int8_conv_acc(xq, w_int8, stride, padding)
     y = acc.float().mul_(sx * w_scale)
     if bias is not None:
         y = y.add_(bias)
-    dynamic_int8_conv.runs += 1
+    build.count(dynamic_int8_conv, 'runs')
     return nhwc_to_nchw(y.to(x.dtype))
 
 

@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 
 KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align', 'nms')
@@ -26,6 +27,10 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}     # name -> nvcc's output (ptxas register report)
+# the rows of an int8 grid run in threads of their own (engine/predict.py):
+# one build per library, and no launch count lost between two threads
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -80,9 +85,22 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        _finish(name, _start(name))
-        lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _finish(name, _start(name))
+                lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return lib
+
+
+def count(fn, attr='launches', key=None):
+    """Add one to the counter `fn.<attr>` (fn a function or a module)
+    and, given a (device, dtype) key, to `fn.launches_by_device[key]`,
+    under a lock."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        if key is not None:
+            fn.launches_by_device[key] += 1
 
 
 def check(err: int, name: str):

@@ -331,11 +331,8 @@ def cisa_pv_bf16(p, v):
 
 
 def _count(wrapper, device, dtype):
-    if dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
-    wrapper.launches_by_device[(str(device), str(dtype)[6:])] += 1
+    build.count(wrapper, 'launches_bf16' if dtype == torch.bfloat16
+                else 'launches', (str(device), str(dtype)[6:]))
 
 
 @torch.library.custom_op('dana_torch::cisa_shots', mutates_args=())

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import sys
 
 import torch
 
@@ -41,8 +42,7 @@ _UNROLL = 9     # odd: the update is antitone, so orbits have period <= 2
 
 
 def _sync_flag(t: torch.Tensor) -> bool:
-    global HOST_SYNCS
-    HOST_SYNCS += 1
+    build.count(sys.modules[__name__], 'HOST_SYNCS')
     return bool(t)
 
 
@@ -160,8 +160,7 @@ def _(sboxes, svalid, iou_threshold, max_output, tile):
             float(iou_threshold),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, 'nms_sorted')
-    nms_sorted.launches += 1
-    nms_sorted.launches_by_device[(str(dev), 'float32')] += 1
+    build.count(nms_sorted, 'launches', (str(dev), 'float32'))
     return pos, keep
 
 
@@ -177,9 +176,7 @@ def _nms(boxes, scores, iou_threshold, max_output, valid, tile):
     if single:
         boxes, scores = boxes[None], scores[None]
         valid = None if valid is None else valid[None]
-    s = scores if valid is None else torch.where(
-        valid, scores, torch.tensor(-torch.inf, dtype=scores.dtype,
-                                    device=scores.device))
+    s = scores if valid is None else torch.where(valid, scores, -torch.inf)
     s_sorted, order = torch.sort(s, dim=-1, descending=True, stable=True)
     svalid = (torch.isfinite(s_sorted) if valid is not None
               else torch.ones_like(s_sorted, dtype=torch.bool))

@@ -262,7 +262,7 @@ def roi_align_int8(feat, rois, output_size: int = 7,
         acc = int8_matmul(wq, fq)
         out = acc.float().reshape(*sw.shape, c) * (sw[..., None] * sf)
         outs.append(out.to(feat.dtype))
-    roi_align_int8.runs += 1
+    build.count(roi_align_int8, 'runs')
     return torch.stack(outs)
 
 
@@ -350,12 +350,8 @@ def _(feat, rois, output_size, spatial_scale, max_samples):
             rois.shape[-1], output_size, spatial_scale, max_samples,
             torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_fwd_bf16' if bf16 else 'roi_align_fwd')
-    if bf16:
-        roi_align.launches_bf16 += 1
-    else:
-        roi_align.launches += 1
-    roi_align.launches_by_device[(str(feat.device), str(feat.dtype)[6:])] \
-        += 1
+    build.count(roi_align, 'launches_bf16' if bf16 else 'launches',
+                (str(feat.device), str(feat.dtype)[6:]))
     return out
 
 
@@ -409,8 +405,7 @@ def roi_align_pw(feat, wy, wx):
             b, r, h, w, c, p,
             torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_pw')
-    roi_align_pw.launches += 1
-    roi_align_pw.launches_by_device[(str(feat.device), 'float32')] += 1
+    build.count(roi_align_pw, 'launches', (str(feat.device), 'float32'))
     return out
 
 

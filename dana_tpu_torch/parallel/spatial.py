@@ -11,7 +11,10 @@ added only at the map's global top and bottom, never at a block boundary.
 The blocks of every activation are the rows [floor(i h / N), floor((i+1)
 h / N)) of its height h, so a residual's two branches line up.  Only
 copies cross the devices: each device computes its rows with the same
-arithmetic as the unsharded layer.
+arithmetic as the unsharded layer.  An int8 conv (`layers.QuantConv2d`)
+quantizes every block at the scale of the whole map (`halo_int8_conv`):
+one max reduced on the first block's device, so the blocks' int8 sums are
+the whole conv's.
 
 `spatial_base` runs a trunk's `base` this way (the bottleneck ResNets,
 with the stride on conv1, and VGG16) and gathers the rows on the first
@@ -80,9 +83,12 @@ def halo_windows(xs, k, s, p, ceil_mode=False, fill=0.0):
 
 def halo_conv(xs, convs):
     """A Conv2d over row blocks: convs[i] (the layer's replica on block
-    i's device, a `layers.Conv2d`: its weight cast to the input's dtype)
-    runs on block i's halo window; the H padding is the window's."""
+    i's device, a `layers.Conv2d`: its weight cast to the input's dtype,
+    or a `layers.QuantConv2d`: `halo_int8_conv`) runs on block i's halo
+    window; the H padding is the window's."""
     c = convs[0]
+    if isinstance(c, L.QuantConv2d):
+        return halo_int8_conv(xs, convs)
     (k, _), (s, sw), (p, pw) = c.kernel_size, c.stride, c.padding
     outs = []
     for t, conv in zip(halo_windows(xs, k, s, p), convs):
@@ -90,6 +96,23 @@ def halo_conv(xs, convs):
         outs.append(F.conv2d(t, conv.weight.to(t.dtype), bias, (s, sw),
                              (0, pw), conv.dilation, conv.groups))
     return outs
+
+
+def halo_int8_conv(xs, convs):
+    """A `layers.QuantConv2d` over row blocks, at the scale of the whole
+    tensor the JAX package's conv sees: each block's max |x| over its own
+    rows (the halo copies repeat rows of other blocks and the zero padding
+    cannot raise it), reduced on the first block's device (then over the
+    data rows of a `layers.ScaleGroup`), and every halo window quantized at
+    that one scale on its own device."""
+    c = convs[0]
+    k, s, p = c.w_int8.shape[2], c.stride, c.padding
+    lead = xs[0].device
+    amax = torch.stack([L.activation_amax(x).to(lead) for x in xs]).amax()
+    amax = L.group_amax(amax)
+    return [L.dynamic_int8_conv(t, conv.w_int8, conv.w_scale, conv.bias, s,
+                                (0, p), amax.to(t.device))
+            for t, conv in zip(halo_windows(xs, k, s, p), convs)]
 
 
 def halo_max_pool(xs, k, s, ceil_mode):
@@ -174,4 +197,5 @@ def shard_trunk_spatial(model, devices, trunks):
 
 
 __all__ = ['out_rows', 'bounds', 'halo_windows', 'halo_conv',
-           'halo_max_pool', 'spatial_base', 'shard_trunk_spatial']
+           'halo_int8_conv', 'halo_max_pool', 'spatial_base',
+           'shard_trunk_spatial']

@@ -13,21 +13,24 @@ of the same architecture and stays far below the weights' size.
 
 The hand kernels are registered ops with fake implementations (K1
 `dana_torch::cisa_shots`, K2 `dana_torch::roi_align`, NMS
-`dana_torch::nms_sorted`), so a program holds each as one call: on the
-card it launches the kernel and counts the launch, on the CPU it runs the
-plain version.  This module imports those ops and never the model code;
-loading an artifact needs nothing else.
+`dana_torch::nms_sorted`), and so is the int8 product
+(`dana_torch::int8_mm`, `torch._int_mm` on the card), so a program holds
+each as one call: on the card it launches the kernel and counts the
+launch, on the CPU it runs the plain version.  This module imports those
+ops and never the model code; loading an artifact needs nothing else.
 
 JAX's `platforms` becomes `device`: the device the artifact serves on, the
-card unless the caller asks for the CPU.  An artifact can be traced on
-another device (`trace_device`, e.g. on the CPU for the card); it is then
-moved by torch.export's move-to-device pass, and the export raises if any
-tensor of the program stays behind.  That pass moves the program's
-constants with `.to`, so an export for the card needs the card on the
-exporting host, whatever the trace device.  An int8 model is exported on
-the device it serves on: its int8 products take each device's own branch
-at trace time (layers.int8_matmul).  `s2d` is refused: the port has no
-space-to-depth stem (utils/args.py `load_cfg`, TPU.STEM_S2D).
+card unless the caller asks for the CPU.  Every program is traced on the
+CPU, through the ops' fake implementations, and then placed on its device
+by `_retarget`, which rewrites the devices the graph names and builds its
+tensors' metadata anew on the target; it moves no tensor.  The forward
+builds every table it needs (positional encodings, anchors, the
+postprocess's and the pixel means) on its input's device, so a program
+holds no tensor constant, and the export refuses one that does.  A host
+without a card (no CUDA, no nvcc) therefore exports for the card, float
+and int8 alike, as the JAX package's `platforms=('tpu',)` exports from a
+CPU build host.  `s2d` is refused: the port has no space-to-depth stem
+(utils/args.py `load_cfg`, TPU.STEM_S2D).
 
 Artifact layout (directory):
     meta.json                      config, buckets, weights' key order
@@ -42,10 +45,12 @@ import os
 
 import torch
 import torch.nn as nn
+import torch.utils._pytree as pytree
 from torch.func import functional_call
 
 # the ops the artifacts call, registered on import
-from dana_tpu_torch.ops import cisa_attention, nms, roi_align  # noqa: F401
+from dana_tpu_torch.ops import (cisa_attention, int8_mm,  # noqa: F401
+                                nms, roi_align)
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 
 BUCKETS = ((608, 1024), (1024, 608), (704, 704), (608, 1216), (1216, 608))
@@ -97,29 +102,63 @@ class _WeightsAsArguments(nn.Module):
                                strict=True)
 
 
+def _retarget(ep, target):
+    """Place the program traced on the CPU on `target`, in place: every
+    device in a node's arguments becomes `target`, and every tensor of a
+    node's metadata a fake tensor of the same shape, strides and dtype on
+    `target`, made in the program's own fake mode.  No tensor is moved, so
+    no card is needed; a program that holds a tensor constant is refused
+    (moving it would need the card)."""
+    consts = [k for k, t in ep.constants.items()
+              if isinstance(t, torch.Tensor)]
+    if consts:
+        raise RuntimeError(f'the program holds tensor constants {consts[:5]}:'
+                           ' build them on the input\'s device in the forward')
+
+    def device(v):
+        return target if isinstance(v, torch.device) else v
+
+    def fake(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        with v.fake_mode:
+            return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                       device=target)
+    for m in ep.graph_module.modules():
+        if isinstance(m, torch.fx.GraphModule):
+            for n in m.graph.nodes:
+                n.args = pytree.tree_map(device, n.args)
+                n.kwargs = pytree.tree_map(device, n.kwargs)
+                if 'val' in n.meta:
+                    n.meta['val'] = pytree.tree_map(fake, n.meta['val'])
+    ep.validate()
+
+
+def program_devices(ep) -> set:
+    """Every device a program names: its nodes' tensor metadata, its
+    nodes' device arguments and its tensor constants."""
+    found = {str(v.device) for n in ep.graph.nodes
+             for v in pytree.tree_leaves(n.meta.get('val'))
+             if isinstance(v, torch.Tensor)}
+    found |= {str(v) for n in ep.graph.nodes
+              for v in pytree.tree_leaves((n.args, n.kwargs))
+              if isinstance(v, torch.device)}
+    return found | {str(t.device) for t in ep.constants.values()
+                    if isinstance(t, torch.Tensor)}
+
+
 def _export(fn, params, args, path, target):
-    """Trace `fn` with the weights as its first argument, move it to
-    `target` if it was traced elsewhere, and save it without its example
-    inputs (the weights among them).  -> its outputs' (shape, dtype)."""
+    """Trace `fn` on the CPU with the weights as its first argument, place
+    it on `target` (`_retarget`) and save it without its example inputs
+    (the weights among them).  -> its outputs' (shape, dtype)."""
     with torch.no_grad():
         ep = torch.export.export(_WeightsAsArguments(fn), (params, *args),
                                  strict=False)
-    outs = [(v.shape, v.dtype) for v in torch.utils._pytree.tree_leaves(
+    outs = [(v.shape, v.dtype) for v in pytree.tree_leaves(
         [n.meta.get('val') for n in ep.graph.find_nodes(op='output')[0]
          .args[0]])]
-    if args[0].device != target:
-        from torch.export.passes import move_to_device_pass
-        ep = move_to_device_pass(ep, target)
-        left = [k for k, t in ep.constants.items()
-                if isinstance(t, torch.Tensor) and t.device != target]
-        left += [n.name for n in ep.graph.nodes
-                 for v in torch.utils._pytree.tree_leaves(n.meta.get('val'))
-                 if isinstance(v, torch.Tensor) and v.device != target]
-        if left:
-            raise RuntimeError(
-                f'the move-to-device pass left {left[:5]} of the program '
-                f'traced for {args[0].device} off {target}: export on '
-                f'{target} itself')
+    if target.type != 'cpu':
+        _retarget(ep, target)
     ep.example_inputs = None
     torch.export.save(ep, path)
     return outs
@@ -133,14 +172,23 @@ def _indexed(device) -> torch.device:
     return dev
 
 
+def _target(device) -> torch.device:
+    """The device an export is for, a card with its index: the current
+    card, or on a host without one cuda:0 (the card a serving process
+    takes first)."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        return torch.device('cuda', dev.index or 0)
+    return _indexed(dev)
+
+
 def _is_quantized(model) -> bool:
     from dana_tpu_torch.models import layers
     return any(isinstance(m, layers.QuantConv2d) for m in model.modules())
 
 
 def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
-                     sup_size=320, s2d=False, device='cuda',
-                     trace_device=None, pp_kwargs=None):
+                     sup_size=320, s2d=False, device='cuda', pp_kwargs=None):
     """Save the predict step for each (H, W) of `buckets` and the support
     encoder under `out_dir`; -> the meta dict (meta.json).
 
@@ -149,8 +197,8 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
     quant.quantize_model included); meta.json records whether it is
     quantized.  config: its DanaConfig (DAnA or cisa: the detectors that
     serve from encoded supports).  The artifacts serve on `device` (the
-    card unless 'cpu' is asked for) and are traced on `trace_device`
-    (default: `device`).  The predict step takes (params, im_data
+    card unless 'cpu' is asked for; a host without a card exports for it
+    too) and are traced on the CPU.  The predict step takes (params, im_data
     [batch_size, H, W, 3] float32 mean-subtracted, im_info [batch_size, 3],
     sup_feat, sup_pooled as the encoder gives them, one row per query) ->
     (dets [batch_size, 100, 5], valid [batch_size, 100]); the encoder takes
@@ -167,45 +215,30 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
         raise ValueError(f'{config.framework} takes each request\'s support '
                          'images: only DAnA and cisa serve from encoded '
                          'supports')
-    if torch.device(device).type == 'cuda' \
-            and not torch.cuda.is_available():
-        raise RuntimeError(
-            f'export for {device}: no card on this host, and the program '
-            'is moved to its device with `.to` (torch.export\'s '
-            'move-to-device pass), which needs one; export on a host with '
-            'the card, or for device="cpu"')
-    target = _indexed(device)
-    here = _indexed(trace_device or device)
+    target = _target(device)
     model = params if isinstance(params, nn.Module) \
         else from_jax_params(params, config)
     quantized = _is_quantized(model)
-    if quantized and here != target:
-        raise ValueError(
-            f'an int8 model is exported on the device it serves on '
-            f'({target}), not traced on {here}: its int8 products take '
-            'each device\'s own branch at trace time')
-    if target.type == 'cuda':
-        use_full_f32()
-    # the trace reads only these tensors (functional_call): the caller's
-    # module stays where it is
-    state = {k: v.detach().to(here) for k, v in model.state_dict().items()}
+    # the trace reads only these tensors (functional_call), on the CPU: the
+    # caller's module stays where it is
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     pp_kwargs = dict(cfg.postprocess_kwargs() if pp_kwargs is None
                      else pp_kwargs)
     os.makedirs(out_dir, exist_ok=True)
     b, n_sup = batch_size, config.n_way * config.n_shot
 
-    sup = torch.zeros(1, n_sup, sup_size, sup_size, 3, device=here)
+    sup = torch.zeros(1, n_sup, sup_size, sup_size, 3)
     (feat, fdt), (pooled, pdt) = _export(
         _Encode(model, config), state, (sup,),
         os.path.join(out_dir, 'encode_supports.pt2'), target)
-    sup_feat = torch.zeros(b, *feat[1:], dtype=fdt, device=here)
-    sup_pooled = torch.zeros(b, *pooled[1:], dtype=pdt, device=here)
+    sup_feat = torch.zeros(b, *feat[1:], dtype=fdt)
+    sup_pooled = torch.zeros(b, *pooled[1:], dtype=pdt)
 
     predict = _Predict(model, config, pp_kwargs)
     table = []
     for h, w in buckets:
-        im = torch.zeros(b, h, w, 3, device=here)
-        info = torch.tensor([[h, w, 1.0]] * b, device=here)
+        im = torch.zeros(b, h, w, 3)
+        info = torch.tensor([[h, w, 1.0]] * b)
         name = f'predict_{h}x{w}.pt2'
         _export(predict, state, (im, info, sup_feat, sup_pooled),
                 os.path.join(out_dir, name), target)
@@ -229,7 +262,6 @@ def _zero_trace_counters():
     run: zero them after an export."""
     from dana_tpu_torch.models import layers
     layers.dynamic_int8_conv.runs = 0
-    layers.int8_matmul.launches = 0
     roi_align.roi_align_int8.runs = 0
 
 

@@ -150,26 +150,6 @@ def _refuse_unported(args):
                          'the .dkpt pickle only')
 
 
-def refuse_int8_grid(args, c):
-    """Int8 serving on a grid whose data rows or spatial blocks split a
-    quantized conv's input is refused: the activation scale is the max
-    over the whole tensor a conv sees, which JAX forms over the global
-    batch (GSPMD) and the port's rows and blocks would form each over its
-    own part.  --mGPUs serves a request's rows on the grid's data rows;
-    --sp splits the trunk's convs, quantized under scope 'all'.  --tp
-    splits no conv of the trunk, and under --dist each rank's chunk is its
-    own tensor in both packages."""
-    if not c.TPU.QUANT_INT8 or args.dist:
-        return
-    if args.mGPUs or (args.sp > 1 and c.TPU.QUANT_SCOPE == 'all'):
-        raise SystemExit(
-            'TPU.QUANT_INT8 with --mGPUs, or with --sp under QUANT_SCOPE '
-            "'all': the grid would split a quantized conv's input, whose "
-            'activation scale is one max over the whole tensor '
-            '(ROADMAP Queue A 12); serve int8 on one device per process '
-            '(--dist)')
-
-
 def load_cfg(args):
     """-> the config tree: the built-in res50 values (with --ls, those of
     res101_ls.yml), then the --ascale preset, then --set.  Refuses settings

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,6 +18,41 @@ def resolve_device(device='cuda') -> torch.device:
             'CUDA is not available; pass device="cpu" to run the plain '
             'PyTorch versions of the kernels on the CPU')
     return dev
+
+
+_TABLES: dict = {}
+
+
+def device_table(key, device, build) -> torch.Tensor:
+    """The table `build()` makes on `device`, made once per (key, device)
+    and kept, so a request reuses it; callers never write into it.  Under
+    a trace (torch.export) it is built anew: the traced serving program
+    (dana_tpu_torch/serve.py) then computes it on the device it runs on
+    and holds no tensor constant, which could not be placed on the card
+    from a host without one."""
+    if torch.compiler.is_compiling():
+        return build()
+    k = (key, str(torch.device(device)))
+    table = _TABLES.get(k)
+    if table is None:
+        with torch.inference_mode(False):      # usable under autograd too
+            table = _TABLES[k] = build()
+    return table
+
+
+def host_table(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A small table of host numbers (a nested sequence or numpy array) as
+    a tensor on `device` (`device_table`), built there from one
+    `torch.full` per entry, each value rounded to `dtype` as
+    `torch.tensor` rounds it."""
+    arr = np.asarray(values, np.float64)
+
+    def build():
+        entries = [torch.full((), float(v), dtype=dtype, device=device)
+                   for v in arr.ravel()]
+        return torch.stack(entries).reshape(arr.shape)
+    return device_table(('host', dtype, arr.shape, arr.tobytes()), device,
+                        build)
 
 
 def use_full_f32():

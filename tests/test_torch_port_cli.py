@@ -137,7 +137,24 @@ def test_cli_fsod_matches_jax(synth_root, tmp_path):
     assert result['timing']['chunks'] == 5
 
 
-def test_cli_int8_matches_jax(synth_root, tmp_path, capsys):
+@pytest.fixture(scope='module')
+def port_int8_run(synth_root, tmp_path_factory):
+    """The port's CLI with --set TPU.QUANT_INT8 True on one device, and the
+    int8 line it printed."""
+    import contextlib
+    import io
+    out = tmp_path_factory.mktemp('port_int8')
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = port_cli.main(_argv(out, '--device', 'cpu') + INT8_SET)
+    return out, result, [ln for ln in printed.getvalue().splitlines()
+                         if 'int8' in ln]
+
+
+INT8_SET = ['TPU.QUANT_INT8', 'True']
+
+
+def test_cli_int8_matches_jax(port_int8_run, tmp_path, capsys):
     """--set TPU.QUANT_INT8 True (scope 'tail': layer4 in int8, float32
     maps, so the float32 RoIAlign) in both CLIs on the seed-5 weights: the
     JAX CLI's line, and its detections and COCOeval stats at the float32
@@ -146,17 +163,37 @@ def test_cli_int8_matches_jax(synth_root, tmp_path, capsys):
     the packages could flip a quantized step at an exact half and move a
     box by more than COORD_ATOL; at this size none does (the test would
     name the box)."""
-    int8 = ['TPU.QUANT_INT8', 'True']
-    jax_run = _jax_cli(tmp_path / 'jax', extra_set=int8)
+    jax_run = _jax_cli(tmp_path / 'jax', extra_set=INT8_SET)
     jax_line = [ln for ln in capsys.readouterr().out.splitlines()
                 if 'int8' in ln]
-    out = tmp_path / 'port'
-    result = port_cli.main(_argv(out, '--device', 'cpu') + int8)
-    port_line = [ln for ln in capsys.readouterr().out.splitlines()
-                 if 'int8' in ln]
+    out, result, port_line = port_int8_run
     assert port_line == jax_line == [
         'int8-quantized 10 convs (scope=tail) + int8 roi_align']
     _check_against_jax(jax_run, out, result)
+
+
+def test_cli_int8_on_data_rows_matches_one_device(port_int8_run, tmp_path,
+                                                  monkeypatch):
+    """--mGPUs with TPU.QUANT_INT8 over two data rows (['cpu', 'cpu']):
+    each chunk of 4 splits over the rows, whose int8 convs take the max
+    over the whole chunk, so the detections equal the one-device int8
+    CLI's (tie-aware at COORD_ATOL on the query grid)."""
+    monkeypatch.setattr(port_cli, 'local_devices',
+                        lambda device='cuda': [torch.device('cpu')] * 2)
+    out = tmp_path / 'mgpus'
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)     # two rows' threads share the CPU's cores
+    try:
+        result = port_cli.main(_argv(out, '--device', 'cpu', '--mGPUs')
+                               + INT8_SET)
+    finally:
+        torch.set_num_threads(n)
+    one, one_result, _ = port_int8_run
+    assert result['timing']['chunks'] == one_result['timing']['chunks']
+    a, b = tmp_path / 'a', tmp_path / 'b'
+    _on_query_grid(out, a)
+    _on_query_grid(one, b)
+    _assert_detections_match(str(a), str(b), coord_atol=COORD_ATOL)
 
 
 def _config():
@@ -194,7 +231,7 @@ def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
     (['--dist'], '--num_procs'), (['--dist', '--num_procs', '2'], '--proc_id'),
     (['--dist', '--num_procs', '2', '--proc_id', '2'], 'not below'),
     (['--net', 'frcnn'], 'postprocess'),
-    (['--mGPUs', '--set', 'TPU.QUANT_INT8', 'True'], 'Queue A 12'),
+    (['--set', 'TPU.QUANT_SCOPE', 'every'], 'the scopes are'),
     (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
     (['--net', 'fsod', '--backbone', 'vgg16'], 'ResNet-only'),
     (['--backbone', 'res152'], 'the trunks are'),

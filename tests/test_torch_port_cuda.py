@@ -648,6 +648,65 @@ def test_int8_matmul_refuses_short_products(dev):
         L.int8_matmul(a, a.t())
 
 
+@pytest.mark.parametrize('m, k, n', [(38400, 4608, 512), (4800, 147, 64),
+                                     (300, 13, 10)])
+def test_int8_mm_op_on_the_card_is_exact(dev, m, k, n):
+    """`dana_torch::int8_mm` on the card (`torch._int_mm`, operands padded
+    to multiples of 8) equals the exact float64 product, counts one launch
+    on its device, and passes opcheck."""
+    from dana_tpu_torch.ops import int8_mm
+    gen = torch.Generator(device=dev).manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8,
+                      generator=gen)
+    b = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                      generator=gen)
+    fn = int8_mm.int8_matmul
+    key = (str(a.device), 'int8')
+    before, by_dev = fn.launches, fn.launches_by_device[key]
+    got = fn(a, b)
+    assert fn.launches == before + 1
+    assert fn.launches_by_device[key] == by_dev + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8_mm.int8_matmul_plain(a, b))
+    if m < 10000:
+        torch.library.opcheck(int8_mm.int8_mm, (a, b))
+
+
+def test_int8_request_on_data_rows_matches_one_device(dev):
+    """An int8 ('all') detector on cuda:0 named twice (two data rows, one
+    thread each, one activation scale) against the one-device request, on
+    queries of which one is 8x the others, both on the one-device
+    request's proposals (K1's and cuDNN's last bits reorder near-equal RPN
+    scores, ROADMAP C1): RPN outputs and heads at TOL, detections
+    tie-aware at BOX_ATOL (chip_smoke.py `compare_grid`, phase 4's
+    tolerances); each row launches K1, K2 and the int8 products."""
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.engine.predict import Predictor
+    from dana_tpu_torch.models import dana
+    from dana_tpu_torch.models import layers as L
+    config = dana.DanaConfig(n_way=2, n_shot=1, test_pre_nms=300,
+                             test_post_nms=50, roi_align_int8=True)
+    tree = quant.quantize_params(dana.init_params(config, seed=0), 'all')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sup = (torch.randn(1, 224, 224, 3, device=dev, generator=gen) * 50)
+    im = torch.randn(4, 256, 320, 3, device=dev, generator=gen) * 40
+    im[2] *= 8
+    info = torch.tensor([[256.0, 320.0, 1.0]] * 4, device=dev)
+    one, rows = Predictor(tree, config), Predictor(tree, config,
+                                                   devices=[dev, dev])
+    for p in (one, rows):
+        p.encode_supports(1, sup.cpu().numpy())
+    before = (ca.cisa_attention_shots.launches, ra.roi_align.launches,
+              L.int8_matmul.launches)
+    rows.forward(im, info, [1] * 4)
+    assert (ca.cisa_attention_shots.launches - before[0],
+            ra.roi_align.launches - before[1],
+            L.int8_matmul.launches - before[2]) == (4, 2, 2 * 53)
+    diffs = chip_smoke.compare_grid(rows, one, im, info, [1] * 4,
+                                    label='int8 rows')
+    assert max(diffs.values()) <= TOL
+
+
 # the NMS sites of the main paths: (B, N, M, IoU threshold)
 NMS_SHAPES = {'serving': (8, 6000, 300, 0.7),
               'postprocess': (8, 300, 100, 0.3),

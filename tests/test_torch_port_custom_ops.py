@@ -1,5 +1,6 @@
 """The kernels' registered ops (K1 `dana_torch::cisa_shots`, K2
-`dana_torch::roi_align`, NMS `dana_torch::nms_sorted`) on the CPU:
+`dana_torch::roi_align`, NMS `dana_torch::nms_sorted`) and int8 serving's
+product (`dana_torch::int8_mm`) on the CPU:
 `torch.library.opcheck` (schema, fake implementation, autograd
 registration, AOT dispatch) in float32 and bf16, and the NMS op's plain
 version against the JAX package's `nms_fixed` / `nms_fixed_tiled` on the
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 from dana_tpu.ops import nms as jnms
 
 from dana_tpu_torch.ops import cisa_attention as ca
+from dana_tpu_torch.ops import int8_mm
 from dana_tpu_torch.ops import nms as tnms
 from dana_tpu_torch.ops import roi_align as ra
 
@@ -29,6 +31,21 @@ def _boxes(rng, b, n, extent=120.0, size=40.0):
     xy = rng.random((b, n, 2)) * extent
     wh = rng.random((b, n, 2)) * size + 1
     return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize('m, k, n', [(40, 24, 16), (19, 13, 10)])
+def test_int8_mm_op_opcheck(m, k, n):
+    """The int8 product's op: its fake implementation and schema, and on
+    the CPU the exact product (K and N off multiples of 8 included)."""
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    torch.library.opcheck(int8_mm.int8_mm, (a, b))
+    got = int8_mm.int8_matmul(a, b)
+    assert got.dtype == torch.int32 and torch.equal(got.long(),
+                                                    a.long() @ b.long())
+    with pytest.raises(ValueError, match='CPU or CUDA'):
+        int8_mm.int8_matmul(a.to('meta'), b.to('meta'))
 
 
 def test_nms_op_opcheck():

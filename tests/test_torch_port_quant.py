@@ -416,18 +416,20 @@ def test_quantized_recipe_forward_on_jax_features(small, scope,
 # ------------------------------------------------------------ refusals
 
 def test_int8_grids_and_training_are_refused(small):
-    """A quantized model serves on one data row (and under sp only when
-    its trunk below layer4 is float); tp splits no trunk conv.  Trainer
-    refuses it: training takes the float tree."""
+    """A quantized model serves on every grid: data rows (its rows run in
+    one `layers.ScaleGroup`), sp under either scope (the blocks share one
+    scale) and tp (which splits no trunk conv); tests/test_torch_port_int8
+    _grid.py holds their requests.  Trainer refuses it: training takes the
+    float tree."""
     _, tconf, params = small
     tail = from_jax_params(jq.quantize_params(params, 'tail'), tconf)
     every = from_jax_params(jq.quantize_params(params, 'all'), tconf)
     two = ['cpu', 'cpu']
-    for model, kw in ((tail, {}), (every, {}), (every, {'sp': 2})):
-        with pytest.raises(ValueError, match='Queue A 12'):
-            Predictor(model, tconf, devices=two, **kw)
-    for kw in ({'sp': 2}, {'tp': 2}):
-        Predictor(tail, tconf, devices=two, **kw)
-    Predictor(every, tconf, devices=two, tp=2)
+    for model, kw in ((tail, {}), (every, {}), (every, {'sp': 2}),
+                      (tail, {'sp': 2}), (tail, {'tp': 2}),
+                      (every, {'tp': 2})):
+        pred = Predictor(model, tconf, devices=two, **kw)
+        assert pred.int8 and len(pred.rows) == (1 if kw else 2)
+    assert not Predictor(small[2], tconf, device='cpu').int8
     with pytest.raises(ValueError, match='float tree'):
         Trainer(tail, tconf, device='cpu')

@@ -174,18 +174,62 @@ def test_export_refuses_s2d(small, tmp_path):
     assert not (tmp_path / 'a').exists()
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason='a host with a card '
-                    'exports for it')
-def test_export_for_the_card_needs_the_card(small, tmp_path):
-    """Tracing on the CPU does not export for the card on a host without
-    one: the move-to-device pass needs the card, and the export says so
-    before it traces anything."""
+def _program_ops(graph):
+    """The ops a program's graph calls, in order."""
+    return [str(n.target) for n in graph.nodes if n.op == 'call_function']
+
+
+def _assert_card_artifact(card_dir, cpu_step, files):
+    """An artifact for the card written on this host without one: every
+    tensor its programs' nodes describe and every device they name is the
+    card's, no tensor constant, each program loads, and the predict step
+    calls the ops of `cpu_step` (the CPU export's, loaded) in the same
+    order; `serve.load` refuses it here rather than serving on the CPU.
+    -> the predict step's ops."""
+    with open(os.path.join(card_dir, 'meta.json')) as f:
+        assert json.load(f)['device'] == 'cuda:0'
+    for name in files:
+        ep = torch.export.load(os.path.join(card_dir, name))
+        assert serve.program_devices(ep) == {'cuda:0'}, name
+        assert not [k for k, t in ep.constants.items()
+                    if isinstance(t, torch.Tensor)], name
+    ops = _program_ops(ep.graph)
+    assert ops == _program_ops(cpu_step.graph)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        serve.load(card_dir)
+    return ops
+
+
+def test_export_for_the_card_needs_the_card(small, exported, tmp_path):
+    """The float32 export for the card is written on this host without
+    one (traced on the CPU, placed on cuda:0), its predict step the CPU
+    export's op for op, and only the card serves it: `serve.load` here
+    raises rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a host with a card serves the artifact instead')
     _, tconf, _, models = small
-    with pytest.raises(RuntimeError, match='no card on this host'):
-        serve.export_predictor(models[0], tconf, str(tmp_path / 'a'),
-                               buckets=BUCKETS[:1], batch_size=1,
-                               sup_size=224, trace_device='cpu')
-    assert not os.path.exists(tmp_path / 'a')
+    out = str(tmp_path / 'a')
+    meta = serve.export_predictor(models[0], tconf, out, buckets=BUCKETS[:1],
+                                  batch_size=2, sup_size=224, device='cuda')
+    assert not meta['quantized']
+    _assert_card_artifact(out, exported[2]._predict[BUCKETS[0]],
+                          ['encode_supports.pt2', 'predict_64x96.pt2'])
+
+
+def test_positional_table_and_anchors_built_on_the_device():
+    """The tables the forward builds on its device, so that a program
+    holds no constant, equal the numpy tables they replace."""
+    from dana_tpu_torch.core import anchors
+    for length, c in ((49, 1024), (400, 1024), (400, 512)):
+        np.testing.assert_array_equal(
+            tdana._pe(length, torch.zeros(1, c), torch.float32).numpy(),
+            tdana.positional_encoding(length, c))
+    base = anchors.generate_anchors(scales=np.array([4, 8, 16, 32]))
+    sx, sy = np.meshgrid(np.arange(9) * 16, np.arange(5) * 16)
+    shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], 1)
+    np.testing.assert_array_equal(
+        anchors.shifted_anchors(5, 9, 16, base).numpy(),
+        (base[None] + shifts[:, None]).reshape(-1, 4).astype(np.float32))
 
 
 def test_second_seed_through_first_artifact(small, exported):
@@ -262,7 +306,8 @@ def test_serves_in_a_process_without_the_model_code(small, exported,
 @pytest.fixture(scope='module')
 def cli_export(tmp_path_factory):
     """tools/torch_export_serving.py on a JAX-written .dkpt (DAnA 2-way
-    1-shot at the CLI's config: 12 anchors) with --quant tail."""
+    1-shot at the CLI's config: 12 anchors) with --quant tail, and the
+    artifact loaded on the CPU."""
     sys.path.insert(0, os.path.join(ROOT, 'tools'))
     import torch_export_serving
     tmp = tmp_path_factory.mktemp('cli')
@@ -275,11 +320,12 @@ def cli_export(tmp_path_factory):
             '--quant', 'tail', '--buckets', '64x96', '--bs', '1',
             '--platforms', 'cpu']
     meta = torch_export_serving.main(argv)
-    return torch_export_serving, tree, ckpt, out, meta
+    return (torch_export_serving, tree, ckpt, out, meta,
+            serve.load(out, device='cpu'))
 
 
 def test_cli_exports_a_quantized_artifact(cli_export):
-    _, _, _, out, meta = cli_export
+    _, _, _, out, meta, _ = cli_export
     assert meta['quantized'] and meta['buckets'] == [
         {'bucket': [64, 96], 'file': 'predict_64x96.pt2'}]
     assert meta['device'] == 'cpu' and meta['batch_size'] == 1
@@ -289,14 +335,13 @@ def test_cli_exports_a_quantized_artifact(cli_export):
 
 def test_int8_tail_artifact_equals_live_int8(cli_export):
     from dana_tpu_torch.utils import config as tcfg
-    _, tree, _, out, _ = cli_export
+    _, tree, _, _, _, pred = cli_export
     from dana_tpu_torch.utils.args import ASCALE_PRESETS
     c = tcfg.default_cfg()
     tcfg.cfg_from_list(c, ASCALE_PRESETS[4])          # the CLI's default
     config = tcfg.dana_config(c, 2, 1)
     model = from_jax_params(quant.quantize_params(tree, 'tail'), config)
     assert quant.count_int8(model) == 10
-    pred = serve.load(out, device='cpu')
     sup, im, info = _inputs(6, b=1, sup_size=320)       # the tool's default
     params = model.state_dict()
     feats, rows, want = _live(model, config, sup, im, info)
@@ -305,7 +350,7 @@ def test_int8_tail_artifact_equals_live_int8(cli_export):
 
 
 def test_cli_refuses_an_anchor_mismatch(cli_export, tmp_path):
-    tool, _, ckpt, _, _ = cli_export
+    tool, _, ckpt, _, _, _ = cli_export
     with pytest.raises(SystemExit, match='anchor mismatch'):
         tool.main(['--checkpath', ckpt, '--out', str(tmp_path / 'a'),
                    '--ascale', '3', '--platforms', 'cpu'])
@@ -314,22 +359,20 @@ def test_cli_refuses_an_anchor_mismatch(cli_export, tmp_path):
                    '--s2d'])
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason='a host with a card '
-                    'exports for it')
-def test_cli_trace_on_cpu_for_the_card_needs_the_card(cli_export, tmp_path,
-                                                      monkeypatch):
-    """--trace-on cpu reaches the export as its trace device, and the
-    export for the card (the default --platforms) is refused on a host
-    without one."""
-    tool, _, ckpt, _, _ = cli_export
-    seen, real = {}, serve.export_predictor
-
-    def spy(*args, **kw):
-        seen.update(kw)
-        return real(*args, **kw)
-    monkeypatch.setattr(serve, 'export_predictor', spy)
-    with pytest.raises(RuntimeError, match='no card on this host'):
-        tool.main(['--checkpath', ckpt, '--out', str(tmp_path / 'a'),
-                   '--way', '2', '--shot', '1', '--buckets', '64x96',
-                   '--bs', '1', '--trace-on', 'cpu'])
-    assert seen['device'] == 'cuda' and seen['trace_device'] == 'cpu'
+def test_cli_trace_on_cpu_for_the_card_needs_the_card(cli_export, tmp_path):
+    """`--platforms cuda --quant tail` (the JAX tool's `--platforms tpu`)
+    traces on the CPU of this host without a card and writes the int8
+    artifact for the card, its predict step the CPU export's op for op
+    (each int8 product one `dana_torch::int8_mm` call either way); only
+    the card serves it (`serve.load` here raises)."""
+    if torch.cuda.is_available():
+        pytest.skip('a host with a card serves the artifact instead')
+    tool, _, ckpt, _, _, cpu_pred = cli_export
+    out = str(tmp_path / 'a')
+    meta = tool.main(['--checkpath', ckpt, '--out', out, '--way', '2',
+                      '--shot', '1', '--quant', 'tail', '--buckets', '64x96',
+                      '--bs', '1', '--platforms', 'cuda'])
+    assert meta['quantized']
+    ops = _assert_card_artifact(out, cpu_pred._predict[(64, 96)],
+                                ['encode_supports.pt2', 'predict_64x96.pt2'])
+    assert sum(op == 'dana_torch.int8_mm.default' for op in ops) == 10

@@ -10,16 +10,16 @@ the weights stay in the checkpoint and travel as an argument.
     python tools/torch_export_serving.py --checkpath ckpt.dkpt \\
         --out artifacts/dana_r50 [--bs 8] [--way 2] [--shot 3] \\
         [--arch resnet50] [--quant tail|all] [--platforms cuda|cpu] \\
-        [--trace-on cpu] [--buckets 608x1024,704x704] [--ascale 3|4] \\
-        [--set KEY VALUE ...]
+        [--buckets 608x1024,704x704] [--ascale 3|4] [--set KEY VALUE ...]
 
 `--platforms` names the device the artifact serves on (default: the
-card).  `--trace-on cpu` traces a float model on the CPU and moves the
-program to the card (serve.py `trace_device`); the move needs the card
-on this host too.  The config maps as the port's CLIs map theirs
-(dana_tpu_torch/utils/args.py): the built-in cfgs/res50.yml values
-(`--cfg cfgs/res101_ls.yml` applies --ls's values; the port reads no other
-YAML), the --ascale preset, then --set.  `--s2d` is refused, as the port's
+card).  The programs are traced on the CPU and placed on that device
+(serve.py `_retarget`), so `--platforms cuda` exports for the card on a
+build host without one, `--quant` included, as the JAX tool's
+`--platforms tpu` does on a CPU host.  The config maps as the port's
+CLIs map theirs (dana_tpu_torch/utils/args.py): the built-in
+cfgs/res50.yml values (`--cfg cfgs/res101_ls.yml` applies --ls's values;
+the port reads no other YAML), the --ascale preset, then --set.  `--s2d` is refused, as the port's
 CLIs refuse TPU.STEM_S2D.  Tested by tests/test_torch_port_serve.py.
 """
 
@@ -48,9 +48,6 @@ def main(argv=None):
     ap.add_argument('--platforms', nargs='*', default=None,
                     help='the device the artifact serves on: cuda (the '
                          'default) or cpu')
-    ap.add_argument('--trace-on', dest='trace_device', default=None,
-                    help='the device the program is traced on before it is '
-                         'moved to --platforms (default: that device)')
     ap.add_argument('--buckets', default=None,
                     help='comma list like 608x1024,704x704 '
                          '(default: TPU.SIZE_BUCKETS)')
@@ -127,8 +124,7 @@ def main(argv=None):
 
     meta = serve.export_predictor(
         model, config, args.out, buckets=buckets, batch_size=args.bs,
-        device=platforms[0], trace_device=args.trace_device,
-        pp_kwargs=config_lib.postprocess_kwargs(c))
+        device=platforms[0], pp_kwargs=config_lib.postprocess_kwargs(c))
     total = sum(os.path.getsize(os.path.join(args.out, f))
                 for f in os.listdir(args.out))
     print(f"exported {len(meta['buckets'])} bucket artifacts + encoder "
