@@ -260,6 +260,28 @@ Run from the repository root.  Phases, each of which fails the run:
      in that process (2 K1, 1 K2 and 2 NMS a request, in the recipe's
      dtypes, and 10 int8 products under int8; no NMS host sync), request
      times (after an untimed first call) beside the live predictor's.
+ 16. the space-to-depth stem (TPU.STEM_S2D; run after phase 14, inside its
+     synth root, as its CLI part serves phase 7's checkpoint): (a) phase
+     4's detector with its supports packed (data/blob.py `s2d_pack`, [6,
+     163, 163, 12]) serves REQUESTS requests of uint8 queries packed with
+     the rounded means as their border ([8, 307, 515, 12]) as phase 4
+     does (K1 2, K2 1, NMS 2 a request, no NMS host sync; request 0
+     against the plain versions), then one request of float queries
+     through both stems: the trunk's features and the RPN's scores and
+     deltas within 1e-4 + 1e-4 |x|, the heads on the direct path's
+     proposals within 1e-4, the detections on them tie-aware; (b) conv1
+     direct, on the packing and on the packing zero-padded to 16 channels,
+     in float32 and bf16 channels_last, by CUDA events beside its bound;
+     requests of both stems in float32 and the default recipe, alternating;
+     the host's pack and mean subtraction of a batch of 8, native against
+     numpy, on one thread and the loader's threads; (c) phase 5's steps on
+     packed episodes (K1 3, K3 1, NMS 1 a step; step 0 against the plain
+     versions; conv1 frozen); (d) int8 'all' on packed queries (53
+     `_int_mm` a request, conv1's included) against the plain path; (e)
+     the s2d export of the 608x1024 bucket and the encoder, served in
+     this process bit for bit against the live port; (f) the dataset CLI
+     with --set TPU.STEM_S2D True on phase 7's checkpoint, its img/s,
+     assembly thread-seconds and stats beside phase 6's.
 Every phase that counts launches counts NMS too (the proposals, and the
 postprocess of a served request or a CLI chunk).
 """
@@ -1397,11 +1419,13 @@ def compare_paths(model, config, query, info, forward_kw, predict=None,
     return diffs
 
 
-def serving_predictor(seed, model=None, **grid):
+def serving_predictor(seed, model=None, s2d=False, **grid):
     """The served detector: `model`, a (config, params) pair, by default
     DAnA res50 2-way 3-shot with random weights from `seed`, on the card
     (or the `grid` Predictor keywords devices, tp, sp), the supports of
-    classes 0 and 1 encoded."""
+    classes 0 and 1 encoded (with `s2d` packed for the space-to-depth
+    stem, data/blob.py `s2d_pack`)."""
+    from dana_tpu_torch.data import blob
     from dana_tpu_torch.engine.predict import Predictor
     from dana_tpu_torch.utils import config as cfg
     config, params = model or cfg.get_model('res50', way=2, shot=3,
@@ -1412,7 +1436,7 @@ def serving_predictor(seed, model=None, **grid):
     for cls in range(2):
         sup = rng.integers(0, 256, (config.n_shot, SUPPORT_HW, SUPPORT_HW,
                                     3)).astype(np.float32) - means
-        pred.encode_supports(cls, sup)
+        pred.encode_supports(cls, blob.s2d_pack(sup) if s2d else sup)
     return pred
 
 
@@ -1461,18 +1485,19 @@ def _suffix(dtype):
 
 
 def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
-                 pred=None, keep=None, nms_record=None):
+                 pred=None, keep=None, nms_record=None, requests=None):
     """n requests of `model` (serving_predictor's default: the main path;
-    or of `pred`, a serving predictor built already), then request 0 again
-    on the plain versions, held at `tol` (compare_paths); `keep` (a dict)
-    gets request 0's detections under 'dets', `nms_record` (a list) request
-    0's NMS arguments (`recorded_nms`).  -> (launches, summary)."""
+    or of `pred`, a serving predictor built already; `requests` in place
+    of `serving_requests`'), then request 0 again on the plain versions,
+    held at `tol` (compare_paths); `keep` (a dict) gets request 0's
+    detections under 'dets', `nms_record` (a list) request 0's NMS
+    arguments (`recorded_nms`).  -> (launches, summary)."""
     from dana_tpu_torch import quant
     from dana_tpu_torch.ops import nms
 
-    n = n or REQUESTS
+    n = len(requests) if requests else (n or REQUESTS)
     pred = pred or serving_predictor(seed, model)
-    requests = serving_requests(seed, n)
+    requests = requests or serving_requests(seed, n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1490,7 +1515,7 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
     launches = read_launches()
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'{label}: {n} requests of {BATCH} x {QUERY_HW} uint8, '
+    print(f'{label}: {n} requests of {list(requests[0][0].shape)} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
           f'launches {launches}, NMS host syncs {syncs}', flush=True)
     want = want_launches(pred.config, n, training=False,
@@ -1635,11 +1660,12 @@ def compare_step(params, config, seed, batch, record, metrics, grads,
 
 
 def training_path(seed, model=None, label='main path', steps=None,
-                  nms_record=None):
+                  nms_record=None, pack=None):
     """`steps` SGD steps of the Trainer on `model`, a (config, params) pair
     (by default the main path's detector), then step 0 again on the plain
-    versions; `nms_record` (a list) gets step 0's NMS arguments.
-    -> (launches, summary)."""
+    versions; `nms_record` (a list) gets step 0's NMS arguments; `pack`
+    maps each episode before its step (phase 16: the space-to-depth
+    packing).  -> (launches, summary)."""
     from dana_tpu_torch.engine.train import LOSSES, Trainer
     from dana_tpu_torch.ops import nms
     from dana_tpu_torch.utils import config as cfg
@@ -1649,6 +1675,8 @@ def training_path(seed, model=None, label='main path', steps=None,
     steps = steps or STEPS
     trainer = Trainer(params, config, seed=seed)        # device='cuda'
     episodes = training_episodes(seed, steps, trainer.device)
+    if pack is not None:
+        episodes = [pack(e) for e in episodes]
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1670,8 +1698,9 @@ def training_path(seed, model=None, label='main path', steps=None,
     launches = read_launches()
     syncs = nms.HOST_SYNCS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'{label} training: {steps} steps of {TRAIN_BATCH} x {QUERY_HW} '
-          f'uint8 episodes, ms per step {step_ms}, peak memory {peak:.2f} '
+    print(f'{label} training: {steps} steps of '
+          f'{list(episodes[0]["im_data"].shape)} uint8 episodes, ms per '
+          f'step {step_ms}, peak memory {peak:.2f} '
           f'GiB, launches {launches}, NMS host syncs {syncs}, metrics '
           f'{metrics}', flush=True)
     want = want_launches(config, steps, training=True)
@@ -3970,6 +3999,358 @@ def serving_export_path(seed, card, f32_serving):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 16
+
+# the dataset CLI's --set for the space-to-depth stem
+S2D_SET = ('TPU.STEM_S2D', 'True')
+HOST_ITERS = 5                # timed passes of each host pack, median kept
+CONV1_ITERS = 20
+
+
+def s2d_requests(requests):
+    """`serving_requests`' requests with their uint8 queries packed for
+    the space-to-depth stem (data/blob.py `s2d_pack`, the rounded means as
+    the border): [BATCH, H/2+3, W/2+3, 12]."""
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.utils import config as cfg
+    pad = blob.u8_pad_of(cfg.PIXEL_MEANS)
+    return [(blob.s2d_pack(q, u8_pad=pad), info, classes)
+            for q, info, classes in requests]
+
+
+def s2d_against_direct(seed, pred_d, pred_s):
+    """Phase 16 (a): one request of float mean-subtracted queries through
+    the direct stem (pred_d) and its packing through the space-to-depth
+    stem (pred_s, the same supports packed): the trunk's features and the
+    RPN's scores and deltas within TOL (1e-4 + 1e-4 |x|), the heads on
+    the direct path's proposals within TOL, and the detections on those
+    proposals tie-aware.  -> the max |diff| of each."""
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.models import dana, frameworks
+    from dana_tpu_torch.utils import config as cfg
+    config = pred_d.config
+    query, info, classes = serving_requests(seed, 1)[0]
+    qf = query.astype(np.float32) - np.asarray(cfg.PIXEL_MEANS, np.float32)
+    qd = blob.s2d_pack(qf)
+    runs = {}
+    for name, pred, q in (('direct', pred_d, qf), ('s2d', pred_s, qd)):
+        record = []
+        pinned = None if name == 'direct' else runs['direct'][0][0][1]
+        q_t = torch.as_tensor(q, device=DEV)
+        with pinned_proposals(record, pinned), torch.inference_mode():
+            feat = dana.query_features(pred.model, config, q_t)
+            out = frameworks.forward(
+                pred.model, config, q_t, torch.as_tensor(info, device=DEV),
+                support_feats=pred.batch_support_feats(classes))
+            if name == 'direct':
+                pinned = record[0][1]
+            with pinned_proposals([], pinned):
+                dets = pred.predict(q, info, classes)
+        runs[name] = record, feat, out, dets
+    (rec_d, feat_d, out_d, dets_d), (rec_s, feat_s, out_s, dets_s) = \
+        runs['direct'], runs['s2d']
+    diffs = {'trunk': check_close('s2d trunk features', feat_s, feat_d)}
+    for i, key in enumerate(('rpn_scores', 'rpn_deltas')):
+        diffs[key] = check_close(f's2d {key}', rec_s[0][0][i],
+                                 rec_d[0][0][i])
+    for key in ('cls_prob', 'bbox_pred'):
+        diffs[key] = check_close(f's2d {key} on the direct proposals',
+                                 out_s[key], out_d[key])
+    (rois_d, _, mask_d), (rois_s, _, mask_s) = rec_d[0][1], rec_s[0][1]
+    moved = ((mask_d != mask_s)
+             | ((rois_d - rois_s).abs() > ROI_ATOL).any(-1)).sum().item()
+    (dd, vd), (ds, vs) = ([x.cpu().numpy() for x in d]
+                          for d in (dets_d, dets_s))
+    for i in range(len(dd)):
+        match_detections(ds[i][vs[i]], dd[i][vd[i]], coord_atol=BOX_ATOL)
+    print(f's2d against direct stem on float queries: max |diff| {diffs}; '
+          f'detections on the direct proposals {vs.sum(1).tolist()} per '
+          'image, equal (tie-aware); the s2d path\'s own proposals differ in '
+          f'{moved} of {mask_d.numel()} slots', flush=True)
+    return dict(diffs, own_proposals_moved=moved)
+
+
+def conv1_times(seed, card):
+    """Phase 16 (b): conv1 of one request (BATCH x QUERY_HW) as the direct
+    7x7/2 conv over 3 channels, as `conv1_s2d`'s 4x4/1 conv over the 12
+    packed channels, and over the packing zero-padded to 16 channels (a
+    weight and an input of zeros, the same sums), in float32 (no TF32) and
+    bf16, on channels_last tensors as the trunk runs them, by CUDA events
+    beside each one's bound (the bytes at HBM_BYTES_PER_S, its products at
+    the dtype's peak).  -> {dtype: {form: row}}."""
+    import torch.nn.functional as F
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.models import layers as L
+    from dana_tpu_torch.models import resnet
+    from dana_tpu_torch.utils import config as cfg
+    from dana_tpu_torch.utils.weights import from_jax_params
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    conv = from_jax_params(params, config).backbone.conv1.to(DEV)
+    rng = np.random.default_rng(seed + 7)
+    x = rng.normal(0, 50, (BATCH, *QUERY_HW, 3)).astype(np.float32)
+    xs = {'direct': torch.as_tensor(x, device=DEV),
+          's2d': torch.as_tensor(blob.s2d_pack(x), device=DEV)}
+    xs['s2d16'] = F.pad(xs['s2d'], (0, 4))
+    w16 = F.pad(resnet.stem_w4(conv.weight.detach()), (0, 0, 0, 0, 0, 4))
+    taps = {'direct': 7 * 7 * 3, 's2d': 4 * 4 * 12, 's2d16': 4 * 4 * 16}
+    out = {}
+    with torch.inference_mode():
+        for dname, dt, peak in (('float32', torch.float32, FP32_FLOP_PER_S),
+                                ('bf16', torch.bfloat16, BF16_FLOP_PER_S)):
+            v = {k: L.nhwc_to_nchw(t.to(dt)) for k, t in xs.items()}
+            fns = {'direct': lambda: conv(v['direct']),
+                   's2d': lambda: resnet.conv1_s2d(v['s2d'], conv),
+                   's2d16': lambda: F.conv2d(v['s2d16'], w16.to(dt))}
+            want = fns['direct']()
+            errs = {k: (fns[k]() - want).float().abs().max().item()
+                    for k in ('s2d', 's2d16')}
+            if dt == torch.float32:
+                check_close('conv1 s2d against direct', fns['s2d'](), want)
+                check_close('conv1 s2d16 against direct', fns['s2d16'](),
+                            want)
+            rows = {}
+            for k, fn in fns.items():
+                n_out = want.numel()
+                nbytes = (v[k].numel() + conv.weight.numel() * taps[k]
+                          // taps['direct'] + n_out) * v[k].element_size()
+                b_ms, b_by = bound_ms(nbytes, 2 * n_out * taps[k], peak)
+                rows[k] = dict(ms=cuda_ms(fn, CONV1_ITERS), bound_ms=b_ms,
+                               bound_by=b_by, macs=n_out * taps[k])
+            out[dname] = dict(rows, max_abs_err=errs)
+            print(f'conv1 {dname} ({card}), {list(want.shape)}: ' + ', '.join(
+                f'{k} {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f}, '
+                f'{r["bound_by"]}; {r["macs"] / 1e9:.2f} GMAC)'
+                for k, r in rows.items())
+                + f'; max |err| against direct {errs}', flush=True)
+    return out
+
+
+def request_times(seed, card, preds, rounds=3):
+    """Phase 16 (b): requests of each predictor in `preds` ({(recipe,
+    stem): pred}), each served once untimed, then in `rounds` rounds whose
+    order alternates (direct then s2d, s2d then direct) -> {key: [ms]}."""
+    reqs = serving_requests(seed, 1)
+    packed = s2d_requests(reqs)
+    for (_, stem), pred in preds.items():
+        pred.predict(*(packed if stem == 's2d' else reqs)[0])
+    times = {f'{r}_{s}': [] for r, s in preds}
+    keys = list(preds)
+    for i in range(rounds):
+        for recipe, stem in (keys if i % 2 == 0 else keys[::-1]):
+            req = (packed if stem == 's2d' else reqs)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds[recipe, stem].predict(*req)
+            torch.cuda.synchronize()
+            times[f'{recipe}_{stem}'].append(
+                (time.perf_counter() - t0) * 1e3)
+    print(f'request ms by stem ({card}; {rounds} rounds, alternating): '
+          f'{times}', flush=True)
+    return times
+
+
+def host_pack_times(seed):
+    """Phase 16 (b): the host's work on a batch of BATCH images: the
+    packing of uint8 canvases (native `pad_s2d` against its numpy plain
+    version) and the mean subtraction of float32 600x800 images (native
+    `meansub` against numpy), on one thread and on the dataset CLI's
+    assembly threads (min(8, cores)), the median of HOST_ITERS passes;
+    each native result equal to its plain version.  -> {op: {impl:
+    {one_thread_ms, threads_ms}}}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dana_tpu_torch import native
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.utils import config as cfg
+    rng = np.random.default_rng(seed + 8)
+    pad = blob.u8_pad_of(cfg.PIXEL_MEANS)
+    canvases = [rng.integers(0, 256, (*QUERY_HW, 3), dtype=np.uint8)
+                for _ in range(BATCH)]
+    images = [rng.integers(0, 256, (600, 800, 3)).astype(np.float32)
+              for _ in range(BATCH)]
+    ops = {
+        'pad_s2d': (canvases, {
+            'native': lambda c: native.pad_s2d(c, QUERY_HW, pad),
+            'plain': lambda c: native.pad_s2d_plain(c, QUERY_HW, pad)}),
+        'meansub': (images, {
+            'native': lambda im: native.meansub(im, cfg.PIXEL_MEANS),
+            'plain': lambda im: native.meansub_plain(im, cfg.PIXEL_MEANS)})}
+    workers = min(8, os.cpu_count() or 1)
+    out = {}
+    with ThreadPoolExecutor(workers) as ex:
+        for op, (ims, impls) in ops.items():
+            if not all(np.array_equal(impls['native'](im),
+                                      impls['plain'](im)) for im in ims):
+                fail(f'native {op} differs from its plain version')
+            out[op] = {}
+            for impl, fn in impls.items():
+                one, many = [], []
+                for _ in range(HOST_ITERS):
+                    t0 = time.perf_counter()
+                    for im in ims:
+                        fn(im)
+                    one.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    list(ex.map(fn, ims))
+                    many.append((time.perf_counter() - t0) * 1e3)
+                out[op][impl] = dict(one_thread_ms=float(np.median(one)),
+                                     threads_ms=float(np.median(many)))
+    print(f'host work on a batch of {BATCH} ({os.cpu_count()} cores, '
+          f'{workers} threads): {out}', flush=True)
+    return dict(out, cores=os.cpu_count(), threads=workers)
+
+
+def pack_episode(batch):
+    """A training episode (phase 5's, on the card) with its uint8 queries
+    and float supports packed for the space-to-depth stem on the host, as
+    the training CLI's loader packs them."""
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.utils import config as cfg
+    pad = blob.u8_pad_of(cfg.PIXEL_MEANS)
+    im = blob.s2d_pack(batch['im_data'].cpu().numpy(), u8_pad=pad)
+    sup = blob.s2d_pack_any(batch['support_ims'].cpu().numpy())
+    return dict(batch, im_data=torch.as_tensor(im, device=DEV),
+                support_ims=torch.as_tensor(sup, device=DEV))
+
+
+def s2d_export(seed, card, pred_s, requests):
+    """Phase 16 (e): pred_s's detector exported for the space-to-depth
+    stem at QUERY_HW and the support encoder (serve.py, s2d=True), loaded
+    in this process and served: the encoder on six packed supports and
+    one request of float packed queries, each bit for bit against the
+    live port on the same inputs, the request's launches counted (K1 2,
+    K2 1, NMS 2).  -> (launches, summary)."""
+    from dana_tpu_torch import serve
+    from dana_tpu_torch.data import blob
+    from dana_tpu_torch.models import dana
+    from dana_tpu_torch.utils import config as cfg
+    config, model = pred_s.config, pred_s.model
+    means = np.asarray(cfg.PIXEL_MEANS, np.float32)
+    rng = np.random.default_rng(seed + 9)
+    sup6 = torch.as_tensor(blob.s2d_pack_any(rng.integers(
+        0, 256, (1, 6, SUPPORT_HW, SUPPORT_HW, 3)).astype(np.float32)
+        - means), device=DEV)
+    query, info, classes = requests[0]
+    q = torch.as_tensor(query.astype(np.float32) - np.tile(means, 4),
+                        device=DEV)
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        meta = serve.export_predictor(model, config, out_dir,
+                                      buckets=(QUERY_HW,), batch_size=BATCH,
+                                      sup_size=SUPPORT_HW, s2d=True,
+                                      device=DEV)
+        export_s = time.perf_counter() - t0
+        art = serve.load(out_dir)
+        params = model.state_dict()
+        with torch.inference_mode():
+            enc_live = dana.extract_support_feats(model, config, sup6)
+        enc = art.encode(params, sup6)
+        # each query's row: its class's shots, then the other class's (the
+        # artifact takes n_way * n_shot rows; the first n_shot are used)
+        cf = {c: pred_s.batch_support_feats([c]) for c in (0, 1)}
+        feats = tuple(torch.cat([torch.cat([cf[c][j], cf[1 - c][j]], 1)
+                                 for c in classes]) for j in range(2))
+        want = pred_s.predict(q, info, classes)
+        art(params, q, info, *feats)              # untimed first call
+        torch.cuda.synchronize()
+        zero_launches()
+        from dana_tpu_torch.ops import nms
+        nms.HOST_SYNCS = 0
+        got = art(params, q, info, *feats)
+        torch.cuda.synchronize()
+        launches, syncs = read_launches(), nms.HOST_SYNCS
+    if not meta['s2d'] or tuple(meta['buckets'][0]['bucket']) != QUERY_HW:
+        fail(f's2d export: meta {meta}')
+    if launches != want_launches(config, 1, training=False) or syncs:
+        fail(f's2d export: launches {launches}, NMS host syncs {syncs}')
+    same_enc = all(torch.equal(a, b) for a, b in zip(enc, enc_live))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f's2d export ({card}): {QUERY_HW} bucket and the encoder in '
+          f'{export_s:.1f} s; encoder bit for bit {same_enc}, request bit '
+          f'for bit {same}; launches {launches}', flush=True)
+    if not (same_enc and same):
+        fail('the s2d artifact does not serve bit for bit what the live '
+             'port serves')
+    return launches, dict(export_s=export_s, bit_for_bit=same)
+
+
+def s2d_path(seed, card, f32_training, cli, checkpath):
+    """Phase 16: the space-to-depth stem (TPU.STEM_S2D).  (a) phase 4's
+    detector with its supports packed serves REQUESTS packed requests as
+    phase 4 does (counters zeroed around them; request 0 against the plain
+    versions), then the float s2d request against the direct one
+    (`s2d_against_direct`); (b) conv1, request and host times
+    (`conv1_times`, `request_times` in float32 and the default recipe,
+    `host_pack_times`); (c) phase 5's steps on packed episodes; (d) int8
+    'all' on packed queries (53 `_int_mm` a request, conv1's included);
+    (e) the s2d export (`s2d_export`); (f) the dataset CLI with --set
+    TPU.STEM_S2D True on phase 7's checkpoint, its img/s, assembly
+    thread-seconds and stats beside phase 6's.  -> ({path: launches},
+    summary)."""
+    from dana_tpu_torch import quant
+    from dana_tpu_torch.models import layers as L
+    from dana_tpu_torch.utils import config as cfg
+    t0 = time.perf_counter()
+    config, params = cfg.get_model('res50', way=2, shot=3, seed=seed)
+    requests = s2d_requests(serving_requests(seed, REQUESTS))
+    if requests[0][0].shape != (BATCH, QUERY_HW[0] // 2 + 3,
+                                QUERY_HW[1] // 2 + 3, 12):
+        fail(f's2d queries of shape {requests[0][0].shape}')
+    by_path, summary = {}, {}
+    pred_s = serving_predictor(seed, (config, params), s2d=True)
+    by_path['s2d_serving'], summary['serving'] = serving_path(
+        seed, label='s2d path', pred=pred_s, requests=requests)
+    pred_d = serving_predictor(seed, (config, params))
+    summary['against_direct'] = s2d_against_direct(seed, pred_d, pred_s)
+    torch.cuda.empty_cache()
+
+    summary['conv1'] = conv1_times(seed, card)
+    conf_r = _recipe(config, 'default_recipe')
+    preds = {('float32', 'direct'): pred_d, ('float32', 's2d'): pred_s,
+             ('default_recipe', 'direct'): serving_predictor(
+                 seed, (conf_r, params)),
+             ('default_recipe', 's2d'): serving_predictor(
+                 seed, (conf_r, params), s2d=True)}
+    summary['request_ms'] = request_times(seed, card, preds)
+    del preds
+    summary['host'] = host_pack_times(seed)
+    torch.cuda.empty_cache()
+
+    by_path['s2d_training'], summary['training'] = training_path(
+        seed, label='s2d training', pack=pack_episode)
+    print(f's2d training ({card}): steady step '
+          f'{summary["training"]["steady_step_ms"]:.2f} ms; direct (phase 5) '
+          f'{f32_training["steady_step_ms"]:.2f}', flush=True)
+    torch.cuda.empty_cache()
+
+    conf_q = dataclasses.replace(config, roi_align_int8=True)
+    pred_q = serving_predictor(seed, (conf_q, quant.quantize_params(
+        params, 'all')), s2d=True)
+    if not isinstance(pred_q.model.backbone.conv1, L.QuantConv2d) \
+            or quant.count_int8(pred_q.model) != INT8_CONVS['all'][0]:
+        fail('int8 all: conv1 is not quantized')
+    by_path['s2d_int8_all'], summary['int8_all'] = serving_path(
+        seed, label='s2d int8 all', pred=pred_q, requests=requests)
+    del pred_q
+    torch.cuda.empty_cache()
+
+    by_path['s2d_export'], summary['export'] = s2d_export(
+        seed, card, pred_s, requests)
+    del pred_s, pred_d
+    torch.cuda.empty_cache()
+
+    by_path['s2d_cli'], summary['cli'] = cli_path(
+        seed, checkpath, S2D_SET, label='s2d CLI path')
+    c = summary['cli']
+    print(f'dataset CLI over synth_test with TPU.STEM_S2D ({card}): '
+          f'{c["img_per_s"]:.2f} img/s, assembly {c["timing"]["assemble_s"]:.2f}'
+          f' thread-s, AP {c["stats"][0]:.4f}; direct stem (phase 6): '
+          f'{cli["img_per_s"]:.2f} img/s, assembly '
+          f'{cli["timing"]["assemble_s"]:.2f} thread-s, AP '
+          f'{cli["stats"][0]:.4f} (AP not judged)', flush=True)
+    summary['phase_s'] = time.perf_counter() - t0
+    return by_path, summary
+
+
 @contextlib.contextmanager
 def synth_root(tmp):
     """DANA_SYNTH_ROOT set to <tmp>/synth, restored after."""
@@ -4146,6 +4527,11 @@ def main():
             precision['default_recipe'], cli, ckpt)
         print(f'phase 14 took {int8["phase_s"]:.1f} s; the run '
               f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
+        # phase 16: the space-to-depth stem (its CLI part serves phase 7's
+        # checkpoint, so it runs here, before phase 15)
+        s2d_launches, s2d = s2d_path(args.seed, card, training, cli, ckpt)
+        print(f'phase 16 took {s2d["phase_s"]:.1f} s; the run '
+              f'{time.perf_counter() - t_start:.1f} s so far', flush=True)
     # phase 15: serving export
     export_launches, export = serving_export_path(args.seed, card, serving)
     print(f'phase 15 took {export["phase_s"]:.1f} s; the run '
@@ -4157,7 +4543,8 @@ def main():
                **slice9_cli_launches, **precision_launches,
                'recipe_cli': recipe_cli_launches, **bf16_train_launches,
                **recipe_train_cli_launches, **slice14_launches,
-               **parallel_launches, **int8_launches, **export_launches}
+               **parallel_launches, **int8_launches, **export_launches,
+               **s2d_launches}
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in launch_counters()}
     print(json.dumps({'serving_summary': serving,
@@ -4176,6 +4563,7 @@ def main():
                       'parallel_summary': parallel,
                       'int8_summary': int8,
                       'export_summary': export,
+                      's2d_summary': s2d,
                       'launches_by_path': by_path,
                       'backward': backward,
                       'combine_backward': combine_backward,

@@ -24,8 +24,18 @@ What cv2 did, and what stands in for it here:
     along x such a pixel is taken whole.  The uint8 path
     (`query_blob_u8`) resizes in float32 and rounds, where cv2 rounds in
     11-bit fixed point: the two differ by at most one grey level.
-  * mean subtraction: a float32 subtraction, bit for bit what the JAX
-    package's native `meansub` does.
+  * mean subtraction: the port's native host library
+    (dana_tpu_torch/native, `meansub`), bit for bit the JAX package's
+    native pass, which releases the interpreter lock while it runs.
+
+The ResNet stem's space-to-depth input (TPU.STEM_S2D): `s2d_pack` packs
+canvases [(B,) H, W, 3] (H, W even) into [(B,) H/2+3, W/2+3, 12] with
+conv1's 3-pixel border applied, channels ordered (row phase, column phase,
+c); `query_blob_packed` packs a query straight from its resized image
+(native `pad_s2d`: the 3-channel canvas is never made).  Uint8 borders
+take the rounded means (`u8_pad_of`), float ones zeros, as the canvases'
+own padding does.  A canvas with an odd side cannot be packed and stays
+3-channel (the stem takes either).
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from dana_tpu_torch import native
 
 # (H, W) canvases: landscape / portrait / square / wide, covering the
 # reference TEST scale (600 shortest side, uncapped long side) up to
@@ -283,11 +295,6 @@ def resize_linear(im, out_hw=None, scale=None) -> np.ndarray:
     return (horiz[y0] * b0[:, None, None]) + (horiz[y1] * b1[:, None, None])
 
 
-def _meansub(im, pixel_means):
-    return im.astype(np.float32) \
-        - np.asarray(pixel_means, np.float32).ravel()[:3]
-
-
 def query_scale(h, w, target_size, max_size=None) -> float:
     """The reference's query scale: shortest side -> target, long-side cap
     only if max_size is given."""
@@ -308,7 +315,7 @@ def snap_bucket(h, w, multiple=64):
 def prep_im_for_blob(im, pixel_means, target_size, max_size=None):
     """Mean-subtract and scale the shortest side to target -> (image,
     scale)."""
-    im = _meansub(im, pixel_means)
+    im = native.meansub(im, pixel_means)
     h, w = im.shape[:2]
     scale = query_scale(h, w, target_size, max_size)
     return resize_linear(im, scale=scale), scale
@@ -344,22 +351,94 @@ def query_blob(im, pixel_means, target_size=600, max_size=None,
             np.array([h, w, scale], np.float32))
 
 
-def query_blob_u8(im, target_size=600, max_size=None, flipped=False,
-                  buckets=DEFAULT_BUCKETS, pixel_means=None):
-    """Raw BGR image -> (uint8 canvas without mean subtraction, im_info):
-    the device subtracts the means.  Padded with the rounded means."""
+def _resized_u8(im, target_size, max_size, flipped):
+    """The uint8 query before padding -> (image [h, w, 3] uint8, scale)."""
     if flipped:
         im = im[:, ::-1, :]
     h, w = im.shape[:2]
     scale = query_scale(h, w, target_size, max_size)
     im = resize_linear(np.asarray(im, np.float32), scale=scale)
-    im = np.clip(np.rint(im), 0, 255).astype(np.uint8)
+    return np.clip(np.rint(im), 0, 255).astype(np.uint8), scale
+
+
+def _u8_pad(pixel_means):
+    return U8_PAD_MEANS if pixel_means is None else u8_pad_of(pixel_means)
+
+
+def query_blob_u8(im, target_size=600, max_size=None, flipped=False,
+                  buckets=DEFAULT_BUCKETS, pixel_means=None):
+    """Raw BGR image -> (uint8 canvas without mean subtraction, im_info):
+    the device subtracts the means.  Padded with the rounded means."""
+    im, scale = _resized_u8(im, target_size, max_size, flipped)
     h, w = im.shape[:2]
     ch, cw = pick_bucket(h, w, buckets)
     out = np.empty((ch, cw, 3), np.uint8)
-    out[:] = U8_PAD_MEANS if pixel_means is None else u8_pad_of(pixel_means)
+    out[:] = _u8_pad(pixel_means)
     out[:h, :w] = im[:ch, :cw]
     return out, np.array([h, w, scale], np.float32)
+
+
+def s2d_pack(im, u8_pad=None):
+    """Canvases [(B,) H, W, 3] (float32 or uint8; H, W even) -> the
+    stem's space-to-depth input [(B,) H/2+3, W/2+3, 12]: conv1's 3-pixel
+    border applied (zeros, or for uint8 `u8_pad`, by default the rounded
+    Caffe means), 2x2 blocks packed as (row phase, column phase, c), one
+    native pass an image (`native.pad_s2d`).  models/resnet.py
+    `conv1_s2d` on it equals the direct 7x7/2 conv1 on the canvas."""
+    im = np.asarray(im)
+    single = im.ndim == 3
+    batch = im[None] if single else im
+    if batch.ndim != 4:
+        raise ValueError(f's2d_pack takes [(B,) H, W, 3], not {im.shape}')
+    _, h, w, _ = batch.shape
+    pad3 = (U8_PAD_MEANS if u8_pad is None else u8_pad) \
+        if batch.dtype == np.uint8 else None
+    out = np.stack([native.pad_s2d(x, (h, w), pad3) for x in batch])
+    return out[0] if single else out
+
+
+def s2d_pack_any(x, u8_pad=None):
+    """s2d_pack over any leading dims ([..., H, W, 3])."""
+    x = np.asarray(x)
+    lead = x.shape[:-3]
+    out = s2d_pack(x.reshape((-1,) + x.shape[-3:]), u8_pad=u8_pad)
+    return out.reshape(lead + out.shape[1:])
+
+
+def s2d_unpack(xd):
+    """`s2d_pack`'s inverse: [..., H/2+3, W/2+3, 12] -> the canvases [...,
+    H, W, 3] (the border dropped)."""
+    xd = np.asarray(xd)
+    *lead, hh, ww, _ = xd.shape
+    x = xd.reshape(*lead, hh, ww, 2, 2, 3)
+    x = np.moveaxis(x, -3, -4).reshape(*lead, 2 * hh, 2 * ww, 3)
+    return x[..., 3:-3, 3:-3, :]
+
+
+def query_blob_packed(im, pixel_means, target_size=600, max_size=None,
+                      flipped=False, buckets=DEFAULT_BUCKETS,
+                      ship_uint8=False):
+    """`query_blob` (or with ship_uint8 `query_blob_u8`) and `s2d_pack` in
+    one: raw BGR image -> ([(H+6)/2, (W+6)/2, 12], im_info), packed by one
+    native pass from the resized image.  Equal to s2d_pack of the
+    canvas; a canvas with an odd side comes back unpacked, 3-channel."""
+    if ship_uint8:
+        im, scale = _resized_u8(im, target_size, max_size, flipped)
+        pad3 = _u8_pad(pixel_means)
+    else:
+        if flipped:
+            im = im[:, ::-1, :]
+        im, scale = prep_im_for_blob(im, pixel_means, target_size, max_size)
+        pad3 = None
+    h, w = im.shape[:2]
+    ch, cw = pick_bucket(h, w, buckets)
+    info = np.array([h, w, scale], np.float32)
+    if ch % 2 or cw % 2:
+        out = np.empty((ch, cw, 3), im.dtype)
+        out[:] = 0 if pad3 is None else pad3
+        out[:h, :w] = im[:ch, :cw]
+        return out, info
+    return native.pad_s2d(im, (ch, cw), pad3), info
 
 
 def _pad_support(crop, out_size):
@@ -372,7 +451,7 @@ def support_blob(im, box, pixel_means, out_size=320):
     """Crop a support box (with its +1 end pixel), resize the long side to
     out_size, zero-pad to [out_size, out_size, 3]: one resampling, an
     approximation of `support_blob_exact`."""
-    im = _meansub(im, pixel_means)
+    im = native.meansub(im, pixel_means)
     x1, y1, x2, y2 = [int(v) for v in box[:4]]
     crop = im[y1:y2 + 1, x1:x2 + 1, :]
     h, w = crop.shape[:2]

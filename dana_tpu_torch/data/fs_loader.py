@@ -66,13 +66,17 @@ class FewShotLoader:
     reference's support crop (`support_blob_exact`, TPU.EXACT_SUPPORT_SCALE)
     over the one-resampling approximation; `support_cache` decoded crops
     (TPU.SUPPORT_CACHE) are kept.  `allowed_classes`: the classes the
-    positive way may be drawn from (base / novel split training)."""
+    positive way may be drawn from (base / novel split training).
+    `pack_s2d` (TPU.STEM_S2D on a ResNet trunk) emits the query and the
+    supports as the stem's space-to-depth input (`blob.query_blob_packed`,
+    `blob.s2d_pack`), as the JAX CLI's `_pack_batch_s2d` packs a batch;
+    an odd custom canvas leaves the episode 3-channel."""
 
     def __init__(self, roidb, num_classes, num_way=2, num_shot=5,
                  max_num_box=20, seed=1996, pixel_means=PIXEL_MEANS,
                  buckets=blob.DEFAULT_BUCKETS, scale=600, max_size=None,
                  support_size=320, allowed_classes=None, support_cache=2048,
-                 exact_support=True):
+                 exact_support=True, pack_s2d=False):
         self.roidb = roidb
         self.num_classes = num_classes
         self.num_way = num_way
@@ -90,6 +94,7 @@ class FewShotLoader:
         # the per-class pools are small, so crops recur every few episodes
         self._sup_cache = blob.FIFOCache(support_cache)
         self.exact_support = bool(exact_support)
+        self.pack_s2d = bool(pack_s2d)
 
     def _class_has_supports(self, cls: int) -> bool:
         return bool(self.support_db[cls])
@@ -149,7 +154,9 @@ class FewShotLoader:
         entry = self.roidb[index]
         rng = np.random.default_rng((self.seed, index))
 
-        im_data, im_info = blob.query_blob(
+        query_blob = blob.query_blob_packed if self.pack_s2d \
+            else blob.query_blob
+        im_data, im_info = query_blob(
             blob.imread_bgr(entry['image']), self.pixel_means, self.scale,
             self.max_size, flipped=bool(entry.get('flipped')),
             buckets=self.buckets)
@@ -180,6 +187,8 @@ class FewShotLoader:
             for i, s in enumerate(self._sample_supports(neg_cls, rng)):
                 supports[self.num_shot + i] = s
 
+        if im_data.shape[-1] == 12:
+            supports = blob.s2d_pack(supports)
         fs = gt[gt[:, 4] == pos_cls].copy()
         fs[:, 4] = 1.0
         fs_pad, num_boxes = self._pad_boxes(fs)

@@ -115,7 +115,11 @@ class InferenceLoader:
 
     `max_size` None scales by the shortest side alone, as the reference
     does (TPU.EXACT_QUERY_SCALE); `ship_uint8` emits raw uint8 canvases for
-    device-side mean subtraction (TPU.SHIP_UINT8).  Items carry their
+    device-side mean subtraction (TPU.SHIP_UINT8); `pack_s2d` emits the
+    ResNet stem's space-to-depth input [H/2+3, W/2+3, 12] in place of the
+    canvas, and packs the items' support stacks too (TPU.STEM_S2D:
+    `blob.query_blob_packed`, `blob.s2d_pack`; an odd custom canvas stays
+    3-channel).  Items carry their
     class's support stack `support_ims` = `pool.get(target_cls)` [shot, S,
     S, 3] only with `with_supports`, for the detectors that encode each
     request's supports (the JAX loader's `skip_supports` False); DAnA and
@@ -123,7 +127,8 @@ class InferenceLoader:
 
     def __init__(self, roidb, pool: SupportPool, pixel_means=PIXEL_MEANS,
                  max_num_box=20, buckets=blob.DEFAULT_BUCKETS, scale=600,
-                 max_size=None, ship_uint8=False, with_supports=False):
+                 max_size=None, ship_uint8=False, with_supports=False,
+                 pack_s2d=False):
         self.roidb = roidb
         self.pool = pool
         self.pixel_means = pixel_means
@@ -133,8 +138,13 @@ class InferenceLoader:
         self.max_size = max_size
         self.ship_uint8 = ship_uint8
         self.with_supports = with_supports
+        self.pack_s2d = pack_s2d
 
     def _query_blob(self, im):
+        if self.pack_s2d:
+            return blob.query_blob_packed(
+                im, self.pixel_means, self.scale, self.max_size,
+                buckets=self.buckets, ship_uint8=self.ship_uint8)
         if self.ship_uint8:
             return blob.query_blob_u8(im, self.scale, self.max_size,
                                       buckets=self.buckets,
@@ -173,7 +183,9 @@ class InferenceLoader:
             'target_cls': np.int32(cls), 'index': np.int32(index),
         }
         if self.with_supports:
-            item['support_ims'] = self.supports(cls, index)
+            sup = self.supports(cls, index)
+            item['support_ims'] = blob.s2d_pack(sup) if self.pack_s2d \
+                else sup
         return item
 
 

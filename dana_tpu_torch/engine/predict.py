@@ -123,7 +123,9 @@ class Predictor:
     @torch.inference_mode()
     def encode_supports(self, cls, support_ims):
         """Encode one class's supports [n_shot, H, W, 3] (float, mean-
-        subtracted) once and cache them under `cls` (DAnA and cisa)."""
+        subtracted; or their space-to-depth packing [n_shot, H/2+3,
+        W/2+3, 12], data/blob.py `s2d_pack`) once and cache them under
+        `cls` (DAnA and cisa)."""
         if not self.caches_supports:
             raise ValueError(f'{self.config.framework} keeps no support '
                              'cache: pass each request\'s support_ims')
@@ -146,14 +148,16 @@ class Predictor:
 
     @torch.inference_mode()
     def predict(self, im_data, im_info, classes=None, support_ims=None):
-        """im_data [B,H,W,3] uint8 BGR or float mean-subtracted, im_info
-        [B,3] (height, width, scale), and for DAnA and cisa classes [B]
+        """im_data [B,H,W,3] uint8 BGR or float mean-subtracted (on a
+        ResNet trunk also their space-to-depth packing [B, H/2+3, W/2+3,
+        12], the stem's other input; not under sp), im_info [B,3] (height,
+        width, scale of the canvas), and for DAnA and cisa classes [B]
         whose supports were encoded, for the siblings support_ims [B,
-        n_shot, H, W, 3] float mean-subtracted -> (dets [B,100,5], valid
-        [B,100]) on the device.  Host arrays or tensors; a tensor in pinned
-        memory is copied without blocking the host.  On a grid the rows
-        split over its data rows and the detections come back on the
-        first device."""
+        n_shot, H, W, 3] float mean-subtracted (or packed) -> (dets
+        [B,100,5], valid [B,100]) on the device.  Host arrays or tensors;
+        a tensor in pinned memory is copied without blocking the host.  On
+        a grid the rows split over its data rows and the detections come
+        back on the first device."""
         if len(self.rows) == 1:
             return self._predict_row(self.rows[0], im_data, im_info, classes,
                                      support_ims)

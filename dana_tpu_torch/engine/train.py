@@ -130,7 +130,9 @@ class Trainer:
     def step(self, batch, draws=None):
         """One SGD step on `batch`: dict(im_data [B,H,W,3] uint8 or float,
         im_info [B,3], gt_boxes [B,G,5], support_ims [B, n_way*n_shot,
-        H, W, 3] float (Faster R-CNN reads none), and for Meta R-CNN
+        H, W, 3] float (Faster R-CNN reads none; on a ResNet trunk the
+        queries and supports may be space-to-depth packed, 12 channels,
+        data/blob.py `s2d_pack`), and for Meta R-CNN
         all_gt_boxes [B,G',5], every class's gt, for its RPN targets), numpy
         arrays or tensors (in a data-parallel run, this rank's rows).
         `draws` (a dict keyed by rpn.DRAW_KEYS, the global batch's)

@@ -50,9 +50,17 @@ conv takes one activation scale over the whole request, as the JAX CLI's
 mesh forms it (engine/predict.py); under --dist each rank's chunk is its
 own tensor, in both packages.
 
+--set TPU.STEM_S2D True serves the ResNet trunks on the space-to-depth
+stem, as the JAX CLI's default does: the loader packs each query
+(`blob.query_blob_packed`, one native pass from the resized image) and the
+supports (`blob.s2d_pack`, the DAnA / cisa encodes and the siblings' batch
+stacks) into 12 channels, and conv1 runs as a 4x4/1 conv on them
+(models/resnet.py).  VGG16 and --sp keep the direct stem (a packed query's
+H/2+3 rows split over no spatial blocks), as in the JAX CLI; the port
+decides by the trunk it serves, the JAX CLI by --backbone alone.
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-The space-to-depth stem is refused
-(utils/args.py), and so is --net frcnn: Faster R-CNN's
+--net frcnn is refused: Faster R-CNN's
 class-specific deltas [B, R, 8] meet the postprocess's 4 bbox stds, which
 the JAX package's postprocess cannot broadcast either, so the JAX CLI
 raises on it.
@@ -71,7 +79,7 @@ import numpy as np
 import torch
 
 from dana_tpu_torch import quant
-from dana_tpu_torch.data.blob import ImageCache
+from dana_tpu_torch.data.blob import ImageCache, s2d_pack
 from dana_tpu_torch.data.imdb import combined_roidb
 from dana_tpu_torch.data.inference_loader import InferenceLoader, SupportPool
 from dana_tpu_torch.engine.predict import Predictor
@@ -209,12 +217,16 @@ def evaluate(args, group=distributed.SINGLE):
     cache = ImageCache(c.TPU.IMAGE_CACHE_MB) if c.TPU.IMAGE_CACHE_MB > 0 \
         else None
     pool = _support_pool(args, c, imdb_, roidb, cache)
+    # a packed query's H/2+3 rows split over no spatial blocks
+    pack_s2d = bool(c.TPU.STEM_S2D) and config.arch != 'vgg16' \
+        and max(1, args.sp) == 1
     loader = InferenceLoader(
         roidb, pool, pixel_means=c.PIXEL_MEANS,
         max_num_box=c.MAX_NUM_GT_BOXES, buckets=c.TPU.SIZE_BUCKETS,
         scale=c.TEST.SCALES[0],
         max_size=None if c.TPU.EXACT_QUERY_SCALE else c.TEST.MAX_SIZE,
-        ship_uint8=c.TPU.SHIP_UINT8, with_supports='support_ims' in keys)
+        ship_uint8=c.TPU.SHIP_UINT8, with_supports='support_ims' in keys,
+        pack_s2d=pack_s2d)
 
     eval_bs = max(1, args.batch_size)
     if len(devices) > 1:
@@ -281,7 +293,9 @@ def evaluate(args, group=distributed.SINGLE):
                 if pred.caches_supports:
                     for cls in set(classes):
                         if not pred.has_supports(cls):
-                            pred.encode_supports(cls, pool.get(cls))
+                            sup = pool.get(cls)
+                            pred.encode_supports(
+                                cls, s2d_pack(sup) if pack_s2d else sup)
                 dets, valid = pred.predict(
                     batch['im_data'], batch['im_info'], classes,
                     support_ims=batch.get('support_ims'))

@@ -408,13 +408,22 @@ def rcnn_scores(model: DAnA, config: DanaConfig, pooled_feat,
     return torch.softmax(cls_score, dim=-1), cls_score
 
 
+def support_size(support_ims):
+    """The (H, W) the supports [B, n, H, W, C] stand for: their own, or
+    for a space-to-depth packing (C 12) the canvas's (H - 3) * 2."""
+    sh, sw, c = support_ims.shape[2:]
+    return ((sh - 3) * 2, (sw - 3) * 2) if c == 12 else (sh, sw)
+
+
 def support_maps(model, config: DanaConfig, support_ims, remat=False):
-    """support_ims [B, n, H, W, 3] (H, W >= 224) -> the trunk's maps
-    [B, n, H/16, W/16, C] in config.compute_dtype; `remat` as in
-    `trunk_base`."""
+    """support_ims [B, n, H, W, 3] (H, W >= 224), or their space-to-depth
+    packing [B, n, H/2+3, W/2+3, 12] (data/blob.py `s2d_pack_any`) -> the
+    trunk's maps [B, n, H/16, W/16, C] in config.compute_dtype; `remat`
+    as in `trunk_base`."""
     b, n, sh, sw, c = support_ims.shape
-    if sh < 224 or sw < 224:
-        raise ValueError(f'support images must be >= 224px (got {sh}x{sw}):'
+    eh, ew = support_size(support_ims)
+    if eh < 224 or ew < 224:
+        raise ValueError(f'support images must be >= 224px (got {eh}x{ew}):'
                          ' the fixed AvgPool2d(14) needs a >= 14x14 map')
     feats = trunk_base(model, support_ims.reshape(b * n, sh, sw, c)
                        .to(config.compute_dtype), remat)
@@ -430,7 +439,8 @@ def pool14(x):
 
 def extract_support_feats(model: DAnA, config: DanaConfig, support_ims,
                           remat=False):
-    """support_ims [B, n, H, W, 3] (H, W >= 224) -> (feat [B,n,h,w,C],
+    """support_ims [B, n, H, W, 3] (H, W >= 224, or packed as
+    `support_maps` takes them) -> (feat [B,n,h,w,C],
     pooled [B,n,h-13,w-13,C]): the trunk, then AvgPool2d(14, 1), in
     config.compute_dtype; `remat` as in `trunk_base`."""
     feats = support_maps(model, config, support_ims, remat)
@@ -459,11 +469,14 @@ def rpn_attention(model: DAnA, config: DanaConfig, base_feat, support_feat):
 
 
 def prep_query_images(config: DanaConfig, im_data):
-    """uint8 BGR pixels get the Caffe mean subtraction on the device;
+    """uint8 BGR pixels get the Caffe mean subtraction on the device (the
+    means tiled 4 times over a space-to-depth packing's 12 channels);
     float inputs pass through."""
     if im_data.dtype == torch.uint8:
-        return im_data.float() - host_table(config.pixel_means,
-                                            im_data.device)
+        reps = im_data.shape[-1] // 3
+        return im_data.float() - host_table(
+            np.tile(np.asarray(config.pixel_means, np.float64), reps),
+            im_data.device)
     return im_data
 
 
@@ -613,7 +626,9 @@ def forward(model: DAnA, config: DanaConfig, im_data, im_info,
     (height, width, scale); either support_ims [B, n, H, W, 3] (n =
     n_shot at eval, n_way * n_shot in training: the first n_shot are the
     positive class, the rest negative) or precomputed support_feats
-    (feat [B,n,h,w,C], pooled [B,n,7,7,C]).
+    (feat [B,n,h,w,C], pooled [B,n,7,7,C]).  On a ResNet trunk the
+    queries and supports may come as their space-to-depth packing
+    [..., H/2+3, W/2+3, 12] (TPU.STEM_S2D): the stem takes either.
 
     Eval returns dict(rois [B,R,5], cls_prob [B,R,2], bbox_pred [B,R,4],
     cls_score [B,R,2], roi_mask [B,R]).

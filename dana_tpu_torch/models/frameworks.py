@@ -5,12 +5,15 @@ multi-relation head), Meta R-CNN (PRN channel reweighting) and FGN
 
 Each shares DAnA's skeleton through `dana.trunk`: a bottleneck ResNet trunk
 (50, 101 or 152; VGG16 is refused, as the JAX package's siblings are
-ResNet-only), a detector-specific conditioning of the RPN's input, the
-RPN, the proposals and target layers, the rois pooled from the query's
-base features by the config's pooling mode (RoIAlign: K2 when serving, K3
-in training), and a detector-specific head.  The episodic
-siblings run their score head on the positive supports and, in training,
-on the negative ones, with DAnA's smooth-L1 and hard-mined pair losses.
+ResNet-only; queries and supports direct or space-to-depth packed, through
+`dana.query_features` and `dana.support_maps`, whose size check reads the
+canvas a packing stands for), a detector-specific conditioning of the
+RPN's input, the RPN, the proposals and target layers, the rois pooled
+from the query's base features by the config's pooling mode (RoIAlign:
+K2 when serving, K3 in training), and a detector-specific head.  The
+episodic siblings run their score head on the positive supports and, in
+training, on the negative ones, with DAnA's smooth-L1 and hard-mined pair
+losses.
 Their convolutions and linears are torch's own (cuDNN and cuBLAS on the
 card; float32 without TF32 unless the config's precision recipe asks for
 bfloat16), as the JAX package computes them in XLA: the trunk, the

@@ -67,10 +67,17 @@ class QuantConv2d(nn.Module):
         self.register_buffer('bias', torch.zeros(cout))
 
     def forward(self, x):
+        return self.quantized_conv(x, self.w_int8, self.stride,
+                                   self.padding)
+
+    def quantized_conv(self, x, w_int8, stride, padding):
+        """`dynamic_int8_conv` of x with this conv's scales and bias and
+        the int8 weight `w_int8` (its own, or a rewrite of it with the same
+        output channels: the space-to-depth stem's)."""
         amax = None if scale_group_row() is None \
             else group_amax(activation_amax(x))
-        return dynamic_int8_conv(x, self.w_int8, self.w_scale, self.bias,
-                                 self.stride, self.padding, amax)
+        return dynamic_int8_conv(x, w_int8, self.w_scale, self.bias, stride,
+                                 padding, amax)
 
 
 def activation_amax(x):

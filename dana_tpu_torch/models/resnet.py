@@ -11,10 +11,17 @@ ResNet-50/101/152 of bottlenecks.  The detector runs the bottleneck ones
 ones, whose layer3 has 256 channels, are held at module level.
 
 `base_forward` is RCNN_base (conv1..layer3, stride 16); `top_forward` is
-RCNN_top (layer4).  Both take and return NHWC.  Only the direct
-3-channel stem is ported.  A `ResNet` has the detector's trunk members
-(`base`, `tail`, `feat_dim`, `tail_dim`, `tail_range`, `freeze`), as
-models/vgg.py's `VGG16` does.
+RCNN_top (layer4).  Both take and return NHWC.  A `ResNet` has the
+detector's trunk members (`base`, `tail`, `feat_dim`, `tail_dim`,
+`tail_range`, `freeze`), as models/vgg.py's `VGG16` does.
+
+The stem takes either input, by its channel count, as the JAX package's
+`stem` does: a canvas [B, H, W, 3] runs the direct 7x7/2 conv1, and a
+space-to-depth input [B, H/2+3, W/2+3, 12] packed on the host
+(data/blob.py `s2d_pack`, TPU.STEM_S2D) runs `conv1_s2d`, a dense 4x4/1
+VALID conv (cuDNN) with the weight rewritten by `stem_w4`; the two give
+the same map.  An int8 conv1 (quant.py, scope 'all') is rewritten the
+same way, which keeps its per-output-channel scales.
 """
 
 from __future__ import annotations
@@ -128,10 +135,59 @@ class ResNet(nn.Module):
             getattr(self, f'layer{i}').requires_grad_(False)
 
 
+def stem_w4(w7):
+    """conv1's weight [O, C, 7, 7] (OIHW, float or int8) -> the space-to-
+    depth weight [O, 4C, 4, 4]: zero-extended bottom and right to 8x8,
+    each spatial axis split into (4 blocks, 2 phases), the phases put
+    before C, so input channel (i2 * 2 + j2) * C + c at block (a, b) is
+    tap (2a + i2, 2b + j2) of channel c (the JAX package's `_stem_w4`,
+    there in HWIO)."""
+    o, c = w7.shape[:2]
+    w8 = F.pad(w7, (0, 1, 0, 1))                          # [O, C, 8, 8]
+    w4 = w8.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return w4.reshape(o, 4 * c, 4, 4)
+
+
+def conv1_s2d(xd, conv1):
+    """conv1 on a space-to-depth input xd [B, 12, H/2+3, W/2+3] (NCHW
+    view): a 4x4/1 VALID conv over 12 channels with `stem_w4`'s weight ->
+    the direct 7x7/2 conv1's [B, O, H/2, W/2].  An int8 conv1
+    (`layers.QuantConv2d`) runs its int8 conv on the rewritten int8
+    weight."""
+    if isinstance(conv1, L.QuantConv2d):
+        return conv1.quantized_conv(xd, stem_w4(conv1.w_int8), 1, 0)
+    bias = None if conv1.bias is None else conv1.bias.to(xd.dtype)
+    return F.conv2d(xd, stem_w4(conv1.weight).to(xd.dtype), bias)
+
+
+def conv7x7s2_s2d(x, conv1):
+    """conv1 (7x7/2, pad 3) of a canvas x [B, H, W, C] (NHWC, H and W
+    even) through the space-to-depth rewrite on the device: pad 3, pack
+    2x2 blocks into 4C channels, then `conv1_s2d` -> NHWC [B, H/2, W/2,
+    O].  The JAX package's `_conv7x7s2_s2d`; the detector packs on the
+    host instead (data/blob.py `s2d_pack`)."""
+    b, h, w, c = x.shape
+    out_h, out_w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    ph, pw = 2 * (out_h - 1) + 8 - h, 2 * (out_w - 1) + 8 - w
+    xp = F.pad(x, (0, 0, 3, pw - 3, 3, ph - 3))
+    hp, wp = xp.shape[1:3]
+    xd = xp.reshape(b, hp // 2, 2, wp // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    xd = xd.reshape(b, hp // 2, wp // 2, 4 * c)
+    return L.nchw_to_nhwc(conv1_s2d(L.nhwc_to_nchw(xd), conv1))
+
+
+def stem_conv(y, backbone):
+    """conv1 of the NCHW input y: 3 channels direct, 12 space-to-depth."""
+    if y.shape[1] == 12:
+        return conv1_s2d(y, backbone.conv1)
+    return backbone.conv1(y)
+
+
 def base_forward(x, backbone: ResNet):
-    """[B, H, W, 3] -> [B, H/16, W/16, 4 * 64 * expansion]."""
+    """[B, H, W, 3] canvases, or their space-to-depth packing [B, H/2+3,
+    W/2+3, 12] -> [B, H/16, W/16, 4 * 64 * expansion]."""
     y = L.nhwc_to_nchw(x)
-    y = L.max_pool(F.relu(backbone.bn1(backbone.conv1(y))))
+    y = L.max_pool(F.relu(backbone.bn1(stem_conv(y, backbone))))
     y = backbone.layer3(backbone.layer2(backbone.layer1(y)))
     return L.nchw_to_nhwc(y)
 

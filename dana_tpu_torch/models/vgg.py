@@ -75,6 +75,10 @@ class VGG16(nn.Module):
 
 def base_forward(x, backbone: VGG16):
     """[B, H, W, 3] -> [B, H/16, W/16, 512] (floor pools)."""
+    if x.shape[-1] != 3:
+        raise ValueError(f'VGG16 takes 3-channel canvases, not {x.shape[-1]} '
+                         'channels: it has no space-to-depth stem (the CLIs '
+                         'pack queries for the ResNet trunks only)')
     y = L.nhwc_to_nchw(x)
     convs = iter(CONV_IDX)
     for v in _CFG:

@@ -250,6 +250,11 @@ def shard_query_spatial(im, devices) -> list:
     """Spatial partitioning: the query [B, H, W, C]'s H split into
     len(devices) equal row blocks, block i on devices[i]."""
     n = len(devices)
+    if im.shape[-1] == 12:
+        raise ValueError(
+            'spatial sharding takes 3-channel queries, not a space-to-depth '
+            'packing (12 channels, H/2+3 rows) — use the direct 3-channel '
+            'stem under --sp')
     if im.shape[1] % n:
         raise ValueError(
             f'spatial sharding needs H % {n} == 0, got H={im.shape[1]} '

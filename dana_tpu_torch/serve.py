@@ -29,8 +29,10 @@ postprocess's and the pixel means) on its input's device, so a program
 holds no tensor constant, and the export refuses one that does.  A host
 without a card (no CUDA, no nvcc) therefore exports for the card, float
 and int8 alike, as the JAX package's `platforms=('tpu',)` exports from a
-CPU build host.  `s2d` is refused: the port has no space-to-depth stem
-(utils/args.py `load_cfg`, TPU.STEM_S2D).
+CPU build host.  `s2d` exports for the space-to-depth stem
+(TPU.STEM_S2D): the programs take host-packed queries and supports
+(data/blob.py `s2d_pack`), and `Predictor` maps a packed query's shape
+back to its bucket.
 
 Artifact layout (directory):
     meta.json                      config, buckets, weights' key order
@@ -54,10 +56,16 @@ from dana_tpu_torch.ops import (cisa_attention, int8_mm,  # noqa: F401
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 
 BUCKETS = ((608, 1024), (1024, 608), (704, 704), (608, 1216), (1216, 608))
-# the reason utils/args.py `load_cfg` gives for refusing TPU.STEM_S2D
-S2D_REFUSED = ('the port has no space-to-depth stem (TPU.STEM_S2D, a TPU '
-               'lane-tile layout of conv1); it serves the direct 7x7/2 conv '
-               'on NHWC queries')
+
+
+def s2d_hw(h, w):
+    """A canvas (H, W)'s space-to-depth packing's (H/2+3, W/2+3)."""
+    return h // 2 + 3, w // 2 + 3
+
+
+def canvas_hw(h, w):
+    """A space-to-depth packing's (H', W') -> its canvas's (H, W)."""
+    return (h - 3) * 2, (w - 3) * 2
 
 
 class _Encode(nn.Module):
@@ -203,14 +211,20 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
     sup_feat, sup_pooled as the encoder gives them, one row per query) ->
     (dets [batch_size, 100, 5], valid [batch_size, 100]); the encoder takes
     (params, support images [1, n_way * n_shot, sup_size, sup_size, 3]
-    float32 mean-subtracted) -> (feat, pooled).  `pp_kwargs` are the
+    float32 mean-subtracted) -> (feat, pooled).  With `s2d` (a ResNet
+    trunk; even buckets and sup_size) both take the space-to-depth
+    packing instead: im_data [batch_size, H/2+3, W/2+3, 12], supports [1,
+    n_way * n_shot, sup_size/2+3, sup_size/2+3, 12].  `pp_kwargs` are the
     postprocess's keywords (utils.config.postprocess_kwargs; the built-in
     tree's when None)."""
     from dana_tpu_torch.models import dana
     from dana_tpu_torch.utils import config as cfg
     from dana_tpu_torch.utils.weights import from_jax_params
-    if s2d:
-        raise ValueError(f's2d export: {S2D_REFUSED}')
+    if s2d and (config.arch == 'vgg16' or sup_size % 2
+                or any(h % 2 or w % 2 for h, w in buckets)):
+        raise ValueError('a space-to-depth export needs a ResNet trunk and '
+                         'even buckets and support size (got '
+                         f'{config.arch}, {list(buckets)}, {sup_size})')
     if config.framework not in dana.CACHED_SUPPORTS:
         raise ValueError(f'{config.framework} takes each request\'s support '
                          'images: only DAnA and cisa serve from encoded '
@@ -227,7 +241,8 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
     os.makedirs(out_dir, exist_ok=True)
     b, n_sup = batch_size, config.n_way * config.n_shot
 
-    sup = torch.zeros(1, n_sup, sup_size, sup_size, 3)
+    sup = torch.zeros(1, n_sup, *s2d_hw(sup_size, sup_size), 12) if s2d \
+        else torch.zeros(1, n_sup, sup_size, sup_size, 3)
     (feat, fdt), (pooled, pdt) = _export(
         _Encode(model, config), state, (sup,),
         os.path.join(out_dir, 'encode_supports.pt2'), target)
@@ -237,7 +252,8 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
     predict = _Predict(model, config, pp_kwargs)
     table = []
     for h, w in buckets:
-        im = torch.zeros(b, h, w, 3)
+        im = torch.zeros(b, *s2d_hw(h, w), 12) if s2d \
+            else torch.zeros(b, h, w, 3)
         info = torch.tensor([[h, w, 1.0]] * b)
         name = f'predict_{h}x{w}.pt2'
         _export(predict, state, (im, info, sup_feat, sup_pooled),
@@ -246,7 +262,7 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
 
     meta = {
         'batch_size': b, 'n_way': config.n_way, 'n_shot': config.n_shot,
-        'arch': config.arch, 's2d': False, 'sup_size': sup_size,
+        'arch': config.arch, 's2d': bool(s2d), 'sup_size': sup_size,
         'buckets': table, 'postprocess': pp_kwargs, 'quantized': quantized,
         'device': str(target), 'framework': config.framework,
         'weights': list(state),
@@ -266,8 +282,9 @@ def _zero_trace_counters():
 
 
 class Predictor:
-    """The deserialized serving bundle: picks the artifact for a bucket and
-    calls it.  `encode(params, sup_ims)` -> (feat, pooled) support
+    """The deserialized serving bundle: picks the artifact for a bucket (a
+    space-to-depth artifact's by the canvas its packed query stands for)
+    and calls it.  `encode(params, sup_ims)` -> (feat, pooled) support
     features; `__call__(params, im, info, sup_feat, sup_pooled)` -> (dets,
     valid).  `params` is the port's state dict in any mapping type (taken
     in meta.json's key order; tensors elsewhere are moved to the
@@ -303,7 +320,8 @@ class Predictor:
 
     @torch.inference_mode()
     def __call__(self, params, im_data, im_info, sup_feat, sup_pooled):
-        fn = self._predict[(im_data.shape[1], im_data.shape[2])]
+        hw = tuple(im_data.shape[1:3])
+        fn = self._predict[canvas_hw(*hw) if self.meta['s2d'] else hw]
         dev = self.device
         return fn(self.weights(params), torch.as_tensor(im_data, device=dev),
                   torch.as_tensor(im_info, device=dev),

@@ -60,9 +60,14 @@ writes checkpoints, every rank resumes from the same one, and a
 preemption is voted every --disp_interval steps and at each epoch's end,
 so that every rank stops at the same step.
 
+--set TPU.STEM_S2D True trains the ResNet trunks on the space-to-depth
+stem, as the JAX CLI's default does: the loader's assembly threads pack
+each episode's query and supports into 12 channels (data/fs_loader.py),
+and conv1, frozen, runs as a 4x4/1 conv on them (models/resnet.py);
+VGG16 keeps the direct stem.
+
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Orbax checkpoints and the space-to-depth stem are refused
-(utils/args.py); under TPU.QUANT_INT8 it trains the float tree, as the
+Orbax checkpoints are refused (utils/args.py); under TPU.QUANT_INT8 it trains the float tree, as the
 JAX CLI does (int8 is serving only).  `main` returns a summary: the last
 checkpoint, whether the run was preempted, and per epoch its steps,
 seconds, episodes per second, the seconds the loop waited for a batch,
@@ -131,15 +136,18 @@ class PreemptionGuard:
               flush=True)
 
 
-def make_loader(args, c, imdb_, roidb):
-    """The episodic loader the flags ask for, at the tree's scales."""
+def make_loader(args, c, imdb_, roidb, arch):
+    """The episodic loader the flags ask for, at the tree's scales, packing
+    for the space-to-depth stem under TPU.STEM_S2D unless the trunk `arch`
+    is VGG16."""
     kw = dict(num_way=args.way, num_shot=args.shot,
               max_num_box=c.MAX_NUM_GT_BOXES, seed=args.seed,
               pixel_means=c.PIXEL_MEANS, buckets=c.TPU.SIZE_BUCKETS,
               scale=c.TRAIN.SCALES[0],
               max_size=None if c.TPU.EXACT_QUERY_SCALE else c.TRAIN.MAX_SIZE,
               support_cache=c.TPU.SUPPORT_CACHE,
-              exact_support=c.TPU.EXACT_SUPPORT_SCALE)
+              exact_support=c.TPU.EXACT_SUPPORT_SCALE,
+              pack_s2d=bool(c.TPU.STEM_S2D) and arch != 'vgg16')
     if args.fewshot:
         sup_dir = os.path.join(c.DATA_DIR, 'supports') \
             if args.sup_dir == 'all' else args.sup_dir
@@ -227,7 +235,7 @@ def setup(args, group=distributed.SINGLE):
                                         use_flipped=args.use_flip,
                                         data_dir=c.DATA_DIR)
     print(f'{len(roidb)} roidb entries')
-    loader = make_loader(args, c, imdb_, roidb)
+    loader = make_loader(args, c, imdb_, roidb, config.arch)
     batcher = EpisodicBatcher(
         loader, args.batch_size, shuffle=True, seed=args.seed,
         process_id=group.rank, process_count=group.size,

@@ -164,9 +164,6 @@ def load_cfg(args):
     if c.TPU.QUANT_SCOPE not in QUANT_SCOPES:
         raise SystemExit(f'TPU.QUANT_SCOPE {c.TPU.QUANT_SCOPE}: the scopes '
                          f'are {", ".join(QUANT_SCOPES)}')
-    if c.TPU.STEM_S2D:
-        raise SystemExit('TPU.STEM_S2D: the port has no space-to-depth stem; '
-                         'set TPU.STEM_S2D False')
     if c.POOLING_MODE not in POOLING_MODES:
         raise SystemExit(f'POOLING_MODE {c.POOLING_MODE}: the modes are '
                          f'{", ".join(POOLING_MODES)}')

@@ -111,8 +111,14 @@ def default_cfg() -> AttrDict:
             # through it (several crops may share an image); query images
             # are read once each and bypass it.
             'IMAGE_CACHE_MB': 256,
-            # the port has no space-to-depth stem: False here (the JAX
-            # package defaults to True), and the CLI refuses True
+            # the ResNet stem on host-packed 2x2 space-to-depth queries and
+            # supports (data/blob.py s2d_pack, models/resnet.py conv1_s2d):
+            # the JAX package's default is True, chosen for its TPU's
+            # 128-lane tiles.  The port keeps the direct 7x7/2 stem by
+            # default until a benchmark decides: on an H100 cuDNN runs both
+            # conv1s at the same speed in float32 and in bf16, a request
+            # takes the same time on either stem, and the pack adds host
+            # work (PERF.md, "the space-to-depth stem")
             'STEM_S2D': False,
             # int8 serving (dana_tpu_torch/quant.py): the trunk's convs in
             # QUANT_SCOPE ('tail': layer4; 'all': every conv) quantized

@@ -18,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from dana_tpu_torch import native
 from dana_tpu_torch.data import blob
 from dana_tpu_torch.utils import config as config_lib
 
@@ -28,15 +29,10 @@ def _tree(c):
 
 def NMS(boxes, scores, c=None):
     """Class-agnostic greedy NMS at TEST.NMS (+1 IoU, stable descending
-    sort; ops/nms.py) -> the kept indices, score-descending (int64
-    numpy)."""
-    from dana_tpu_torch.ops.nms import nms_fixed
-    boxes = torch.as_tensor(np.asarray(boxes, np.float32)[:, :4])
-    scores = torch.as_tensor(np.asarray(scores, np.float32))
-    if len(boxes) == 0:
-        return np.zeros((0,), np.int64)
-    idx, mask = nms_fixed(boxes, scores, _tree(c).TEST.NMS, len(boxes))
-    return idx[mask].numpy()
+    sort) on the host, through the native library (dana_tpu_torch/native
+    `nms`, as the root utils.py's goes through the JAX package's) -> the
+    kept indices, score-descending (int64 numpy)."""
+    return native.nms(boxes, scores, _tree(c).TEST.NMS)
 
 
 def support_im_preprocess(im, c=None, support_size=320, n_of_shot=1):

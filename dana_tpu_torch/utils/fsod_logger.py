@@ -15,11 +15,17 @@ from __future__ import annotations
 
 import numpy as np
 
+from dana_tpu_torch.data.blob import s2d_unpack
 from dana_tpu_torch.utils.config import PIXEL_MEANS
 
 
 def _to_uint8(im_bgr_meansub, pixel_means):
-    im = np.asarray(im_bgr_meansub, np.float32) \
+    """A mean-subtracted BGR canvas (or its space-to-depth packing) ->
+    RGB uint8."""
+    im = np.asarray(im_bgr_meansub, np.float32)
+    if im.shape[-1] == 12:
+        im = s2d_unpack(im)
+    im = im \
         + np.asarray(pixel_means, np.float32).ravel()[:3]
     return np.clip(im[..., ::-1], 0, 255).astype(np.uint8)  # BGR -> RGB
 

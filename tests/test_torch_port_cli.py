@@ -232,7 +232,6 @@ def test_cli_loads_jax_written_checkpoints(jax_run, tmp_path, fmt):
     (['--dist', '--num_procs', '2', '--proc_id', '2'], 'not below'),
     (['--net', 'frcnn'], 'postprocess'),
     (['--set', 'TPU.QUANT_SCOPE', 'every'], 'the scopes are'),
-    (['--set', 'TPU.STEM_S2D', 'True'], 'space-to-depth'),
     (['--net', 'fsod', '--backbone', 'vgg16'], 'ResNet-only'),
     (['--backbone', 'res152'], 'the trunks are'),
 ])

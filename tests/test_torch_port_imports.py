@@ -155,7 +155,10 @@ def _flat(tree, prefix=''):
             yield f'{prefix}{k}', v
 
 
-# deliberate departures of the port's built-in config (utils/config.py)
+# deliberate departures of the port's built-in config (utils/config.py):
+# a smaller image cache a process, and the direct stem by default (the
+# space-to-depth stem is there, TPU.STEM_S2D True; the JAX package's
+# default was chosen for its TPU, and the port's awaits a benchmark)
 _PORT_OWN = {'TPU.IMAGE_CACHE_MB': 256, 'TPU.STEM_S2D': False}
 
 

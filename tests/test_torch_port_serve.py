@@ -7,8 +7,8 @@ An artifact is held bit for bit against the live port (the same ops on
 the same inputs, one process or two with the same thread count), and
 against the JAX package's live `dana.forward` + `postprocess_batch` on the
 same numpy weights at tests/test_torch_port_model.py's tolerances.  The
-s2d variant of tests/test_serve.py has no port counterpart: the port
-refuses a space-to-depth stem (ROADMAP "Not queued").
+space-to-depth export (`s2d`, tests/test_serve.py's s2d variant) is held
+bit for bit against the live port on the same packed inputs.
 """
 
 import collections
@@ -167,11 +167,31 @@ def test_export_matches_jax(small, exported):
 
 
 def test_export_refuses_s2d(small, tmp_path):
+    """A space-to-depth export refuses a canvas it cannot pack (an odd
+    side) and writes nothing; at an even bucket its programs take the
+    packed query [2, 35, 51, 12] and supports [1, 2, 115, 115, 12], the
+    Predictor finds the 64x96 bucket from the packed shape, and both
+    programs equal the live port on the same packed inputs bit for bit."""
+    from dana_tpu_torch.data import blob
     _, tconf, _, models = small
     with pytest.raises(ValueError, match='space-to-depth'):
         serve.export_predictor(models[0], tconf, str(tmp_path / 'a'),
-                               buckets=BUCKETS, s2d=True, device='cpu')
+                               buckets=((63, 96),), s2d=True, device='cpu')
     assert not (tmp_path / 'a').exists()
+    out = str(tmp_path / 'b')
+    meta = serve.export_predictor(models[0], tconf, out, buckets=BUCKETS[:1],
+                                  batch_size=2, sup_size=224, s2d=True,
+                                  device='cpu')
+    assert meta['s2d'] and meta['buckets'] == [
+        {'bucket': [64, 96], 'file': 'predict_64x96.pt2'}]
+    pred = serve.load(out, device='cpu')
+    sup, im, info = (torch.from_numpy(blob.s2d_pack_any(x.numpy()))
+                     if x.ndim > 2 else x for x in _inputs(3))
+    assert tuple(im.shape) == (2, 35, 51, 12)
+    feats, rows, want = _live(models[0], tconf, sup, im, info)
+    params = models[0].state_dict()
+    assert _equal(pred.encode(params, sup), feats)
+    assert _equal(pred(params, im, info, *rows), want)
 
 
 def _program_ops(graph):
@@ -354,9 +374,11 @@ def test_cli_refuses_an_anchor_mismatch(cli_export, tmp_path):
     with pytest.raises(SystemExit, match='anchor mismatch'):
         tool.main(['--checkpath', ckpt, '--out', str(tmp_path / 'a'),
                    '--ascale', '3', '--platforms', 'cpu'])
-    with pytest.raises(SystemExit, match='space-to-depth'):
-        tool.main(['--checkpath', ckpt, '--out', str(tmp_path / 'b'),
-                   '--s2d'])
+    # --s2d exports for the space-to-depth stem
+    meta = tool.main(['--checkpath', ckpt, '--out', str(tmp_path / 'b'),
+                      '--way', '2', '--shot', '1', '--buckets', '64x96',
+                      '--bs', '1', '--platforms', 'cpu', '--s2d'])
+    assert meta['s2d'] and not meta['quantized']
 
 
 def test_cli_trace_on_cpu_for_the_card_needs_the_card(cli_export, tmp_path):

@@ -19,8 +19,11 @@ build host without one, `--quant` included, as the JAX tool's
 `--platforms tpu` does on a CPU host.  The config maps as the port's
 CLIs map theirs (dana_tpu_torch/utils/args.py): the built-in
 cfgs/res50.yml values (`--cfg cfgs/res101_ls.yml` applies --ls's values;
-the port reads no other YAML), the --ascale preset, then --set.  `--s2d` is refused, as the port's
-CLIs refuse TPU.STEM_S2D.  Tested by tests/test_torch_port_serve.py.
+the port reads no other YAML), the --ascale preset, then --set.  `--s2d`
+exports for the space-to-depth stem (programs that take host-packed
+queries and supports, data/blob.py `s2d_pack`), and so does `--set
+TPU.STEM_S2D True` on a ResNet trunk, as the port's CLIs serve it.  Tested
+by tests/test_torch_port_serve.py.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def main(argv=None):
     ap.add_argument('--arch', default='resnet50')
     ap.add_argument('--quant', default=None, choices=('tail', 'all'))
     ap.add_argument('--s2d', action='store_true',
-                    help='refused: the port has no space-to-depth stem')
+                    help='export for host-packed space-to-depth inputs '
+                         '(the ResNet stem of TPU.STEM_S2D)')
     ap.add_argument('--platforms', nargs='*', default=None,
                     help='the device the artifact serves on: cuda (the '
                          'default) or cpu')
@@ -67,8 +71,6 @@ def main(argv=None):
     from dana_tpu_torch.utils.args import ASCALE_PRESETS
     from dana_tpu_torch.utils.weights import from_jax_params
 
-    if args.s2d:
-        raise SystemExit(f'--s2d: {serve.S2D_REFUSED}')
     platforms = args.platforms or ['cuda']
     if len(platforms) != 1:
         raise SystemExit(f'--platforms {platforms}: an artifact serves on '
@@ -89,8 +91,6 @@ def main(argv=None):
     config_lib.cfg_from_list(c, ASCALE_PRESETS[args.ascale])
     if args.set_cfgs:          # explicit --set pairs win over the preset
         config_lib.cfg_from_list(c, args.set_cfgs)
-    if c.TPU.STEM_S2D:
-        raise SystemExit(f'TPU.STEM_S2D: {serve.S2D_REFUSED}')
 
     payload = ckpt_lib.read_checkpoint(args.checkpath)
     params = payload['model']
@@ -122,14 +122,17 @@ def main(argv=None):
     else:
         buckets = tuple(tuple(b) for b in c.TPU.SIZE_BUCKETS)
 
+    s2d = args.s2d or (bool(c.TPU.STEM_S2D) and config.arch != 'vgg16')
     meta = serve.export_predictor(
         model, config, args.out, buckets=buckets, batch_size=args.bs,
-        device=platforms[0], pp_kwargs=config_lib.postprocess_kwargs(c))
+        s2d=s2d, device=platforms[0],
+        pp_kwargs=config_lib.postprocess_kwargs(c))
     total = sum(os.path.getsize(os.path.join(args.out, f))
                 for f in os.listdir(args.out))
     print(f"exported {len(meta['buckets'])} bucket artifacts + encoder "
           f"to {args.out} ({total / 1e6:.1f} MB) for {meta['device']}"
-          f"{' [int8 ' + args.quant + ']' if args.quant else ''}")
+          f"{' [int8 ' + args.quant + ']' if args.quant else ''}"
+          f"{' [s2d]' if s2d else ''}")
     return meta
 
 
