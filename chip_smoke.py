@@ -72,7 +72,8 @@ Run from the repository root.  Phases, each of which fails the run:
      encoded once.  The launch counters are zeroed just before and read
      just after: 2 CISA, 1 RoIAlign and 2 NMS launches a request, and the
      single-group CISA (no site on this path or the next) never; NMS
-     synchronises the host no time (`nms.HOST_SYNCS` 0).  The
+     synchronises the host no time (the counter table's `host_syncs.nms`
+     0).  The
      outputs must be finite and of the right shapes, and the first
      request, served again with the plain versions in place of the
      kernels (and the kernel path's proposals), must agree: the RPN's
@@ -429,37 +430,53 @@ def check_close(name, got, want, tol=TOL):
 
 
 def launch_counters():
-    """{kernel name: (its wrapper, the attribute that counts its launches)}:
-    a wrapper counts its float32 kernel's launches in `launches` and its
-    bf16 kernel's in `launches_bf16`.  Three count int8 serving's work (no
-    hand kernel; phase 14): the int8 convs run, the int8 RoIAlign's calls
-    and the `torch._int_mm` products that carry both.  `nms` counts the
-    NMS kernel's launches (the op's CUDA implementation)."""
-    from dana_tpu_torch.models import layers
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
-    shots, single = cisa_attention.cisa_attention_shots, \
-        cisa_attention.cisa_attention
-    return {'cisa_shots': (shots, 'launches'),
-            'roi_align_fwd': (roi_align.roi_align, 'launches'),
-            'roi_align_pw': (roi_align.roi_align_pw, 'launches'),
-            'cisa_attention': (single, 'launches'),
-            'cisa_shots_bf16': (shots, 'launches_bf16'),
-            'roi_align_fwd_bf16': (roi_align.roi_align, 'launches_bf16'),
-            'cisa_attention_bf16': (single, 'launches_bf16'),
-            'int8_conv': (layers.dynamic_int8_conv, 'runs'),
-            'roi_align_int8': (roi_align.roi_align_int8, 'runs'),
-            'int_mm': (layers.int8_matmul, 'launches'),
-            'nms': (nms.nms_sorted, 'launches')}
+    """{kernel name: its key in the counter table (utils/trace.py)}: a
+    kernel's float32 launches are `<op>.float32`, its bf16 ones
+    `<op>.bfloat16`.  Three count int8 serving's work (no hand kernel;
+    phase 14): the int8 convs run, the int8 RoIAlign's calls and the
+    `torch._int_mm` products that carry both.  `nms` counts the NMS
+    kernel's launches (the op's CUDA implementation)."""
+    return {'cisa_shots': 'cisa_shots.float32',
+            'roi_align_fwd': 'roi_align.float32',
+            'roi_align_pw': 'roi_align_pw.float32',
+            'cisa_attention': 'cisa_attention.float32',
+            'cisa_shots_bf16': 'cisa_shots.bfloat16',
+            'roi_align_fwd_bf16': 'roi_align.bfloat16',
+            'cisa_attention_bf16': 'cisa_attention.bfloat16',
+            'int8_conv': 'dynamic_int8_conv.runs',
+            'roi_align_int8': 'roi_align_int8.runs',
+            'int_mm': 'int8_matmul.int8',
+            'nms': 'nms.float32'}
+
+
+# the counter table when the counters were last zeroed
+_ZERO = collections.Counter()
 
 
 def zero_launches():
-    for fn, attr in launch_counters().values():
-        setattr(fn, attr, 0)
+    """Zero the launch counters and NMS's host syncs (read from here on as
+    the table's growth)."""
+    from dana_tpu_torch.utils import trace
+    _ZERO.clear()
+    _ZERO.update(trace.counts())
+
+
+def _since_zero():
+    from dana_tpu_torch.utils import trace
+    now = trace.counts()
+    return {k: now[k] - _ZERO[k] for k in set(now) | set(_ZERO)}
 
 
 def read_launches():
-    return {name: getattr(fn, attr)
-            for name, (fn, attr) in launch_counters().items()}
+    since = _since_zero()
+    return {name: since.get(key, 0)
+            for name, key in launch_counters().items()}
+
+
+def nms_syncs():
+    """NMS's host syncs since `zero_launches` (its plain version's loop
+    flags; the kernel syncs none)."""
+    return _since_zero().get('host_syncs.nms', 0)
 
 
 def launch_counts(**counts):
@@ -1502,7 +1519,6 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
     torch.cuda.reset_peak_memory_stats()
 
     zero_launches()
-    nms.HOST_SYNCS = 0
     outs, req_ms = [], []
     for i, (query, info, classes) in enumerate(requests):
         t0 = time.perf_counter()
@@ -1513,7 +1529,7 @@ def serving_path(seed, model=None, label='main path', tol=TOL, n=None,
         req_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((dets, valid))
     launches = read_launches()
-    syncs = nms.HOST_SYNCS
+    syncs = nms_syncs()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{label}: {n} requests of {list(requests[0][0].shape)} uint8, '
           f'ms per request {req_ms}, peak memory {peak:.2f} GiB, '
@@ -1682,7 +1698,6 @@ def training_path(seed, model=None, label='main path', steps=None,
     torch.cuda.reset_peak_memory_stats()
 
     zero_launches()
-    nms.HOST_SYNCS = 0
     metrics, step_ms, record = [], [], {}
     for i, batch in enumerate(episodes):
         t0 = time.perf_counter()
@@ -1696,7 +1711,7 @@ def training_path(seed, model=None, label='main path', steps=None,
             grads0 = head_grads(trainer.model)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = read_launches()
-    syncs = nms.HOST_SYNCS
+    syncs = nms_syncs()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{label} training: {steps} steps of '
           f'{list(episodes[0]["im_data"].shape)} uint8 episodes, ms per '
@@ -1772,7 +1787,6 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path', int8_convs=0):
             argv += ['--set', *overrides]
         torch.cuda.synchronize()
         zero_launches()
-        nms.HOST_SYNCS = 0
         t0 = time.perf_counter()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -1781,7 +1795,7 @@ def cli_path(seed, checkpath, overrides=(), label='CLI path', int8_convs=0):
         main_s = time.perf_counter() - t0
         sys.stdout.write(out.getvalue())
         launches = read_launches()
-        syncs = nms.HOST_SYNCS
+        syncs = nms_syncs()
         with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
             all_boxes = pickle.load(f)
     timing = result['timing']
@@ -2946,26 +2960,26 @@ def compare_grid(pred, base, query, info, classes, label):
     return diffs
 
 
-def _by_device_wrappers():
-    from dana_tpu_torch.ops import cisa_attention, int8_mm, nms, roi_align
-    return (('cisa_shots', cisa_attention.cisa_attention_shots),
-            ('roi_align_fwd', roi_align.roi_align),
-            ('roi_align_pw', roi_align.roi_align_pw),
-            ('nms', nms.nms_sorted),
-            ('int_mm', int8_mm.int8_matmul))
+# the counter table's op of each kernel counted by device
+BY_DEVICE_OPS = {'cisa_shots': 'cisa_shots', 'roi_align_fwd': 'roi_align',
+                 'roi_align_pw': 'roi_align_pw', 'nms': 'nms',
+                 'int_mm': 'int8_matmul'}
 
 
 def _by_device():
     """This process's launches of K1, K2, K3, NMS and the int8 products
-    (`torch._int_mm`) by (device, dtype)."""
-    return {name: {f'{d}/{t}': n for (d, t), n in
-                   fn.launches_by_device.items()}
-            for name, fn in _by_device_wrappers()}
-
-
-def _clear_by_device():
-    for _, fn in _by_device_wrappers():
-        fn.launches_by_device.clear()
+    (`torch._int_mm`) since `zero_launches`, by device and dtype: {name:
+    {'<device>/<dtype>': n}} (the table's `<op>.<dtype>@<device>`)."""
+    out = {name: {} for name in BY_DEVICE_OPS}
+    for key, n in _since_zero().items():
+        if '@' not in key or not n:
+            continue
+        kind, dev = key.split('@', 1)
+        op, dtype = kind.rsplit('.', 1)
+        for name, o in BY_DEVICE_OPS.items():
+            if o == op:
+                out[name][f'{dev}/{dtype}'] = n
+    return out
 
 
 def grid_serving_path(seed, card):
@@ -2990,7 +3004,6 @@ def grid_serving_path(seed, card):
         for d in devs:
             torch.cuda.reset_peak_memory_stats(d)
         zero_launches()
-        _clear_by_device()
         req_ms = []
         for query, info, classes in requests:
             t0 = time.perf_counter()
@@ -3022,7 +3035,7 @@ def grid_serving_path(seed, card):
         by_path[f'{mode}_serving'] = launches
         summary[mode] = dict(grid=repr(pred.grid), devices=[
             str(d) for d in kw['devices']], req_ms=req_ms, peak_gib=peak,
-            launches_by_device=by_dev, path_diffs=diffs)
+            by_device=by_dev, path_diffs=diffs)
         print(f'{mode} ({card}, {torch.cuda.device_count()} device(s) '
               f'seen): {pred.grid} over {[str(d) for d in kw["devices"]]}, '
               f'ms per request {req_ms} (unsharded in this call: '
@@ -3196,7 +3209,6 @@ def cli_rank_main(which, argv):
     by kernel as the last line of its output."""
     from dana_tpu_torch import inference, train
     zero_launches()
-    _clear_by_device()
     out = (train if which == 'train' else inference).main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -3367,7 +3379,6 @@ def int8_grid_path(seed, card, float_grids):
         one, one_ms = ones[scope]
         pred = serving_predictor(seed, (conf, tree), **kw)
         zero_launches()
-        _clear_by_device()
         req_ms = timed_requests(pred, requests, label)
         launches, by_dev = read_launches(), _by_device()
         rows, blocks = len(pred.rows), kw.get('sp', 1)
@@ -3446,7 +3457,7 @@ def int8_grid_path(seed, card, float_grids):
         summary[label] = dict(
             grid=repr(pred.grid), devices=[str(d) for d in kw['devices']],
             req_ms=req_ms, one_device_int8_req_ms=one_ms,
-            float32_grid_req_ms=float_ms, launches_by_device=by_dev,
+            float32_grid_req_ms=float_ms, by_device=by_dev,
             path_diffs=diffs, scale_max_rel_diff=worst,
             scales={'one_device': one_scales, 'rows': row_scales})
         print(f'{label} ({card}, {torch.cuda.device_count()} device(s) '
@@ -3725,11 +3736,6 @@ def serve_child_main(job_path):
     kernels' launches and NMS's host syncs around the timed requests;
     writes the results beside the job file."""
     from dana_tpu_torch import serve
-    from dana_tpu_torch.ops import cisa_attention, int8_mm, nms, roi_align
-    counters = {'cisa_shots': cisa_attention.cisa_attention_shots,
-                'roi_align_fwd': roi_align.roi_align,
-                'nms': nms.nms_sorted,
-                'int_mm': int8_mm.int8_matmul}
     jobs = torch.load(job_path)
     results, loaded = {}, {}
     for job in jobs:
@@ -3754,10 +3760,7 @@ def serve_child_main(job_path):
             pred(params, *req)
         sync = torch.cuda.synchronize if pred.device.type == 'cuda' \
             else (lambda: None)
-        for fn in counters.values():
-            fn.launches = 0
-            fn.launches_bf16 = 0
-        nms.HOST_SYNCS = 0
+        zero_launches()
         outs, req_ms = [], []
         for req in reqs:
             sync()
@@ -3766,13 +3769,14 @@ def serve_child_main(job_path):
             sync()
             req_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append((dets.cpu(), valid.cpu()))
+        counted = read_launches()
         launches = {}
-        for name, fn in counters.items():
-            launches[name] = fn.launches
-            launches[name + '_bf16'] = getattr(fn, 'launches_bf16', 0)
+        for name in ('cisa_shots', 'roi_align_fwd', 'nms', 'int_mm'):
+            launches[name] = counted[name]
+            launches[name + '_bf16'] = counted.get(name + '_bf16', 0)
         results[job['label']] = dict(
             outs=outs, req_ms=req_ms, load_s=load_s, launches=launches,
-            host_syncs=nms.HOST_SYNCS, meta=pred.meta,
+            host_syncs=nms_syncs(), meta=pred.meta,
             encoded=tuple(t.cpu() for t in enc))
     results['models_imported'] = 'dana_tpu_torch.models' in sys.modules
     torch.save(results, job_path + '.out')
@@ -4253,11 +4257,9 @@ def s2d_export(seed, card, pred_s, requests):
         art(params, q, info, *feats)              # untimed first call
         torch.cuda.synchronize()
         zero_launches()
-        from dana_tpu_torch.ops import nms
-        nms.HOST_SYNCS = 0
         got = art(params, q, info, *feats)
         torch.cuda.synchronize()
-        launches, syncs = read_launches(), nms.HOST_SYNCS
+        launches, syncs = read_launches(), nms_syncs()
     if not meta['s2d'] or tuple(meta['buckets'][0]['bucket']) != QUERY_HW:
         fail(f's2d export: meta {meta}')
     if launches != want_launches(config, 1, training=False) or syncs:

@@ -37,6 +37,7 @@ from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.models import layers as L
 from dana_tpu_torch.parallel.spatial import shard_trunk_spatial
 from dana_tpu_torch.utils import config as cfg
+from dana_tpu_torch.utils import trace
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import from_jax_params
 
@@ -157,14 +158,16 @@ class Predictor:
         [B,100,5], valid [B,100]) on the device.  Host arrays or tensors;
         a tensor in pinned memory is copied without blocking the host.  On
         a grid the rows split over its data rows and the detections come
-        back on the first device."""
-        if len(self.rows) == 1:
-            return self._predict_row(self.rows[0], im_data, im_info, classes,
-                                     support_ims)
-        outs = self._each_row(self._predict_row, im_data, im_info, classes,
-                              support_ims)
-        return tuple(torch.cat([o[j].to(self.device) for o in outs])
-                     for j in range(2))
+        back on the first device.  One unit of utils/trace.py: the range
+        `dana.entry.predict` and a record of the request."""
+        with trace.unit('predict'):
+            if len(self.rows) == 1:
+                return self._predict_row(self.rows[0], im_data, im_info,
+                                         classes, support_ims)
+            outs = self._each_row(self._predict_row, im_data, im_info,
+                                  classes, support_ims)
+            return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                         for j in range(2))
 
     @torch.inference_mode()
     def forward(self, im_data, im_info, classes=None, support_ims=None):
@@ -218,16 +221,15 @@ class Predictor:
 
     def _forward_row(self, row, im_data, im_info, classes, support_ims):
         with record_function('dana.upload'):
-            im_data = torch.as_tensor(im_data).to(row.lead,
-                                                  non_blocking=True)
-            im_info = torch.as_tensor(im_info).to(row.lead,
-                                                  non_blocking=True).float()
+            im_data = trace.upload(im_data, row.lead, non_blocking=True)
+            im_info = trace.upload(im_info, row.lead,
+                                   non_blocking=True).float()
             if self.caches_supports:
                 kw = dict(support_feats=self.batch_support_feats(
                     classes, row.cache))
             else:
-                kw = dict(support_ims=torch.as_tensor(support_ims).to(
-                    row.lead, non_blocking=True).float())
+                kw = dict(support_ims=trace.upload(
+                    support_ims, row.lead, non_blocking=True).float())
         out = frameworks.forward(row.model, self.config, im_data, im_info,
                                  **kw)
         return out, im_info

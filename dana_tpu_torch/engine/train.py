@@ -38,6 +38,7 @@ from dana_tpu_torch.engine import optim
 from dana_tpu_torch.models import dana, frameworks
 from dana_tpu_torch.parallel.distributed import SINGLE
 from dana_tpu_torch.utils import config as cfg
+from dana_tpu_torch.utils import trace
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 from dana_tpu_torch.utils.weights import (from_jax_params, velocity_from_jax,
                                           velocity_to_jax)
@@ -139,12 +140,18 @@ class Trainer:
         replaces the generator's draws.  -> dict of 0-dim tensors on the
         device: the four losses, loss, fg_cnt, bg_cnt (the global
         batch's) and skipped (read on the host once, to decide the
-        update)."""
-        b = {k: torch.as_tensor(v, device=self.device)
-             for k, v in batch.items()}
-        if draws is not None:
-            draws = {k: self.group.rows(torch.as_tensor(v, device=self.device))
-                     for k, v in draws.items()}
+        update).  One unit of utils/trace.py: the range `dana.entry.step`
+        and a record of the step; the batch and the draws are uploaded in
+        `dana.entry.upload`."""
+        with trace.unit('step'):
+            return self._step(batch, draws)
+
+    def _step(self, batch, draws):
+        with record_function('dana.entry.upload'):
+            b = {k: trace.upload(v, self.device) for k, v in batch.items()}
+            if draws is not None:
+                draws = {k: self.group.rows(trace.upload(v, self.device))
+                         for k, v in draws.items()}
         for p in self.params:
             p.grad = None
         sup, all_gt = b.get('support_ims'), b.get('all_gt_boxes')
@@ -197,7 +204,7 @@ class Trainer:
                 self._mean_gradients()
             grads = [p.grad for p in self.params]
             skipped = optim.nonfinite(loss, grads)
-            if not skipped.item():
+            if not trace.sync(skipped, 'update')[0]:
                 if self.clip_norm:
                     optim.clip_gradients(grads, self.clip_norm)
                 self.optimizer.step()

@@ -35,10 +35,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dana_tpu_torch.ops import build
 from dana_tpu_torch.ops.int8_mm import (int8_matmul,  # noqa: F401
                                         int8_matmul_plain, int_mm_operands)
 from dana_tpu_torch.parallel.distributed import current_group
+from dana_tpu_torch.utils import trace
 
 
 class Conv2d(nn.Conv2d):
@@ -239,17 +239,15 @@ def dynamic_int8_conv(x, w_int8, w_scale, bias, stride=1, padding=0,
     exact s8 x s8 -> s32 conv (`int8_conv_acc`; padding an int or (rows,
     columns)), then acc * (sx * w_scale) + bias in float32, cast back to
     x's dtype.  Returns an NCHW view of NHWC memory (channels_last, as the
-    trunk runs); counts each call in `dynamic_int8_conv.runs`."""
+    trunk runs); counts each call in the counter table's
+    `dynamic_int8_conv.runs`."""
     xq, sx = quantize_activation(x, amax)
     acc = int8_conv_acc(xq, w_int8, stride, padding)
     y = acc.float().mul_(sx * w_scale)
     if bias is not None:
         y = y.add_(bias)
-    build.count(dynamic_int8_conv, 'runs')
+    trace.count('dynamic_int8_conv.runs')
     return nhwc_to_nchw(y.to(x.dtype))
-
-
-dynamic_int8_conv.runs = 0
 
 
 class Linear(nn.Linear):

@@ -23,6 +23,7 @@ from dana_tpu_torch.core.boxes import (clip_boxes, decode_boxes,
                                        encode_boxes, iou_matrix_masked)
 from dana_tpu_torch.models import layers as L
 from dana_tpu_torch.ops.nms import nms_fixed_tiled
+from dana_tpu_torch.utils import trace
 
 # the uniform draws of one training step, in the JAX package's order:
 # anchor_target's fg and bg ranks [B,N], then proposal_target's fg rank
@@ -246,8 +247,11 @@ def proposal_target(rois, gt_boxes, u_fg_rank, u_fg, u_bg, *,
 
     gt_sel = _take(gt_boxes[..., :4], gt_assignment.gather(1, sel))
     targets = encode_boxes(out_rois[..., 1:5], gt_sel)
-    means = targets.new_tensor(bbox_normalize_means)
-    stds = targets.new_tensor(bbox_normalize_stds)
+    # two copies from pageable host memory: on the card each waits for the
+    # stream to drain
+    with trace.blocking('proposal_target', n=2):
+        means = targets.new_tensor(bbox_normalize_means)
+        stds = targets.new_tensor(bbox_normalize_stds)
     targets = (targets - means) / stds
 
     pos = ((labels > 0) & valid_img[:, None])[..., None]

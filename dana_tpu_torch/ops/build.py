@@ -28,9 +28,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _LIBS: dict = {}
 BUILD_LOG: dict = {}     # name -> nvcc's output (ptxas register report)
 # the rows of an int8 grid run in threads of their own (engine/predict.py):
-# one build per library, and no launch count lost between two threads
+# one build per library (launches are counted in utils/trace.py)
 _LOAD_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -91,16 +90,6 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, _start(name))
                 lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return lib
-
-
-def count(fn, attr='launches', key=None):
-    """Add one to the counter `fn.<attr>` (fn a function or a module)
-    and, given a (device, dtype) key, to `fn.launches_by_device[key]`,
-    under a lock."""
-    with _COUNT_LOCK:
-        setattr(fn, attr, getattr(fn, attr) + 1)
-        if key is not None:
-            fn.launches_by_device[key] += 1
 
 
 def check(err: int, name: str):

@@ -15,9 +15,9 @@ over the shots' keys laid end to end (`cisa_pv_bf16`); each phase has its
 plain version, and `bf16_plan` is the host's tile and shared-memory plan.
 `cisa_attention` is the single-group form (no shot axis, no mean): the
 same kernels entered with S = 1 through views of k, v and u.  Each
-wrapper counts its float32 launches in `launches` and its bfloat16 ones
-in `launches_bf16`, one a call, and both in `launches_by_device`, keyed
-by (device, dtype name).
+launch is counted in the counter table (`utils/trace.py` `launched`):
+`cisa_shots.<dtype>` for `cisa_attention_shots`, `cisa_attention.<dtype>`
+for `cisa_attention`, each also by device (`cisa_shots.float32@cuda:0`).
 
 Both enter through one registered op, `dana_torch::cisa_shots`
 (`cisa_shots_op`), with a fake implementation, so a traced or exported
@@ -31,13 +31,13 @@ only.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 
 import torch
 
 from dana_tpu_torch.ops import build
+from dana_tpu_torch.utils import trace
 
 
 def cisa_attention_shots_plain(q, k, v, unary_sm, scale, gamma):
@@ -330,11 +330,6 @@ def cisa_pv_bf16(p, v):
     return out
 
 
-def _count(wrapper, device, dtype):
-    build.count(wrapper, 'launches_bf16' if dtype == torch.bfloat16
-                else 'launches', (str(device), str(dtype)[6:]))
-
-
 @torch.library.custom_op('dana_torch::cisa_shots', mutates_args=())
 def cisa_shots_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   unary_sm: torch.Tensor, scale: float, gamma: float,
@@ -343,8 +338,8 @@ def cisa_shots_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [G,S,Ns,D], v [G,S,Ns,C], unary_sm [G,S,Ns] -> [G,Nq,C] in q's dtype.
     CPU tensors: the plain version (`cisa_attention_plain` on the S = 1
     views when `single`, else `cisa_attention_shots_plain`); CUDA tensors:
-    the kernel of q's dtype, one launch counted on `cisa_attention` when
-    `single`, else on `cisa_attention_shots`."""
+    the kernel of q's dtype, one launch counted as `cisa_attention` when
+    `single`, else as `cisa_shots`."""
     if single:
         return cisa_attention_plain(q, k[:, 0], v[:, 0], unary_sm, scale,
                                     gamma)
@@ -359,8 +354,8 @@ def _(q, k, v, unary_sm, scale, gamma, single):
 @cisa_shots_op.register_kernel('cuda')
 def _(q, k, v, unary_sm, scale, gamma, single):
     out = _launch(q, k, v, unary_sm, scale, gamma)
-    _count(cisa_attention if single else cisa_attention_shots, q.device,
-           q.dtype)
+    trace.launched('cisa_attention' if single else 'cisa_shots', q.device,
+                   q.dtype)
     return out
 
 
@@ -418,9 +413,3 @@ def cisa_attention(q, k, v, unary_sm, scale, gamma):
         raise ValueError('cisa_attention: q, k, v and unary_sm are '
                          '[G,Nq,D], [G,Ns,D], [G,Ns,C], [G,1,Ns]')
     return _apply(q, k[:, None], v[:, None], unary_sm, scale, gamma, True)
-
-
-cisa_attention_shots.launches = cisa_attention_shots.launches_bf16 = 0
-cisa_attention.launches = cisa_attention.launches_bf16 = 0
-cisa_attention_shots.launches_by_device = collections.Counter()
-cisa_attention.launches_by_device = collections.Counter()

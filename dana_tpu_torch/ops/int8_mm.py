@@ -2,7 +2,8 @@
 `dana_torch::int8_mm`: a [M, K] int8 times b [K, N] int8 -> [M, N] int32,
 exact.  On CPU tensors it runs the plain version, an exact float64
 product; on CUDA tensors `torch._int_mm` (cuBLASLt s8 x s8 -> s32) on the
-operands `int_mm_operands` lays out, counting the launch.  The op has a
+operands `int_mm_operands` lays out, counting the launch as
+`int8_matmul.int8` in the counter table (utils/trace.py).  The op has a
 fake implementation, so a traced program (dana_tpu_torch/serve.py) holds
 one call whose device is chosen when it runs, and a program traced on a
 host without a card serves on the card.  The int8 convs
@@ -12,12 +13,10 @@ host without a card serves on the card.  The int8 convs
 
 from __future__ import annotations
 
-import collections
-
 import torch
 import torch.nn.functional as F
 
-from dana_tpu_torch.ops import build
+from dana_tpu_torch.utils import trace
 
 
 def int_mm_operands(a, b):
@@ -64,7 +63,7 @@ def _(a, b):
                          f'rows (got {a.shape[0]})')
     n = b.shape[1]
     out = torch._int_mm(*int_mm_operands(a, b))
-    build.count(int8_matmul, 'launches', (str(a.device), 'int8'))
+    trace.launched('int8_matmul', a.device, 'int8')
     return out if out.shape[1] == n else out[:, :n].contiguous()
 
 
@@ -77,7 +76,3 @@ def int8_matmul(a, b):
         raise ValueError('int8_matmul: a and b must be CPU or CUDA tensors '
                          f'(got {a.device}, {b.device})')
     return int8_mm(a, b)
-
-
-int8_matmul.launches = 0
-int8_matmul.launches_by_device = collections.Counter()

@@ -11,9 +11,9 @@ the sorted boxes is one registered op, `dana_torch::nms_sorted`
 (`nms_sorted`), with a fake implementation, so a traced or exported
 program holds it as one call.  On CUDA tensors it launches the hand
 kernel `csrc/nms.cu` (a suppression bitmask, then a walk per image, no
-host synchronisation) and counts the launch in `nms_sorted.launches` and
-`nms_sorted.launches_by_device`; on CPU tensors it runs the plain version,
-`nms_sorted_plain`.
+host synchronisation) and counts the launch in the counter table
+(utils/trace.py) as `nms.float32`, also by device; on CPU tensors it runs
+the plain version, `nms_sorted_plain`.
 
 The plain version walks the sorted boxes in tiles: each tile is
 suppressed by the boxes already kept, then within itself by the fixed
@@ -22,28 +22,26 @@ overlap mask of the tile.  That fixed point is unique and equals the
 greedy result; Jacobi iteration from `live` reaches it within the tile
 length.  The scan stops once every image has `max_output` boxes.  Its
 data-dependent loop ends cost host synchronisations, one per tile (all
-images full?) and one per nine fixed-point steps (converged?), which
-`HOST_SYNCS` counts; the kernel costs none.
+images full?) and one per nine fixed-point steps (converged?), each a
+`trace.sync` at site `nms` (the table's `host_syncs`); the kernel costs
+none.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import sys
 
 import torch
 
 from dana_tpu_torch.core.boxes import iou_matrix
 from dana_tpu_torch.ops import build
+from dana_tpu_torch.utils import trace
 
-HOST_SYNCS = 0
 _UNROLL = 9     # odd: the update is antitone, so orbits have period <= 2
 
 
 def _sync_flag(t: torch.Tensor) -> bool:
-    build.count(sys.modules[__name__], 'HOST_SYNCS')
-    return bool(t)
+    return trace.sync(t, 'nms')
 
 
 def _fixed_point(mask, live):
@@ -160,12 +158,8 @@ def _(sboxes, svalid, iou_threshold, max_output, tile):
             float(iou_threshold),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, 'nms_sorted')
-    build.count(nms_sorted, 'launches', (str(dev), 'float32'))
+    trace.launched('nms', dev, torch.float32)
     return pos, keep
-
-
-nms_sorted.launches = 0
-nms_sorted.launches_by_device = collections.Counter()
 
 
 def _nms(boxes, scores, iou_threshold, max_output, valid, tile):

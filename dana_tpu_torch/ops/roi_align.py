@@ -31,9 +31,9 @@ axis weights rounded to bf16, the sums are float32 and the output is
 rounded to bf16 once; its plain twin is `roi_align_combine_plain`.  The
 kernel does it as one tensor-core product a roi over the roi's kept taps,
 the rectangle `roi_tap_extent` gives; the axis weights are the same float32
-ones (rois taken in float32).  `roi_align` counts its float32 launches in
-`launches` and its bf16 ones in `launches_bf16`; both wrappers count
-every launch in `launches_by_device` too, keyed by (device, dtype name).
+ones (rois taken in float32).  Both wrappers count each launch in the
+counter table (`utils/trace.py` `launched`): `roi_align.float32`,
+`roi_align.bfloat16` and `roi_align_pw.float32`, each also by device.
 `roi_align_train` is the training step's differentiable RoIAlign: it
 builds Wy / Wx once and keeps them for the backward (no gradient for the
 rois, which come from the sampler).  On a float32 map it pools with
@@ -53,12 +53,12 @@ product is `torch._int_mm`.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
 from dana_tpu_torch.ops import build
+from dana_tpu_torch.utils import trace
 
 
 def _axis_samples(lo, hi, size: int, pooled: int, max_samples: int):
@@ -249,7 +249,8 @@ def roi_align_int8(feat, rois, output_size: int = 7,
     image (`quantize_map`), the exact int32 product (`layers.int8_matmul`:
     `torch._int_mm` on CUDA tensors, its plain version on CPU tensors),
     then acc * (sw * sf) cast to feat's dtype.  Same arguments and result
-    shape as `roi_align_plain`; counts each call in `roi_align_int8.runs`.
+    shape as `roi_align_plain`; counts each call in the counter table's
+    `roi_align_int8.runs`.
     The weights are `roi_weights`' float32 axis weights, as the other
     paths use."""
     from dana_tpu_torch.models.layers import int8_matmul
@@ -262,11 +263,8 @@ def roi_align_int8(feat, rois, output_size: int = 7,
         acc = int8_matmul(wq, fq)
         out = acc.float().reshape(*sw.shape, c) * (sw[..., None] * sf)
         outs.append(out.to(feat.dtype))
-    build.count(roi_align_int8, 'runs')
+    trace.count('roi_align_int8.runs')
     return torch.stack(outs)
-
-
-roi_align_int8.runs = 0
 
 
 def _lib():
@@ -350,8 +348,7 @@ def _(feat, rois, output_size, spatial_scale, max_samples):
             rois.shape[-1], output_size, spatial_scale, max_samples,
             torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_fwd_bf16' if bf16 else 'roi_align_fwd')
-    build.count(roi_align, 'launches_bf16' if bf16 else 'launches',
-                (str(feat.device), str(feat.dtype)[6:]))
+    trace.launched('roi_align', feat.device, feat.dtype)
     return out
 
 
@@ -368,10 +365,6 @@ def roi_align(feat, rois, output_size: int = 7,
                          f'tensors (got {feat.device}, {rois.device})')
     return roi_align_op(feat, rois, int(output_size), float(spatial_scale),
                         int(max_samples))
-
-
-roi_align.launches = roi_align.launches_bf16 = 0
-roi_align.launches_by_device = collections.Counter()
 
 
 def roi_align_pw(feat, wy, wx):
@@ -405,12 +398,8 @@ def roi_align_pw(feat, wy, wx):
             b, r, h, w, c, p,
             torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(err, 'roi_align_pw')
-    build.count(roi_align_pw, 'launches', (str(feat.device), 'float32'))
+    trace.launched('roi_align_pw', feat.device, torch.float32)
     return out
-
-
-roi_align_pw.launches = 0
-roi_align_pw.launches_by_device = collections.Counter()
 
 
 class _RoIAlignTrain(torch.autograd.Function):

@@ -14,7 +14,8 @@ the two stages separately (ties are common: the maps come out of a ReLU).
 This version keeps the two stages and their gradient (`torch.amax` splits
 ties evenly, as JAX's max does; `torch.max(dim)` would not): for a chunk
 of rois it gathers each bin's window, the rows of the y-bin times the
-columns of the x-bin, padded with -inf to the widest bin of the call, and
+columns of the x-bin, padded with -inf to the widest bin of the call (read
+on the host: one `trace.sync` at site `roi_pool`), and
 reduces the columns, then the rows.  Rows outside the y-bins get no
 gradient in the JAX function either, so gathering only the bins' rows
 changes nothing.  Chunks are sized to a fixed budget of gathered bytes,
@@ -32,6 +33,8 @@ from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from dana_tpu_torch.utils import trace
 
 # gathered bin windows per chunk (bytes)
 CHUNK_BYTES = 256 << 20
@@ -84,7 +87,7 @@ def roi_pool(feat, rois, output_size: int = 7,
     ys, lh = bin_edges(box[..., 1], box[..., 3], h, p)        # [B,R,P]
     xs, lw = bin_edges(box[..., 0], box[..., 2], w, p)
     kh, kw = (max(int(v), 1) for v in
-              torch.stack([lh.max(), lw.max()]).tolist())
+              trace.sync(torch.stack([lh.max(), lw.max()]), 'roi_pool'))
     img = torch.arange(b, device=feat.device)[:, None, None, None] * (h * w)
     rows = img + torch.clamp(ys[..., None] + torch.arange(
         kh, device=feat.device), max=h - 1) * w                # [B,R,P,Kh]

@@ -53,6 +53,7 @@ from torch.func import functional_call
 # the ops the artifacts call, registered on import
 from dana_tpu_torch.ops import (cisa_attention, int8_mm,  # noqa: F401
                                 nms, roi_align)
+from dana_tpu_torch.utils import trace
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 
 BUCKETS = ((608, 1024), (1024, 608), (704, 704), (608, 1216), (1216, 608))
@@ -230,6 +231,7 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
                          'images: only DAnA and cisa serve from encoded '
                          'supports')
     target = _target(device)
+    counted = trace.counts()
     model = params if isinstance(params, nn.Module) \
         else from_jax_params(params, config)
     quantized = _is_quantized(model)
@@ -269,16 +271,16 @@ def export_predictor(params, config, out_dir, buckets=BUCKETS, batch_size=8,
     }
     with open(os.path.join(out_dir, 'meta.json'), 'w') as f:
         json.dump(meta, f, indent=1)
-    _zero_trace_counters()
+    _uncount_trace(counted)
     return meta
 
 
-def _zero_trace_counters():
-    """Python counters that a trace bumps once (the int8 work's) count no
-    run: zero them after an export."""
-    from dana_tpu_torch.models import layers
-    layers.dynamic_int8_conv.runs = 0
-    roi_align.roi_align_int8.runs = 0
+def _uncount_trace(counted):
+    """Counters that a trace bumps once (the int8 work's) count no run:
+    take back what the export added since `counted`."""
+    now = trace.counts()
+    for name in ('dynamic_int8_conv.runs', 'roi_align_int8.runs'):
+        trace.count(name, counted[name] - now[name])
 
 
 class Predictor:

@@ -27,6 +27,7 @@ import torch
 
 from dana_tpu.ops import cisa_attention as jca
 from dana_tpu_torch.ops import cisa_attention as tca
+from dana_tpu_torch.utils import trace
 
 BF16 = torch.bfloat16
 ULP = 2.0 ** -7          # one bf16 ulp, relative to the output's scale
@@ -130,9 +131,9 @@ def test_cpu_wrappers_run_the_plain_versions():
     p = tca.cisa_probs_bf16(q, k, u, 0.125, 0.1)
     assert torch.equal(p, tca.cisa_probs_bf16_plain(q, k, u, 0.125, 0.1))
     assert torch.equal(tca.cisa_pv_bf16(p, v), tca.cisa_pv_bf16_plain(p, v))
-    before = tca.cisa_attention_shots.launches_bf16
+    before = trace.counts()['cisa_shots.bfloat16']
     tca.cisa_attention_shots(q, k, v, u, 0.125, 0.1)
-    assert tca.cisa_attention_shots.launches_bf16 == before
+    assert trace.counts()['cisa_shots.bfloat16'] == before
 
 
 # the shapes the earlier mma.sync kernel took and the model gives: the

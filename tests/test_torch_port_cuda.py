@@ -17,6 +17,7 @@ import torch
 
 from dana_tpu_torch.ops import cisa_attention as ca
 from dana_tpu_torch.ops import roi_align as ra
+from dana_tpu_torch.utils import trace
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -28,6 +29,11 @@ TOL = 1e-4      # float32 sums in another order than the plain version
 # differ only in the order each entry sums its samples
 K2_TOL = 1e-6
 BUCKETS = [(608, 1024), (1024, 608), (704, 704), (608, 1216), (1216, 608)]
+
+
+def launched(key):
+    """The launches counted so far under `key` (utils/trace.py)."""
+    return trace.counts()[key]
 
 
 @pytest.fixture
@@ -54,11 +60,11 @@ def test_cisa_kernel_matches_plain(dev, shape):
     k = torch.randn(g, s, ns, d, device=dev, generator=gen)
     v = torch.randn(g, s, ns, c, device=dev, generator=gen)
     u = torch.softmax(torch.randn(g, s, ns, device=dev, generator=gen), -1)
-    before = ca.cisa_attention_shots.launches
+    before = launched('cisa_shots.float32')
     got = ca.cisa_attention_shots(q, k, v, u, d ** -0.5, 0.1)
     want = ca.cisa_attention_shots_plain(q, k, v, u, d ** -0.5, 0.1)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    assert ca.cisa_attention_shots.launches == before + 1
+    assert launched('cisa_shots.float32') == before + 1
 
 
 def test_cisa_kernel_refuses_too_many_keys(dev):
@@ -113,7 +119,7 @@ def test_roi_align_kernel_matches_plain(dev, c, cols):
     rois = _kernel_rois(dev, gen, cols)
     for p in (7, 5):
         for max_samples in (16, 64):
-            before = ra.roi_align.launches
+            before = launched('roi_align.float32')
             got = ra.roi_align(feat, rois, p, max_samples=max_samples)
             torch.testing.assert_close(
                 got, ra.roi_align_plain(feat, rois, p,
@@ -123,7 +129,7 @@ def test_roi_align_kernel_matches_plain(dev, c, cols):
                 got, ra.roi_align_pw(feat, *ra.roi_weights(
                     rois, 10, 12, p, max_samples=max_samples)),
                 rtol=K2_TOL, atol=K2_TOL)
-            assert ra.roi_align.launches == before + 1
+            assert launched('roi_align.float32') == before + 1
             assert not got[:, _OUTSIDE].any()
     with pytest.raises(TypeError):
         ra.roi_align(feat.double(), rois)
@@ -166,13 +172,13 @@ def test_roi_align_pw_kernel_matches_plain(dev, c):
     rois = _kernel_rois(dev, gen, 4)
     for p in (7, 5):
         wy, wx = ra.roi_weights(rois, 10, 12, p)
-        before = ra.roi_align_pw.launches
+        before = launched('roi_align_pw.float32')
         got = ra.roi_align_pw(feat, wy, wx)
         torch.testing.assert_close(got, ra.roi_align_pw_plain(feat, wy, wx),
                                    rtol=TOL, atol=TOL)
         torch.testing.assert_close(got, ra.roi_align(feat, rois, p),
                                    rtol=TOL, atol=TOL)
-        assert ra.roi_align_pw.launches == before + 1
+        assert launched('roi_align_pw.float32') == before + 1
         assert not got[:, _OUTSIDE].any()
     with pytest.raises(ValueError, match='float4'):
         ra.roi_align_pw(feat[..., :6].contiguous(), wy, wx)
@@ -194,12 +200,13 @@ def test_cisa_single_kernel_matches_plain(dev, shape):
     k = torch.randn(g, ns, d, device=dev, generator=gen)
     v = torch.randn(g, ns, c, device=dev, generator=gen)
     u = torch.softmax(torch.randn(g, 1, ns, device=dev, generator=gen), -1)
-    before = ca.cisa_attention.launches, ca.cisa_attention_shots.launches
+    before = (launched('cisa_attention.float32'),
+              launched('cisa_shots.float32'))
     got = ca.cisa_attention(q, k, v, u, d ** -0.5, 0.1)
     want = ca.cisa_attention_plain(q, k, v, u, d ** -0.5, 0.1)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    assert (ca.cisa_attention.launches,
-            ca.cisa_attention_shots.launches) == (before[0] + 1, before[1])
+    assert (launched('cisa_attention.float32'),
+            launched('cisa_shots.float32')) == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize('single', [False, True], ids=['shots', 'single'])
@@ -228,13 +235,13 @@ def test_roi_align_train_grad_matches_plain_autograd(dev):
     feat = torch.randn(2, 10, 12, 64, device=dev, generator=gen)
     rois = _edge_rois(dev, gen)
     cot = torch.randn(2, rois.shape[1], 7, 7, 64, device=dev, generator=gen)
-    before = ra.roi_align_pw.launches
+    before = launched('roi_align_pw.float32')
     grads = []
     for f in (ra.roi_align_train, ra.roi_align_plain):
         x = feat.clone().requires_grad_()
         grads.append(torch.autograd.grad(f(x, rois), x, cot)[0])
     torch.testing.assert_close(grads[0], grads[1], rtol=TOL, atol=TOL)
-    assert ra.roi_align_pw.launches == before + 1
+    assert launched('roi_align_pw.float32') == before + 1
 
 
 @pytest.mark.parametrize('name', ['frcnn', 'fsod', 'meta', 'fgn', 'cisa'])
@@ -336,13 +343,13 @@ def test_cisa_bf16_kernel_matches_plain(dev, shape):
                for sh in ((g, nq, d), (g, s, ns, d), (g, s, ns, c)))
     u = torch.softmax(torch.randn(g, s, ns, device=dev, generator=gen),
                       -1).bfloat16()
-    before = (ca.cisa_attention_shots.launches,
-              ca.cisa_attention_shots.launches_bf16)
+    before = (launched('cisa_shots.float32'),
+              launched('cisa_shots.bfloat16'))
     got = ca.cisa_attention_shots(q, k, v, u, d ** -0.5, 0.1)
     _bf16_close(got, ca.cisa_attention_shots_plain(q, k, v, u, d ** -0.5,
                                                    0.1))
-    assert (ca.cisa_attention_shots.launches,
-            ca.cisa_attention_shots.launches_bf16) == (before[0],
+    assert (launched('cisa_shots.float32'),
+            launched('cisa_shots.bfloat16')) == (before[0],
                                                        before[1] + 1)
 
 
@@ -380,10 +387,10 @@ def test_cisa_single_bf16_kernel_matches_plain(dev, shape):
                for sh in ((g, nq, d), (g, ns, d), (g, ns, c)))
     u = torch.softmax(torch.randn(g, 1, ns, device=dev, generator=gen),
                       -1).bfloat16()
-    before = ca.cisa_attention.launches_bf16
+    before = launched('cisa_attention.bfloat16')
     _bf16_close(ca.cisa_attention(q, k, v, u, 1 / 16, 0.1),
                 ca.cisa_attention_plain(q, k, v, u, 1 / 16, 0.1))
-    assert ca.cisa_attention.launches_bf16 == before + 1
+    assert launched('cisa_attention.bfloat16') == before + 1
     with pytest.raises(TypeError, match='one dtype'):
         ca.cisa_attention(q.float(), k, v, u, 1 / 16, 0.1)
     with pytest.raises(ValueError, match='D % 16'):
@@ -398,12 +405,12 @@ def test_cisa_single_bf16_kernel_matches_plain(dev, shape):
 def _roi_align_bf16_case(feat, rois, p, max_samples=16, outside=()):
     """K2-bf16 against its plain version, one bf16 launch, zero rows for
     the rois wholly outside the map."""
-    before = ra.roi_align.launches, ra.roi_align.launches_bf16
+    before = launched('roi_align.float32'), launched('roi_align.bfloat16')
     got = ra.roi_align(feat, rois, p, max_samples=max_samples)
     _bf16_close(got, ra.roi_align_plain(feat, rois, p,
                                         max_samples=max_samples))
-    assert (ra.roi_align.launches,
-            ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
+    assert (launched('roi_align.float32'),
+            launched('roi_align.bfloat16')) == (before[0], before[1] + 1)
     assert not got[:, list(outside)].any()
 
 
@@ -486,7 +493,8 @@ def test_roi_align_train_bf16_grad_matches_plain_autograd(dev):
         feat, rois = feat.bfloat16(), rois.bfloat16()
         cot = torch.randn(*rois.shape[:2], 7, 7, feat.shape[-1], device=dev,
                           generator=gen).bfloat16()
-        before = ra.roi_align_pw.launches, ra.roi_align.launches_bf16
+        before = (launched('roi_align_pw.float32'),
+                  launched('roi_align.bfloat16'))
         grads = []
         for f in (ra.roi_align_train, ra.roi_align_plain):
             x = feat.clone().requires_grad_()
@@ -494,8 +502,8 @@ def test_roi_align_train_bf16_grad_matches_plain_autograd(dev):
             grads.append(torch.autograd.grad(out, x, cot)[0])
             assert out.dtype == torch.bfloat16
         _bf16_close(grads[0], grads[1])
-        assert (ra.roi_align_pw.launches,
-                ra.roi_align.launches_bf16) == (before[0], before[1] + 1)
+        assert (launched('roi_align_pw.float32'),
+                launched('roi_align.bfloat16')) == (before[0], before[1] + 1)
 
 
 @pytest.mark.parametrize('recipe', ['default_recipe', 'pure_bf16'])
@@ -529,15 +537,15 @@ def test_cisa_kernels_at_the_multiway_shots(dev, site, shot, dtype):
                for sh in ((g, nq, d), (g, shot, ns, d), (g, shot, ns, c)))
     u = torch.softmax(torch.randn(g, shot, ns, device=dev, generator=gen),
                       -1).to(dtype)
-    attr = 'launches' if dtype == torch.float32 else 'launches_bf16'
-    before = getattr(ca.cisa_attention_shots, attr)
+    key = f'cisa_shots.{str(dtype)[6:]}'
+    before = launched(key)
     got = ca.cisa_attention_shots(q, k, v, u, 1 / 16, 0.1)
     want = ca.cisa_attention_shots_plain(q, k, v, u, 1 / 16, 0.1)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     else:
         _bf16_close(got, want)
-    assert getattr(ca.cisa_attention_shots, attr) == before + 1
+    assert launched(key) == before + 1
 
 
 def _held(got, want):
@@ -561,29 +569,27 @@ def test_kernels_launch_on_every_card(dev):
             v = torch.randn(2, 3, 57, 1024, device=d, generator=gen).to(dt)
             u = torch.softmax(torch.randn(2, 3, 57, device=d, generator=gen),
                               -1).to(dt)
-            key = (str(d), str(dt)[6:])
-            before = ca.cisa_attention_shots.launches_by_device[key]
+            key = f'{str(dt)[6:]}@{d}'
+            before = launched(f'cisa_shots.{key}')
             got = ca.cisa_attention_shots(q, k, v, u, 0.0625, 0.1)
             want = ca.cisa_attention_shots_plain(q, k, v, u, 0.0625, 0.1)
             _held(got, want)
-            assert ca.cisa_attention_shots.launches_by_device[key] \
-                == before + 1
+            assert launched(f'cisa_shots.{key}') == before + 1
             feat = torch.randn(2, 38, 64, 1024, device=d,
                                generator=gen).to(dt)
             rois = chip_smoke.serving_rois(2, 40, gen, d)
-            before = ra.roi_align.launches_by_device[key]
+            before = launched(f'roi_align.{key}')
             got = ra.roi_align(feat, rois.to(dt), 7, 1 / 16)
             want = ra.roi_align_plain(feat, rois.to(dt), 7, 1 / 16)
             _held(got, want)
-            assert ra.roi_align.launches_by_device[key] == before + 1
+            assert launched(f'roi_align.{key}') == before + 1
         wy, wx = ra.roi_weights(rois, 38, 64, 7, 1 / 16)
         feat = feat.float()
-        before = ra.roi_align_pw.launches_by_device[(str(d), 'float32')]
+        before = launched(f'roi_align_pw.float32@{d}')
         torch.testing.assert_close(ra.roi_align_pw(feat, wy, wx),
                                    ra.roi_align_pw_plain(feat, wy, wx),
                                    rtol=TOL, atol=TOL)
-        assert ra.roi_align_pw.launches_by_device[(str(d), 'float32')] \
-            == before + 1
+        assert launched(f'roi_align_pw.float32@{d}') == before + 1
 
 
 # (kernel, cin, cout, stride, padding, rows, map): layer4's conv2, its
@@ -608,9 +614,10 @@ def test_int8_conv_int_mm_matches_plain(dev, case):
     w = torch.randint(-127, 128, (cout, cin, kh, kh), device=dev,
                       dtype=torch.int8, generator=gen)
     xq, sx = L.quantize_activation(x)
-    before = L.int8_matmul.launches
+    before = launched('int8_matmul.int8')
     got = L.int8_conv_acc(xq, w, stride, pad)
-    assert L.int8_matmul.launches == before + 1 and got.dtype == torch.int32
+    assert launched('int8_matmul.int8') == before + 1
+    assert got.dtype == torch.int32
     assert torch.equal(got, L.int8_conv_acc_plain(xq, w, stride, pad))
     scale = torch.rand(cout, device=dev, generator=gen) / 127
     bias = torch.randn(cout, device=dev, generator=gen)
@@ -629,9 +636,9 @@ def test_int8_roi_align_int_mm_matches_plain(dev):
     feat = torch.randn(2, 38, 64, 1024, device=dev,
                        generator=gen).to(torch.bfloat16)
     rois = chip_smoke.serving_rois(2, 300, gen, dev)
-    before = L.int8_matmul.launches
+    before = launched('int8_matmul.int8')
     got = ra.roi_align_int8(feat, rois)
-    assert L.int8_matmul.launches == before + 2
+    assert launched('int8_matmul.int8') == before + 2
     saved = L.int8_matmul
     L.int8_matmul = L.int8_matmul_plain
     try:
@@ -660,12 +667,11 @@ def test_int8_mm_op_on_the_card_is_exact(dev, m, k, n):
                       generator=gen)
     b = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
                       generator=gen)
-    fn = int8_mm.int8_matmul
-    key = (str(a.device), 'int8')
-    before, by_dev = fn.launches, fn.launches_by_device[key]
-    got = fn(a, b)
-    assert fn.launches == before + 1
-    assert fn.launches_by_device[key] == by_dev + 1
+    key = f'int8_matmul.int8@{a.device}'
+    before, by_dev = launched('int8_matmul.int8'), launched(key)
+    got = int8_mm.int8_matmul(a, b)
+    assert launched('int8_matmul.int8') == before + 1
+    assert launched(key) == by_dev + 1
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got, int8_mm.int8_matmul_plain(a, b))
     if m < 10000:
@@ -696,12 +702,12 @@ def test_int8_request_on_data_rows_matches_one_device(dev):
                                                    devices=[dev, dev])
     for p in (one, rows):
         p.encode_supports(1, sup.cpu().numpy())
-    before = (ca.cisa_attention_shots.launches, ra.roi_align.launches,
-              L.int8_matmul.launches)
+    before = (launched('cisa_shots.float32'), launched('roi_align.float32'),
+              launched('int8_matmul.int8'))
     rows.forward(im, info, [1] * 4)
-    assert (ca.cisa_attention_shots.launches - before[0],
-            ra.roi_align.launches - before[1],
-            L.int8_matmul.launches - before[2]) == (4, 2, 2 * 53)
+    assert (launched('cisa_shots.float32') - before[0],
+            launched('roi_align.float32') - before[1],
+            launched('int8_matmul.int8') - before[2]) == (4, 2, 2 * 53)
     diffs = chip_smoke.compare_grid(rows, one, im, info, [1] * 4,
                                     label='int8 rows')
     assert max(diffs.values()) <= TOL
@@ -737,9 +743,9 @@ def test_nms_kernel_matches_plain(dev, site):
         0.3 if site == 'postprocess' else 0.0)
     cases = {'site': (sb, sv, m), **chip_smoke.nms_cases(sb, sv, thr, m)}
     for name, (b_, v_, m_) in cases.items():
-        before = nms.nms_sorted.launches
+        before = launched('nms.float32')
         got = nms.nms_sorted(b_, v_, thr, m_, 512)
-        assert nms.nms_sorted.launches == before + 1
+        assert launched('nms.float32') == before + 1
         want = nms.nms_sorted_plain(b_, v_, thr, m_, 512)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             name
@@ -772,7 +778,6 @@ def test_export_round_trip_on_the_card(dev, tmp_path):
     from dana_tpu_torch import serve
     from dana_tpu_torch.engine.postprocess import postprocess_batch
     from dana_tpu_torch.models import dana
-    from dana_tpu_torch.ops import nms
     from dana_tpu_torch.utils.weights import from_jax_params
     config = dana.DanaConfig(n_way=2, n_shot=1, test_pre_nms=300,
                              test_post_nms=50)
@@ -787,12 +792,12 @@ def test_export_round_trip_on_the_card(dev, tmp_path):
     im = torch.randn(2, 256, 320, 3, device=dev, generator=gen) * 40
     info = torch.tensor([[256.0, 320.0, 1.0]] * 2, device=dev)
     params = model.state_dict()
-    counters = (ca.cisa_attention_shots, ra.roi_align, nms.nms_sorted)
-    before = [c.launches for c in counters]
+    counters = ('cisa_shots.float32', 'roi_align.float32', 'nms.float32')
+    before = [launched(c) for c in counters]
     feats = pred.encode(params, sup)
     rows = tuple(torch.cat([f, f]) for f in feats)
     got = pred(params, im, info, *rows)
-    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 2]
+    assert [launched(c) - b for c, b in zip(counters, before)] == [2, 1, 2]
     with torch.inference_mode():
         live = dana.extract_support_feats(model, config, sup)
         o = dana.forward(model, config, im, info, support_feats=rows)

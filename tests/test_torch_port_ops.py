@@ -29,6 +29,7 @@ from dana_tpu_torch.core import boxes as tboxes
 from dana_tpu_torch.ops import cisa_attention as tca
 from dana_tpu_torch.ops import nms as tnms
 from dana_tpu_torch.ops import roi_align as troi
+from dana_tpu_torch.utils import trace
 
 
 def _rand_boxes(rng, shape, lo=0.0, span=100.0, size=(5.0, 60.0)):
@@ -228,21 +229,21 @@ def test_cisa_function_grads_match_jax(single):
 
 def test_cisa_wrapper_on_cpu_runs_plain():
     q, k, v, u = (_t(x) for x in _cisa_inputs(1, 3, 10, 5, 8, 12, seed=0))
-    before = tca.cisa_attention_shots.launches
+    before = trace.counts()['cisa_shots.float32']
     got = tca.cisa_attention_shots(q, k, v, u, 0.3, 0.1)
     assert torch.equal(got, tca.cisa_attention_shots_plain(q, k, v, u, 0.3,
                                                            0.1))
-    assert tca.cisa_attention_shots.launches == before
+    assert trace.counts()['cisa_shots.float32'] == before
 
 
 def test_cisa_single_wrapper_on_cpu_runs_plain():
     q, k, v, u = (_t(x) for x in _cisa_inputs(2, 1, 10, 5, 8, 12, seed=1))
-    before = tca.cisa_attention.launches, tca.cisa_attention_shots.launches
+    keys = ('cisa_attention.float32', 'cisa_shots.float32')
+    before = [trace.counts()[k] for k in keys]
     got = tca.cisa_attention(q, k[:, 0], v[:, 0], u, 0.3, 0.1)
     assert torch.equal(got, tca.cisa_attention_plain(q, k[:, 0], v[:, 0], u,
                                                      0.3, 0.1))
-    assert (tca.cisa_attention.launches,
-            tca.cisa_attention_shots.launches) == before
+    assert [trace.counts()[k] for k in keys] == before
 
 
 # -------------------------------------------------------------- RoIAlign
@@ -329,17 +330,17 @@ def test_roi_align_wrapper_on_cpu_runs_plain():
     rng = np.random.default_rng(7)
     feat = _t(rng.normal(size=(2, 6, 7, 4)).astype(np.float32))
     rois = _t(_edge_rois())
-    before = troi.roi_align.launches
+    before = trace.counts()['roi_align.float32']
     assert torch.equal(troi.roi_align(feat, rois),
                        troi.roi_align_plain(feat, rois))
-    assert troi.roi_align.launches == before
+    assert trace.counts()['roi_align.float32'] == before
 
 
 def test_roi_align_pw_wrapper_on_cpu_runs_plain():
     rng = np.random.default_rng(8)
     feat = _t(rng.normal(size=(2, 6, 7, 4)).astype(np.float32))
     wy, wx = troi.roi_weights(_t(_edge_rois()), 6, 7)
-    before = troi.roi_align_pw.launches
+    before = trace.counts()['roi_align_pw.float32']
     assert torch.equal(troi.roi_align_pw(feat, wy, wx),
                        troi.roi_align_pw_plain(feat, wy, wx))
-    assert troi.roi_align_pw.launches == before
+    assert trace.counts()['roi_align_pw.float32'] == before

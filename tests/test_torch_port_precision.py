@@ -38,7 +38,8 @@ sys.path.insert(0, str(ROOT))
 
 from test_torch_port_cli import _argv, synth_root  # noqa: E402,F401
 from test_torch_port_model import SMALL, _caffe_like, _leaves  # noqa: E402
-from test_torch_port_profile import STAGES, _tool  # noqa: E402
+from test_torch_port_profile import (PREDICT_UNIT, STAGES,  # noqa: E402
+                                     _tool)
 
 from dana_tpu.models import dana as jdana  # noqa: E402
 from dana_tpu.models import resnet as jresnet  # noqa: E402
@@ -451,7 +452,7 @@ def test_profile_tool_breaks_the_recipe_down():
     with torch.profiler.profile(activities=acts) as prof:
         pred.predict(q, info, [0])
     assert {e.key for e in prof.key_averages()
-            if e.key.startswith('dana.')} == STAGES
+            if e.key.startswith('dana.')} == STAGES | PREDICT_UNIT
 
 
 # ------------------------------------------------- training in the recipe

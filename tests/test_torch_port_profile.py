@@ -19,6 +19,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = {'dana.upload', 'dana.trunk', 'dana.rpn_attention',
           'dana.rpn_heads', 'dana.proposals', 'dana.roi_align',
           'dana.rcnn_head', 'dana.rcnn_head.layer4', 'dana.postprocess'}
+# the ranges of utils/trace.py: the entry point's unit and, on the CPU,
+# the plain NMS's host reads of its loop flags (the card's kernel reads
+# none); a step also uploads its batch, copies proposal_target's two
+# constants and reads the update's skipped flag
+PREDICT_UNIT = {'dana.entry.predict', 'dana.sync.nms'}
+STEP_UNIT = {'dana.entry.step', 'dana.entry.upload', 'dana.sync.nms',
+             'dana.sync.proposal_target', 'dana.sync.update'}
 
 
 def _tool():
@@ -71,7 +78,23 @@ def test_stage_times_charge_the_launching_ranges(tmp_path, iters):
     np.testing.assert_allclose(kernels['Memcpy HtoD'], (0.007, 1))
 
 
-def test_predict_opens_every_stage_range():
+def test_unit_ranges_stay_out_of_the_stages():
+    """The ranges of utils/trace.py enclose stages: the tools print them
+    apart and sum none of them."""
+    stages = {'dana.trunk': (1.0, 2.0), 'dana.rcnn_head.layer4': (0.5, 1.0),
+              'dana.entry.predict': (1.5, 9.0), 'dana.entry.upload': (0.1,
+                                                                     0.3),
+              'dana.sync.nms': (0.0, 0.2)}
+    kept, units = _tool().split_units(stages)
+    assert kept == {'dana.trunk': (1.0, 2.0),
+                    'dana.rcnn_head.layer4': (0.5, 1.0)}
+    assert set(units) == {'dana.entry.predict', 'dana.entry.upload',
+                          'dana.sync.nms'}
+
+
+def tiny_predictor():
+    """A tiny DAnA predictor on the CPU with class 0's supports encoded,
+    and one request for it: (pred, (im_data, im_info, classes))."""
     conf = tdana.DanaConfig(n_way=2, n_shot=2, semantic_enhance=True,
                             anchor_scales=(8, 16, 32), test_pre_nms=200,
                             test_post_nms=16)
@@ -82,16 +105,11 @@ def test_predict_opens_every_stage_range():
                          .astype(np.float32))
     q = rng.integers(0, 256, (1, 96, 128, 3)).astype(np.uint8)
     info = np.array([[96, 128, 1.0]], np.float32)
-    want = pred.predict(q, info, [0])
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with torch.profiler.profile(activities=acts) as prof:
-        got = pred.predict(q, info, [0])
-    names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
-    assert names == STAGES
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return pred, (q, info, [0])
 
 
-def test_train_step_opens_every_stage_range():
+def tiny_trainer():
+    """A tiny DAnA trainer on the CPU and one batch for it."""
     from dana_tpu_torch.engine.train import Trainer
     conf = tdana.DanaConfig(n_way=2, n_shot=1, train_pre_nms=100,
                             train_post_nms=16, nms_cap=100, rois_per_image=8,
@@ -105,13 +123,64 @@ def test_train_step_opens_every_stage_range():
                  im_info=np.array([[96, 128, 1.0]], np.float32), gt_boxes=gt,
                  support_ims=rng.normal(0, 50, (1, 2, 224, 224, 3))
                  .astype(np.float32))
+    return trainer, batch
+
+
+def _opened(fn):
+    """The `dana.*` range names that fn() opens."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
-        trainer.step(batch)
-    names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
-    assert names == (STAGES - {'dana.upload', 'dana.postprocess'}) | {
+        fn()
+    return {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
+
+
+def test_predict_opens_every_stage_range():
+    pred, request = tiny_predictor()
+    want = pred.predict(*request)
+    got = []
+    names = _opened(lambda: got.extend(pred.predict(*request)))
+    assert names == STAGES | PREDICT_UNIT
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.fixture(scope='module')
+def step_ranges():
+    trainer, batch = tiny_trainer()
+    return _opened(lambda: trainer.step(batch))
+
+
+def test_train_step_opens_every_stage_range(step_ranges):
+    assert step_ranges == (STAGES - {'dana.upload', 'dana.postprocess'}) | {
         'dana.support_trunk', 'dana.targets', 'dana.losses',
-        'dana.backward', 'dana.update'}
+        'dana.backward', 'dana.update'} | STEP_UNIT
+
+
+def test_forward_reader_selects_the_forward_ranges(step_ranges):
+    """portbench's `model.forward_ms.train` charges the one-dot `dana.*`
+    ranges but dana.backward and dana.update: in a step that is still
+    exactly the forward's stages, none of the unit's ranges."""
+    path = os.path.join(ROOT, 'portbench', 'metrics',
+                        'model.forward_ms.train.py')
+    spec = importlib.util.spec_from_file_location('forward_ms_train', path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    picked = set()
+
+    class Trace:
+        device, units = [1], 1
+
+        def charged_s(self, pred):
+            picked.update(n for n in step_ranges if pred(n))
+            return 0.0
+
+    class Run:
+        kind, trace = 'train', Trace()
+
+    assert reader.read(Run()) == 0.0
+    assert picked == {'dana.trunk', 'dana.support_trunk',
+                      'dana.rpn_attention', 'dana.rpn_heads',
+                      'dana.proposals', 'dana.targets', 'dana.roi_align',
+                      'dana.rcnn_head', 'dana.losses'}
 
 
 @pytest.mark.parametrize('case', ['pool', 'crop', 'vgg16'])
@@ -128,15 +197,14 @@ def test_predict_opens_the_pooling_and_tail_ranges(case):
                          .astype(np.float32))
     q = rng.integers(0, 256, (1, 96, 128, 3)).astype(np.uint8)
     info = np.array([[96, 128, 1.0]], np.float32)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with torch.profiler.profile(activities=acts) as prof:
-        pred.predict(q, info, [0])
-    names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
+    names = _opened(lambda: pred.predict(q, info, [0]))
     if case == 'vgg16':
         want = STAGES - {'dana.rcnn_head.layer4'} | {'dana.rcnn_head.fc'}
     else:
         want = STAGES - {'dana.roi_align'} | {f'dana.roi_{case}'}
-    assert names == want
+    if case == 'pool':
+        want |= {'dana.sync.roi_pool'}
+    assert names == want | PREDICT_UNIT
 
 
 def test_tools_build_the_asked_trunk_and_mode():

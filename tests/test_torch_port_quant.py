@@ -48,6 +48,7 @@ from dana_tpu_torch.models import layers as TL  # noqa: E402
 from dana_tpu_torch.models import resnet as tresnet  # noqa: E402
 from dana_tpu_torch.models import vgg as tvgg  # noqa: E402
 from dana_tpu_torch.ops import roi_align as tra  # noqa: E402
+from dana_tpu_torch.utils import trace  # noqa: E402
 from dana_tpu_torch.utils.weights import (from_jax_params,  # noqa: E402
                                           to_jax_params)
 
@@ -55,6 +56,14 @@ jra = importlib.import_module('dana_tpu.ops.roi_align')
 
 HEAD_TOL = 1e-4          # the float32 heads (tests/test_torch_port_model.py)
 RECIPE_TOL = 2e-3        # the recipe's forward on JAX's features
+
+
+def _int8_conv_runs():
+    return trace.counts()['dynamic_int8_conv.runs']
+
+
+def _int8_roi_runs():
+    return trace.counts()['roi_align_int8.runs']
 
 
 def _assert_trees_equal(got, want):
@@ -190,11 +199,11 @@ def test_int8_conv_matches_jax(case):
     want = np.asarray(JL._dynamic_int8_conv(
         xj, jnp.asarray(conv['w_int8']), jnp.asarray(conv['w_scale']),
         jnp.asarray(conv['bias']), *args).astype(jnp.float32))
-    n0 = TL.dynamic_int8_conv.runs
+    n0 = _int8_conv_runs()
     got = TL.dynamic_int8_conv(TL.nhwc_to_nchw(x), w,
                                torch.from_numpy(conv['w_scale']),
                                torch.from_numpy(conv['bias']), stride, pad)
-    assert TL.dynamic_int8_conv.runs == n0 + 1 and got.dtype == x.dtype
+    assert _int8_conv_runs() == n0 + 1 and got.dtype == x.dtype
     np.testing.assert_array_equal(TL.nchw_to_nhwc(got).float().numpy(), want)
 
 
@@ -262,9 +271,9 @@ def test_roi_align_int8_matches_jax():
             a, bb = TL.int_mm_operands(wq, fq)
             np.testing.assert_array_equal(torch._int_mm(a, bb)[:, :c],
                                           acc.numpy())
-    n0 = tra.roi_align_int8.runs
+    n0 = _int8_roi_runs()
     got = tra.roi_align_int8(feat, rois)
-    assert tra.roi_align_int8.runs == n0 + 1
+    assert _int8_roi_runs() == n0 + 1
     assert got.dtype == torch.bfloat16 and got.shape == (b, r, 7, 7, c)
     np.testing.assert_array_equal(got.float().numpy(), want)
 
@@ -292,9 +301,9 @@ def test_quantized_trunk_and_roi_tail_match_jax(small):
             got = tresnet.base_forward(xt, model.backbone)
             assert got.dtype == dt
             np.testing.assert_array_equal(got.float().numpy(), _f32(want))
-        n0 = TL.dynamic_int8_conv.runs
+        n0 = _int8_conv_runs()
         got = tresnet.top_forward(torch.from_numpy(r), model.backbone)
-        assert TL.dynamic_int8_conv.runs == n0 + 10
+        assert _int8_conv_runs() == n0 + 10
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jresnet.top_forward(jnp.asarray(r), pj)))
 
@@ -344,16 +353,16 @@ def test_quantized_forward_matches_jax(small, scope):
     q, sup, info = _inputs()
     jo, _ = _jax_forward(jconf, to_jnp(qp), q, sup, info)
     pred = Predictor(qp, tconf, device='cpu')
-    runs, roi_runs = TL.dynamic_int8_conv.runs, tra.roi_align_int8.runs
+    runs, roi_runs = _int8_conv_runs(), _int8_roi_runs()
     pred.encode_supports(7, sup)
-    enc = TL.dynamic_int8_conv.runs - runs
+    enc = _int8_conv_runs() - runs
     with torch.inference_mode():
         to = tdana.forward(pred.model, tconf, torch.from_numpy(q),
                            torch.from_numpy(info),
                            support_feats=pred.batch_support_feats([7, 7]))
-    assert (enc, TL.dynamic_int8_conv.runs - runs - enc) == \
+    assert (enc, _int8_conv_runs() - runs - enc) == \
         {'tail': (0, 10), 'all': (43, 53)}[scope]
-    assert tra.roi_align_int8.runs == roi_runs
+    assert _int8_roi_runs() == roi_runs
     np.testing.assert_array_equal(to['roi_mask'].numpy(),
                                   np.asarray(jo['roi_mask']))
     np.testing.assert_allclose(to['rois'].numpy(), _f32(jo['rois']),
@@ -396,7 +405,7 @@ def test_quantized_recipe_forward_on_jax_features(small, scope,
     monkeypatch.setattr(trpn, 'proposal_layer',
                         lambda *a, **k: (rois, None, mask))
     model = from_jax_params(qp, tconf)
-    runs, roi_runs = TL.dynamic_int8_conv.runs, tra.roi_align_int8.runs
+    runs, roi_runs = _int8_conv_runs(), _int8_roi_runs()
     with torch.inference_mode():
         to = tdana.forward(model, tconf, torch.from_numpy(q),
                            torch.from_numpy(info),
@@ -404,8 +413,8 @@ def test_quantized_recipe_forward_on_jax_features(small, scope,
                                torch.from_numpy(np.array(_f32(f))).to(
                                    torch.bfloat16)
                                for f in jsup))
-    assert TL.dynamic_int8_conv.runs - runs == 10
-    assert tra.roi_align_int8.runs - roi_runs == 1
+    assert _int8_conv_runs() - runs == 10
+    assert _int8_roi_runs() - roi_runs == 1
     for key in ('cls_prob', 'bbox_pred'):
         err = np.abs(_f32(to[key]) - _f32(jo[key])).max()
         print(f'int8 {scope} default recipe {key}: max |port - JAX| '

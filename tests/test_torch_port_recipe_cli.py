@@ -181,7 +181,7 @@ def test_profile_tool_breaks_the_bf16_step_down():
     """tools/profile_torch_train.py's --set TPU.COMPUTE_DTYPE bfloat16 builds
     the recipe, and a step under it opens every `dana.*` stage range the
     tool reads (the float32 step's, tests/test_torch_port_profile.py)."""
-    from test_torch_port_profile import STAGES
+    from test_torch_port_profile import STAGES, STEP_UNIT
     from test_torch_port_train import SMALL
     path = os.path.join(ROOT, 'tools', 'profile_torch_predict.py')
     spec = importlib.util.spec_from_file_location('profile_torch_predict',
@@ -208,7 +208,7 @@ def test_profile_tool_breaks_the_bf16_step_down():
     names = {e.key for e in prof.key_averages() if e.key.startswith('dana.')}
     assert names == (STAGES - {'dana.upload', 'dana.postprocess'}) | {
         'dana.support_trunk', 'dana.targets', 'dana.losses',
-        'dana.backward', 'dana.update'}
+        'dana.backward', 'dana.update'} | STEP_UNIT
 
 
 # ------------------------------------------------------ the dataset CLI

@@ -43,12 +43,17 @@ from dana_tpu_torch.models import frameworks  # noqa: E402
 from dana_tpu_torch.models import layers as TL  # noqa: E402
 from dana_tpu_torch.models import resnet as tresnet  # noqa: E402
 from dana_tpu_torch.models import vgg as tvgg  # noqa: E402
+from dana_tpu_torch.utils import trace  # noqa: E402
 from dana_tpu_torch.utils.weights import from_jax_params  # noqa: E402
 
 STEM_TOL = 1e-5          # tests/test_stem_s2d.py
 HEAD_TOL = 1e-4          # tests/test_torch_port_model.py
 ROI_ATOL = 2e-3          # px, the float32 RPN (ROADMAP "Carried findings")
 MEANS = np.array([102.9801, 115.9465, 122.7717], np.float32)
+
+
+def _int8_conv_runs():
+    return trace.counts()['dynamic_int8_conv.runs']
 
 
 def _nchw(x):
@@ -210,9 +215,9 @@ def test_int8_all_on_packed_inputs_matches_jax(small):
         got = tresnet.base_forward(torch.from_numpy(qf), model.backbone)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
-    runs = TL.dynamic_int8_conv.runs
+    runs = _int8_conv_runs()
     to = _port_eval(model, tconf, qd, supd, info)
-    assert TL.dynamic_int8_conv.runs - runs == 43 + 53
+    assert _int8_conv_runs() - runs == 43 + 53
     rng = np.random.default_rng(11)
     q = rng.integers(0, 256, (2, 64, 96, 3)).astype(np.uint8)
     sup = rng.normal(0, 50, (2, 224, 224, 3)).astype(np.float32)

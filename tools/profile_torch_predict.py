@@ -17,7 +17,10 @@ of 8 uint8 608x1024 queries through `Predictor.predict`: --iters of them untrace
 request, then --iters under torch.profiler, whose trace is written to
 --trace (it opens in Perfetto).  The stages are the `dana.*`
 record_function ranges of `models/dana.py` `forward` and
-`engine/predict.py`.  Every kernel and copy on the card is charged to the
+`engine/predict.py`; the ranges of utils/trace.py, the request's unit
+`dana.entry.predict` and the host syncs `dana.sync.<site>`, are printed
+as rows of their own, outside every sum of stages (a unit holds them
+all).  Every kernel and copy on the card is charged to the
 ranges that were open on the host when it was launched (the trace's
 correlation ids), which also covers the hand-written kernels launched
 through ctypes; a stage's host time includes any wait on the card.  Also
@@ -103,6 +106,15 @@ def stage_times(trace_path, iters):
     return stages, busy, kernels
 
 
+def split_units(stages):
+    """-> ({stage: times}, {unit or sync range: times}): the ranges of
+    utils/trace.py (`dana.entry.*`, `dana.sync.*`) enclose stages, so no
+    sum of stages may hold them."""
+    units = {k: v for k, v in stages.items()
+             if k.startswith(('dana.entry.', 'dana.sync.'))}
+    return {k: v for k, v in stages.items() if k not in units}, units
+
+
 def card_name():
     """The `nvidia-smi` name and power limit line; exits without a card."""
     if not torch.cuda.is_available():
@@ -138,6 +150,7 @@ def profile(run, iters, trace, card, unit='request'):
     stages, busy, kernels = stage_times(trace, iters)
     if not busy or not any(d for d, _ in stages.values()):
         sys.exit('the trace holds no device time in the dana.* ranges')
+    stages, units = split_units(stages)
 
     top = sum(d for k, (d, _) in stages.items() if k.count('.') == 1)
     print(f'{"stage (per " + unit + ")":26s} {"device ms":>10s} '
@@ -147,6 +160,9 @@ def profile(run, iters, trace, card, unit='request'):
               flush=True)
     print(f'top-level stages hold {top:.3f} of {busy:.3f} device ms',
           flush=True)
+    for k, (d, h) in units.items():
+        print(f'{k:26s} {d:10.3f} {100 * d / busy:5.1f}% {h:10.3f}  '
+              '(encloses stages)', flush=True)
     heavy = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, calls) in heavy:
         print(f'  {ms:9.3f} ms  x{calls:<6g} {name[:90]}', flush=True)
@@ -157,6 +173,8 @@ def profile(run, iters, trace, card, unit='request'):
     return {'card': card,
             'stage_device_ms': {k: d for k, (d, _) in stages.items()},
             'stage_host_ms': {k: h for k, (_, h) in stages.items()},
+            'unit_device_ms': {k: d for k, (d, _) in units.items()},
+            'unit_host_ms': {k: h for k, (_, h) in units.items()},
             'wall_ms': statistics.median(walls),
             'traced_wall_ms': traced_wall, 'device_busy_ms': busy,
             'idle_share': 1 - busy / traced_wall,

@@ -23,7 +23,10 @@ first batch again and again, with no thread running beside it.  Each
 takes --iters steps untraced for the wall time per step, then --iters
 under torch.profiler.  The stages are the `dana.*`
 record_function ranges of `models/dana.py` `forward` and of
-`engine/train.py` (`dana.backward`, `dana.update`); kernels are charged
+`engine/train.py` (`dana.backward`, `dana.update`); the step's unit
+`dana.entry.step`, its upload `dana.entry.upload` and the host syncs
+`dana.sync.<site>` (utils/trace.py) are rows of their own, in no sum of
+stages, as in tools/profile_torch_predict.py; kernels are charged
 to the ranges open when they were launched, as in
 tools/profile_torch_predict.py (the backward's kernels, launched by
 autograd's own thread while `dana.backward` is open, go to that range).

@@ -42,31 +42,30 @@ import torch  # noqa: E402
 
 from dana_tpu_torch.engine.train import Trainer  # noqa: E402
 from dana_tpu_torch.models import dana  # noqa: E402
-from dana_tpu_torch.ops import cisa_attention, nms, roi_align  # noqa: E402
 from dana_tpu_torch.parallel import distributed  # noqa: E402
+from dana_tpu_torch.utils import trace  # noqa: E402
 
-WRAPPERS = {'cisa_shots': cisa_attention.cisa_attention_shots,
-            'roi_align_fwd': roi_align.roi_align,
-            'roi_align_pw': roi_align.roi_align_pw,
-            'nms': nms.nms_sorted}
+# {launch name: the kernel's op in the counter table (utils/trace.py)}
+OPS = {'cisa_shots': 'cisa_shots', 'roi_align_fwd': 'roi_align',
+       'roi_align_pw': 'roi_align_pw', 'nms': 'nms'}
 
 
-def _launches():
+def _launches(since):
+    """The kernels' launches since the table `since`: {name: float32
+    launches, name_bf16: bf16 ones, name_by_device: {'<device>/<dtype>':
+    launches}}."""
+    now = trace.counts()
     out = {}
-    for name, fn in WRAPPERS.items():
-        out[name] = fn.launches
-        out[name + '_bf16'] = getattr(fn, 'launches_bf16', 0)
-        out[name + '_by_device'] = {f'{d}/{t}': n for (d, t), n in
-                                    fn.launches_by_device.items()}
+    for name, op in OPS.items():
+        out[name] = now[f'{op}.float32'] - since[f'{op}.float32']
+        out[name + '_bf16'] = now[f'{op}.bfloat16'] - since[f'{op}.bfloat16']
+        out[name + '_by_device'] = by_dev = {}
+        for key, n in now.items():
+            kind, _, dev = key.partition('@')
+            k_op, _, dtype = kind.rpartition('.')
+            if dev and k_op == op and n != since[key]:
+                by_dev[f'{dev}/{dtype}'] = n - since[key]
     return out
-
-
-def _zero_launches():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-        if hasattr(fn, 'launches_bf16'):
-            fn.launches_bf16 = 0
-        fn.launches_by_device.clear()
 
 
 def _sync(dev):
@@ -89,7 +88,7 @@ def one_run(inp, run, group, dev, batch, time_steps):
             naive.append(real(logits, labels, mask).item())
         return real(logits, labels, mask)
     dana.masked_cross_entropy = recording
-    _zero_launches()
+    since = trace.counts()
     try:
         m = trainer.step(batch, draws=inp.get('draws'))
         metrics = {k: float(v) for k, v in m.items()}
@@ -97,7 +96,7 @@ def one_run(inp, run, group, dev, batch, time_steps):
         dana.masked_cross_entropy = real
     _sync(dev)
     out = dict(metrics=metrics, naive_rpn_loss_cls=naive[0],
-               launches=_launches(),
+               launches=_launches(since),
                param_abs_sum=float(sum(
                    p.detach().double().abs().sum().item()
                    for p in trainer.model.parameters())),

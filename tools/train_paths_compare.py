@@ -100,18 +100,15 @@ def count_spans(train_counts=None, serve_count=None):
         rpn.proposal_layer, dana.roi_align_train = real_layer, real_train
 
 
-def launches():
-    from dana_tpu_torch.ops import cisa_attention, roi_align
-    return {'cisa_shots': cisa_attention.cisa_attention_shots.launches,
-            'roi_align_fwd': roi_align.roi_align.launches,
-            'roi_align_pw': roi_align.roi_align_pw.launches}
-
-
-def zero_launches():
-    from dana_tpu_torch.ops import cisa_attention, roi_align
-    cisa_attention.cisa_attention_shots.launches = 0
-    roi_align.roi_align.launches = 0
-    roi_align.roi_align_pw.launches = 0
+def launches(since):
+    """The float32 kernels' launches since the counter table `since`
+    (utils/trace.py)."""
+    from dana_tpu_torch.utils import trace
+    now = trace.counts()
+    return {name: now[key] - since[key] for name, key in (
+        ('cisa_shots', 'cisa_shots.float32'),
+        ('roi_align_fwd', 'roi_align.float32'),
+        ('roi_align_pw', 'roi_align_pw.float32'))}
 
 
 def train_run(path, args, save_dir):
@@ -131,7 +128,8 @@ def train_run(path, args, save_dir):
             '--bs', '4', '--epochs', str(args.epochs), '--nw', '8', '--dlog',
             '--disp_interval', '20', '--seed', str(args.seed),
             '--save_dir', save_dir]
-    zero_launches()
+    from dana_tpu_torch.utils import trace
+    since = trace.counts()
     EpisodicBatcher.__iter__ = epoch_iter
     t0 = time.perf_counter()
     try:
@@ -142,7 +140,7 @@ def train_run(path, args, save_dir):
         EpisodicBatcher.__iter__ = real_iter
     torch.cuda.synchronize()
     row = dict(path=path, seconds=time.perf_counter() - t0,
-               launches=launches(), checkpoint=out['checkpoint'],
+               launches=launches(since), checkpoint=out['checkpoint'],
                train_roi_spans=[c.shares() for c in counts],
                epochs=[dict(epoch=e['epoch'], steps=e['steps'],
                             seconds=e['seconds'], eps_per_s=e['eps_per_s'],
