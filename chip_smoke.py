@@ -65,7 +65,11 @@ Run from the repository root.  Phases, each of which fails the run:
      reached in the first 64 boxes; N cut to no multiple of 64) and on
      the whole NMS with every score tied: positions and masks equal to the
      plain version's, timed beside it and its bound (the IoUs the data
-     needs at the float32 rate, or its bytes);
+     needs at the float32 rate, or its bytes).  The trunk's BN-act
+     epilogue (csrc/bn_act.cu; it replaces no Pallas kernel) at a
+     request's stem, layer1, layer3 and layer4 shapes in float32 channels
+     last, and its backward at layer3's: equal to the plain chain bit for
+     bit, timed beside it and its bound (its bytes);
   4. serving: the DAnA ResNet-50 2-way 3-shot detector with random
      weights from --seed serves REQUESTS requests of BATCH uint8
      608x1024 queries against two classes whose 320px supports were
@@ -1124,6 +1128,68 @@ def check_roi_align_pw(dev, gen, c=1024, hw=QUERY_HW, label=''):
     return err, site
 
 
+# the trunk's BN-act epilogues at a request's shapes (BATCH queries of
+# QUERY_HW; layer4 on 300 rois a query, pooled 7x7, strided to 4x4):
+# (x [N, C, H, W], residual: None, the identity or the downsample's BN)
+def bn_act_sites():
+    (h, w), rois = QUERY_HW, BATCH * 300
+    return {'stem': ((BATCH, 64, h // 2, w // 2), None),
+            'layer1': ((BATCH, 256, h // 4, w // 4), 'identity'),
+            'layer3_down': ((BATCH, 1024, h // 16, w // 16), 'bn'),
+            'layer4_down': ((rois, 2048, 4, 4), 'bn')}
+
+
+def check_bn_act(dev, gen):
+    """The trunk's BN-act epilogue (ops/bn_act.py) in float32, channels
+    last, at `bn_act_sites`: the kernel's output equal to the plain
+    chain's bit for bit, its time beside the plain chain's and its bound
+    (x, the residual and y once each at 3.35 TB/s); and the backward at
+    layer3's downsample (the incoming gradient and the saved output read,
+    both gradients written)."""
+    from dana_tpu_torch.ops import bn_act as ba
+
+    def rand(*size):
+        return torch.randn(size, device=dev, generator=gen)
+
+    out = {}
+    for name, (shape, residual) in bn_act_sites().items():
+        c, last = shape[1], torch.channels_last
+        x = rand(*shape).contiguous(memory_format=last)
+        r = None if residual is None \
+            else rand(*shape).contiguous(memory_format=last)
+        rbn = (rand(c) + 1, rand(c)) if residual == 'bn' else (None, None)
+        args = (x, rand(c) + 1, rand(c), r, *rbn)
+        got, want = ba.bn_act(*args), ba.bn_act_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f'bn_act[{name}]: the kernel differs from the plain chain')
+        nbytes = 4 * x.numel() * (2 if r is None else 3)
+        out[name] = dict(shape=list(shape), residual=residual,
+                         ms=cuda_ms(lambda: ba.bn_act(*args), 20),
+                         plain_ms=cuda_ms(lambda: ba.bn_act_plain(*args), 20),
+                         bound_ms=bound_ms(nbytes, 0)[0], bound_by='bytes',
+                         bytes=nbytes)
+        if name == 'layer3_down':
+            g = rand(*shape).contiguous(memory_format=last)
+            bwd = (g, got, args[1], rbn[0], True)
+            grads = ba.bn_act_backward(*bwd)
+            plain = ba.bn_act_backward_plain(*bwd)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(grads, plain)):
+                fail('bn_act_backward: the kernel differs from autograd\'s '
+                     'ops')
+            out['backward_layer3_down'] = dict(
+                shape=list(shape),
+                ms=cuda_ms(lambda: ba.bn_act_backward(*bwd), 20),
+                plain_ms=cuda_ms(lambda: ba.bn_act_backward_plain(*bwd), 20),
+                bound_ms=bound_ms(4 * g.numel() * 4, 0)[0],
+                bound_by='bytes', bytes=4 * g.numel() * 4)
+        print(f'bn_act[{name}]: equal to the plain chain bit for bit, '
+              f'{out[name]}', flush=True)
+    return out
+
+
 def check_backward(dev, gen):
     """The training step's autograd Functions (K1's forward with the plain
     recompute VJP; K3's forward with the plain contraction of the saved
@@ -1334,20 +1400,23 @@ def plain_ops():
     comparison only): the kernels' (NMS's tiled fixed point included), and
     the int8 products' exact float64 ones in place of `torch._int_mm`."""
     from dana_tpu_torch.models import dana, layers
-    from dana_tpu_torch.ops import cisa_attention, nms, roi_align
+    from dana_tpu_torch.ops import bn_act, cisa_attention, nms, roi_align
     saved = (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
-             layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted)
+             layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted,
+             bn_act.bn_act)
     dana.cisa_attention_shots = cisa_attention.cisa_attention_shots_plain
     dana.roi_align = roi_align.roi_align_plain
     dana.roi_align_train = roi_align.roi_align_plain
     layers.int8_conv_acc = layers.int8_conv_acc_plain
     layers.int8_matmul = layers.int8_matmul_plain
     nms.greedy_sorted = nms.nms_sorted_plain
+    bn_act.bn_act = bn_act.bn_act_plain
     try:
         yield
     finally:
         (dana.cisa_attention_shots, dana.roi_align, dana.roi_align_train,
-         layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted) = saved
+         layers.int8_conv_acc, layers.int8_matmul, nms.greedy_sorted,
+         bn_act.bn_act) = saved
 
 
 def match_detections(da, db, coord_atol, score_tol=1e-4):
@@ -4441,6 +4510,7 @@ def main():
         k1b_errs, k1b_sites = check_cisa_bf16(dev, gen)
         k2b_err, k2b_sites = check_roi_align_bf16_all(dev, gen, card)
         combine_backward = check_combine_backward(dev, gen, card)
+        bn_act_sites_ = check_bn_act(dev, gen)
     k1_err = max(k1_err, bucket_errs['cisa_shots'])
     k2_err = max(k2_err, bucket_errs['roi_align_fwd'], k2_c512_err,
                  k2_ls_err)
@@ -4576,6 +4646,7 @@ def main():
                                        'buckets': buckets,
                                        'widths': widths,
                                        'nms': nms_sites,
+                                       'bn_act': bn_act_sites_,
                                        'bf16': {'cisa': k1b_sites,
                                                 'roi_align_fwd':
                                                     k2b_sites}}}),

@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dana_tpu_torch.ops import bn_act as epilogue
 from dana_tpu_torch.ops.int8_mm import (int8_matmul,  # noqa: F401
                                         int8_matmul_plain, int_mm_operands)
 from dana_tpu_torch.parallel.distributed import current_group
@@ -274,6 +275,11 @@ class FrozenBatchNorm2d(nn.Module):
         return frozen_batchnorm(x, self.weight, self.bias, self.running_mean,
                                 self.running_var, self.eps)
 
+    def affine(self, dtype):
+        """(scale, offset) [C] in dtype (`frozen_bn_affine`)."""
+        return frozen_bn_affine(self.weight, self.bias, self.running_mean,
+                                self.running_var, self.eps, dtype)
+
 
 class BatchNorm2d(nn.Module):
     """A head's BatchNorm2d over NCHW whose affine trains (FGN's bn1 and
@@ -325,13 +331,32 @@ class BatchNorm2d(nn.Module):
         return centred * scale[:, None, None] + self.bias[:, None, None]
 
 
-def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):
-    """x * scale + offset over the channel axis 1 (NCHW), in x's dtype:
-    scale and offset are formed from the float32 statistics, then cast."""
+def frozen_bn_affine(weight, bias, running_mean, running_var, eps, dtype):
+    """A frozen BN's (scale, offset) [C] in dtype: formed from the float32
+    statistics, then cast."""
     scale = weight * torch.rsqrt(running_var + eps)
     offset = bias - running_mean * scale
-    scale, offset = scale.to(x.dtype), offset.to(x.dtype)
+    return scale.to(dtype), offset.to(dtype)
+
+
+def frozen_batchnorm(x, weight, bias, running_mean, running_var, eps=1e-5):
+    """x * scale + offset over the channel axis 1 (NCHW), in x's dtype
+    (`frozen_bn_affine`)."""
+    scale, offset = frozen_bn_affine(weight, bias, running_mean, running_var,
+                                     eps, x.dtype)
     return x * scale[:, None, None] + offset[:, None, None]
+
+
+def bn_act(x, bn: FrozenBatchNorm2d, residual=None, residual_bn=None):
+    """relu(bn(x) + residual_bn(residual)) on NCHW x, the BN-act epilogue
+    after a trunk conv, in one pass (ops/bn_act.py `bn_act`: the kernel on
+    the card, on the CPU the same ops as the chain written out): the
+    residual, when given, is the block's input, or with `residual_bn` the
+    downsample conv's output under its BN."""
+    scale, offset = bn.affine(x.dtype)
+    rscale, roffset = (None, None) if residual_bn is None \
+        else residual_bn.affine(x.dtype)
+    return epilogue.bn_act(x, scale, offset, residual, rscale, roffset)
 
 
 def max_pool(x, window=3, stride=2, ceil_mode=True):

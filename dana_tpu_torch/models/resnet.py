@@ -48,6 +48,16 @@ def _downsample(inplanes, out, stride):
                          L.FrozenBatchNorm2d(out))
 
 
+def _residual_out(block, out, bn, x):
+    """A block's last epilogue: relu(bn(out) + residual), the residual x,
+    or the downsample conv's output of x under the downsample's BN, in one
+    pass (`layers.bn_act`)."""
+    if block.downsample is None:
+        return L.bn_act(out, bn, x)
+    conv, ds_bn = block.downsample
+    return L.bn_act(out, bn, conv(x), ds_bn)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -63,11 +73,9 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(inplanes, out, stride)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        out = L.bn_act(self.conv1(x), self.bn1)
+        out = L.bn_act(self.conv2(out), self.bn2)
+        return _residual_out(self, self.conv3(out), self.bn3, x)
 
 
 class BasicBlock(nn.Module):
@@ -83,10 +91,8 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(inplanes, planes, stride)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        out = L.bn_act(self.conv1(x), self.bn1)
+        return _residual_out(self, self.conv2(out), self.bn2, x)
 
 
 _BLOCKS = {'basic': BasicBlock, 'bottleneck': Bottleneck}
@@ -187,7 +193,7 @@ def base_forward(x, backbone: ResNet):
     """[B, H, W, 3] canvases, or their space-to-depth packing [B, H/2+3,
     W/2+3, 12] -> [B, H/16, W/16, 4 * 64 * expansion]."""
     y = L.nhwc_to_nchw(x)
-    y = L.max_pool(F.relu(backbone.bn1(stem_conv(y, backbone))))
+    y = L.max_pool(L.bn_act(stem_conv(y, backbone), backbone.bn1))
     y = backbone.layer3(backbone.layer2(backbone.layer1(y)))
     return L.nchw_to_nhwc(y)
 

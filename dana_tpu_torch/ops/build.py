@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 
-KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align', 'nms')
+KERNELS = ('cisa_shots', 'cisa_shots_bf16', 'roi_align', 'nms', 'bn_act')
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.environ.get('DANA_BUILD_DIR') or os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), '_build')

@@ -127,22 +127,20 @@ def _each(fn, *lists):
 
 def _bottleneck(blocks, xs):
     out = halo_conv(xs, [b.conv1 for b in blocks])
-    out = _each(lambda b, o: F.relu(b.bn1(o)), blocks, out)
+    out = _each(lambda b, o: L.bn_act(o, b.bn1), blocks, out)
     out = halo_conv(out, [b.conv2 for b in blocks])
-    out = _each(lambda b, o: F.relu(b.bn2(o)), blocks, out)
+    out = _each(lambda b, o: L.bn_act(o, b.bn2), blocks, out)
     out = halo_conv(out, [b.conv3 for b in blocks])
-    out = _each(lambda b, o: b.bn3(o), blocks, out)
     if blocks[0].downsample is None:
-        res = xs
-    else:
-        res = halo_conv(xs, [b.downsample[0] for b in blocks])
-        res = _each(lambda b, r: b.downsample[1](r), blocks, res)
-    return _each(lambda o, r: F.relu(o + r), out, res)
+        return _each(lambda b, o, x: L.bn_act(o, b.bn3, x), blocks, out, xs)
+    res = halo_conv(xs, [b.downsample[0] for b in blocks])
+    return _each(lambda b, o, r: L.bn_act(o, b.bn3, r, b.downsample[1]),
+                 blocks, out, res)
 
 
 def _resnet(trunks, xs):
     ys = halo_conv(xs, [t.conv1 for t in trunks])
-    ys = _each(lambda t, y: F.relu(t.bn1(y)), trunks, ys)
+    ys = _each(lambda t, y: L.bn_act(y, t.bn1), trunks, ys)
     ys = halo_max_pool(ys, 3, 2, ceil_mode=True)
     for name in ('layer1', 'layer2', 'layer3'):
         for i in range(len(getattr(trunks[0], name))):

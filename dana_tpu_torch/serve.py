@@ -13,7 +13,8 @@ of the same architecture and stays far below the weights' size.
 
 The hand kernels are registered ops with fake implementations (K1
 `dana_torch::cisa_shots`, K2 `dana_torch::roi_align`, NMS
-`dana_torch::nms_sorted`), and so is the int8 product
+`dana_torch::nms_sorted`, the trunk's BN-act epilogue
+`dana_torch::bn_act`), and so is the int8 product
 (`dana_torch::int8_mm`, `torch._int_mm` on the card), so a program holds
 each as one call: on the card it launches the kernel and counts the
 launch, on the CPU it runs the plain version.  This module imports those
@@ -51,8 +52,8 @@ import torch.utils._pytree as pytree
 from torch.func import functional_call
 
 # the ops the artifacts call, registered on import
-from dana_tpu_torch.ops import (cisa_attention, int8_mm,  # noqa: F401
-                                nms, roi_align)
+from dana_tpu_torch.ops import (bn_act, cisa_attention,  # noqa: F401
+                                int8_mm, nms, roi_align)
 from dana_tpu_torch.utils import trace
 from dana_tpu_torch.utils.device import resolve_device, use_full_f32
 

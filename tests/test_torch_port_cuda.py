@@ -15,6 +15,7 @@ import sys
 import pytest
 import torch
 
+from dana_tpu_torch.ops import bn_act as ba
 from dana_tpu_torch.ops import cisa_attention as ca
 from dana_tpu_torch.ops import roi_align as ra
 from dana_tpu_torch.utils import trace
@@ -769,6 +770,12 @@ def test_custom_ops_opcheck_on_the_card(dev):
         feat = torch.randn(2, 38, 64, 1024, device=dev, generator=gen).to(dt)
         rois = chip_smoke.serving_rois(2, 40, gen, dev)
         torch.library.opcheck(ra.roi_align_op, (feat, rois, 7, 1 / 16, 16))
+        x = torch.randn(2, 64, 9, 10, device=dev, generator=gen).to(dt)
+        s, o = (torch.randn(64, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        x = x.contiguous(memory_format=torch.channels_last)
+        torch.library.opcheck(ba.bn_act_op, (x, s, o, x.flip(0), s, o))
+        torch.library.opcheck(ba.bn_act_op, (x, s, o, None, None, None))
 
 
 def test_export_round_trip_on_the_card(dev, tmp_path):
@@ -805,3 +812,116 @@ def test_export_round_trip_on_the_card(dev, tmp_path):
                                  info)
     assert all(torch.equal(a, b) for a, b in zip(feats, live))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# (shape [N, C, H, W], channels last, residual: None / 'identity' / 'bn'):
+# the trunk's epilogues at the cells' shapes (layer1 of a request of
+# 8, the stem, layer3's last conv with its downsample, layer4 on 2400 rois)
+# on the vector path, and the strided path (C off the 16-byte vector, or
+# NCHW memory)
+BN_ACT_CASES = {
+    'layer1': ((8, 256, 152, 256), True, 'identity'),
+    'stem': ((8, 64, 304, 512), True, None),
+    'layer3_down': ((8, 1024, 38, 64), True, 'bn'),
+    'layer4': ((2400, 2048, 4, 4), True, 'bn'),
+    'odd_c': ((3, 37, 9, 11), True, 'bn'),
+    'nchw': ((4, 64, 20, 24), False, 'identity'),
+}
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', BN_ACT_CASES)
+def test_bn_act_kernel_bit_equal_to_plain(dev, case, dtype):
+    """The epilogue's kernel and its backward against the plain chain of
+    PyTorch ops on the card (autograd's gradients for the backward), bit
+    for bit, NaN and infinities included; one launch each."""
+    shape, last, residual = BN_ACT_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    fmt = torch.channels_last if last else torch.contiguous_format
+
+    def rand(*size):
+        return torch.randn(size, device=dev, generator=gen).to(dtype)
+
+    x0, r0, g = (rand(*shape).contiguous(memory_format=fmt)
+                 for _ in range(3))
+    x0[0, 0, 0, :3] = torch.tensor([float('nan'), float('inf'), -0.0])
+    c = shape[1]
+    s, o, sr, orr = rand(c) + 1, rand(c), rand(c) + 1, rand(c)
+    rbn = (sr, orr) if residual == 'bn' else (None, None)
+    keys = [f'{op}.{str(dtype)[6:]}' for op in ('bn_act', 'bn_act_backward')]
+    outs = []
+    for fn in (ba.bn_act_plain, ba.bn_act):
+        x = x0.clone().requires_grad_()
+        r = None if residual is None else r0.clone().requires_grad_()
+        before = [launched(k) for k in keys]
+        y = fn(x, s, o, r, *rbn)
+        y.backward(g)
+        assert [launched(k) - b for k, b in zip(keys, before)] == \
+            ([1, 1] if fn is ba.bn_act else [0, 0])
+        outs.append((y.detach(), x.grad, None if r is None else r.grad))
+        del x, r, y
+    for want, got in zip(*outs):
+        if want is not None:
+            assert got.stride() == want.stride()
+            assert torch.equal(_bits(got), _bits(want))
+    with torch.no_grad():
+        r = None if residual is None else r0
+        served = ba.bn_act(x0, s, o, r, *rbn)
+        exported = ba.bn_act_op(x0, s, o, r, *rbn)
+    assert torch.equal(_bits(served), _bits(outs[0][0]))
+    assert torch.equal(_bits(exported), _bits(outs[0][0]))
+
+
+@pytest.mark.parametrize('down', [True, False], ids=['down', 'identity'])
+def test_bn_act_bottleneck_bit_equal_on_the_card(dev, down):
+    """A float32 bottleneck on the card, channels last, against its forward
+    before the epilogue: the output and the gradients of its input and of
+    every conv weight bit for bit (cuDNN deterministic, TF32 off)."""
+    import torch.nn.functional as F
+    from dana_tpu_torch.models import layers as L
+    from dana_tpu_torch.models import resnet
+
+    def present(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    block = resnet.Bottleneck(512 if down else 1024, 256, 2 if down else 1)
+    block = block.to(dev)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, L.FrozenBatchNorm2d):
+                c = m.weight.numel()
+                m.weight.copy_(torch.rand(c, device=dev, generator=gen) + .5)
+                m.bias.copy_(torch.randn(c, device=dev, generator=gen))
+                m.running_mean.copy_(torch.randn(c, device=dev,
+                                                 generator=gen))
+                m.running_var.copy_(torch.rand(c, device=dev,
+                                               generator=gen) + .1)
+            elif isinstance(m, L.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, device=dev,
+                                           generator=gen) * 0.03)
+    x0 = torch.randn(4, block.conv1.in_channels, 38, 64, device=dev,
+                     generator=gen).contiguous(
+                         memory_format=torch.channels_last)
+    outs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for fwd in (present, resnet.Bottleneck.forward):
+            block.zero_grad(set_to_none=True)
+            x = x0.clone().requires_grad_()
+            y = fwd(block, x)
+            y.backward(torch.ones_like(y))
+            outs.append([y.detach(), x.grad,
+                         *(p.grad for p in block.parameters())])
+    assert len(outs[1]) == (6 if down else 5)
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)

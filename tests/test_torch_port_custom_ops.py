@@ -1,5 +1,6 @@
 """The kernels' registered ops (K1 `dana_torch::cisa_shots`, K2
-`dana_torch::roi_align`, NMS `dana_torch::nms_sorted`) and int8 serving's
+`dana_torch::roi_align`, NMS `dana_torch::nms_sorted`, the trunk's
+epilogue `dana_torch::bn_act`) and int8 serving's
 product (`dana_torch::int8_mm`) on the CPU:
 `torch.library.opcheck` (schema, fake implementation, autograd
 registration, AOT dispatch) in float32 and bf16, and the NMS op's plain
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 
 from dana_tpu.ops import nms as jnms
 
+from dana_tpu_torch.ops import bn_act as ba
 from dana_tpu_torch.ops import cisa_attention as ca
 from dana_tpu_torch.ops import int8_mm
 from dana_tpu_torch.ops import nms as tnms
@@ -70,6 +72,21 @@ def test_cisa_op_opcheck(dtype, single):
     torch.library.opcheck(ca.cisa_shots_op, (*args, 0.25, 0.1, single))
     out = ca.cisa_shots_op(*args, 0.25, 0.1, single)
     assert out.shape == (2, 10, 24) and out.dtype == dtype
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_bn_act_ops_opcheck(dtype):
+    """The epilogue's op with and without a residual and its BN, x
+    channels-last and the residual not."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8, 5, 6, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    r = torch.randn(2, 8, 5, 6, generator=g).to(dtype)
+    s, o = (torch.randn(8, generator=g).to(dtype) for _ in range(2))
+    torch.library.opcheck(ba.bn_act_op, (x, s, o, r, s, o))
+    torch.library.opcheck(ba.bn_act_op, (x, s, o, r, None, None))
+    torch.library.opcheck(ba.bn_act_op, (x, s, o, None, None, None))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
